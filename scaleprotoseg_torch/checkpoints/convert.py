@@ -1,0 +1,173 @@
+"""Weight carry between the JAX package's param trees and the port.
+
+``ppnet_params_to_statedict`` turns a JAX ``params`` / ``batch_stats``
+pair (nested dicts of numpy arrays) into a reference-named state dict with
+OIHW kernels, re-packing the dense group weights per non-empty class as
+the reference stores them; the port's ``PPNet`` loads the result with
+``strict=True``.  It is the port's own copy of the JAX package's
+``checkpoints/torch_convert.py`` exporter (the one behind
+``convert_checkpoint export-torch``), so both produce the same dict for
+the modules the port holds.
+
+A checkpoint on disk is ``<stem>.pth`` (the state dict) beside
+``<stem>.ckpt.json`` (the spec sidecar the JAX package writes next to
+``<stem>.ckpt``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from scaleprotoseg_torch.spec import ProtoSpec
+
+SIDECAR_FORMAT = "scaleprotoseg_tpu/v1"
+
+
+def spec_from_meta(meta: Dict) -> ProtoSpec:
+    """The ``spec`` entry of a checkpoint sidecar -> ProtoSpec."""
+    return ProtoSpec.from_meta(meta)
+
+
+def _convbn_to_statedict(tree: Dict, stats: Dict, out: Dict, prefix: str):
+    """Walk ``{conv: {kernel, bias}, bn: {scale, bias}}`` nodes into
+    deeplab-named torch keys (HWIO -> OIHW)."""
+    for name, node in tree.items():
+        if not isinstance(node, dict):
+            continue
+        sub_stats = (stats or {}).get(name, {})
+        if "conv" in node or "bn" in node:
+            conv = node.get("conv", {})
+            if "kernel" in conv:
+                out[f"{prefix}{name}.conv.weight"] = \
+                    np.asarray(conv["kernel"]).transpose(3, 2, 0, 1)
+            if "bias" in conv:
+                out[f"{prefix}{name}.conv.bias"] = np.asarray(conv["bias"])
+            bn = node.get("bn", {})
+            sbn = sub_stats.get("bn", {})
+            if bn:
+                out[f"{prefix}{name}.bn.weight"] = np.asarray(bn["scale"])
+                out[f"{prefix}{name}.bn.bias"] = np.asarray(bn["bias"])
+                if "mean" in sbn:
+                    out[f"{prefix}{name}.bn.running_mean"] = \
+                        np.asarray(sbn["mean"])
+                if "var" in sbn:
+                    out[f"{prefix}{name}.bn.running_var"] = \
+                        np.asarray(sbn["var"])
+                out[f"{prefix}{name}.bn.num_batches_tracked"] = \
+                    np.asarray(0, np.int64)
+        else:
+            _convbn_to_statedict(node, sub_stats, out, f"{prefix}{name}.")
+
+
+def ppnet_params_to_statedict(params: Dict, batch_stats: Optional[Dict],
+                              spec: ProtoSpec, log=print
+                              ) -> Dict[str, np.ndarray]:
+    """JAX param tree -> reference-named state dict (numpy values).
+
+    Carries what the port's ``PPNet`` holds: the backbone, the prototypes
+    and the plain or group head.  Other param subtrees (the scale head,
+    conv add-ons: modules not ported yet) are reported through ``log``
+    and not exported."""
+    sd: Dict[str, np.ndarray] = {}
+    bb = params.get("backbone", {})
+    bstats = (batch_stats or {}).get("backbone", {})
+    _convbn_to_statedict({k: v for k, v in bb.items() if k != "aspp"},
+                         bstats, sd, "features.base.")
+    for branch, entry in bb.get("aspp", {}).items():
+        sd[f"features.base.aspp.{branch}.weight"] = \
+            np.asarray(entry["kernel"]).transpose(3, 2, 0, 1)
+        if "bias" in entry:
+            sd[f"features.base.aspp.{branch}.bias"] = \
+                np.asarray(entry["bias"])
+
+    if "prototype_vectors" in params:
+        pv = np.asarray(params["prototype_vectors"])
+        sd["prototype_vectors"] = pv.reshape(pv.shape[0], pv.shape[1], 1, 1)
+    if "last_layer" in params:
+        sd["last_layer.weight"] = \
+            np.ascontiguousarray(np.asarray(params["last_layer"]).T)
+    nonzero = spec.nonempty_classes
+    if "last_layer_group" in params:
+        g = spec.num_groups
+        full = np.asarray(params["last_layer_group"])   # (C*G, C)
+        w = np.zeros((spec.num_classes, len(nonzero) * g), np.float32)
+        for k, c in enumerate(nonzero):
+            w[:, k * g:(k + 1) * g] = full[c * g:(c + 1) * g, :].T
+        sd["last_layer_group.weight"] = w
+    if "group_projection" in params:
+        gw = np.asarray(params["group_projection"])     # (C, G, Pc_max)
+        for k, c in enumerate(nonzero):
+            pc = spec.class_counts[c]
+            sd[f"group_projection.{k}.weight"] = \
+                np.ascontiguousarray(gw[c, :, :pc], np.float32)
+    handled = {"backbone", "prototype_vectors", "last_layer",
+               "last_layer_group", "group_projection"}
+    dropped = sorted(k for k in params if k not in handled)
+    if dropped:
+        log(f"export-torch: NOT exporting unrecognized param subtree(s) "
+            f"{dropped}")
+    return sd
+
+
+def to_tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """numpy state dict -> tensors (copies, so read-only arrays are fine)."""
+    return {k: torch.tensor(np.asarray(v)) for k, v in sd.items()}
+
+
+def synthetic_state_dict(model: nn.Module, seed: int = 0
+                         ) -> Dict[str, np.ndarray]:
+    """Random nonzero weights for every entry of ``model.state_dict()``,
+    drawn from ``numpy.random.default_rng(seed)``: He-scaled kernels,
+    BN weight ~= 1, biases and means 0, running variance 1, prototypes
+    U[0, 1), group-projection rows on the simplex.  The port's counterpart
+    of the JAX package's ``synthetic_init``: activations stay finite at
+    full ResNet-101 depth."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for key, t in model.state_dict().items():
+        shape = tuple(t.shape)
+        if key.endswith("num_batches_tracked"):
+            out[key] = np.zeros(shape, np.int64)
+        elif key.endswith("running_var"):
+            out[key] = np.ones(shape, np.float32)
+        elif key.endswith("running_mean") or key.endswith(".bias"):
+            out[key] = np.zeros(shape, np.float32)
+        elif key.endswith("bn.weight"):
+            out[key] = (1.0 + 0.01 * rng.standard_normal(shape)) \
+                .astype(np.float32)
+        elif key.startswith("group_projection."):
+            w = rng.random(shape) + 1e-3
+            out[key] = (w / w.sum(-1, keepdims=True)).astype(np.float32)
+        elif key == "prototype_vectors":
+            out[key] = rng.random(shape).astype(np.float32)
+        else:
+            fan_in = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+            out[key] = (np.sqrt(2.0 / fan_in)
+                        * rng.standard_normal(shape)).astype(np.float32)
+    return out
+
+
+def save_checkpoint(stem: str, state_dict: Dict[str, np.ndarray],
+                    spec: ProtoSpec, extra: Optional[Dict] = None) -> None:
+    """Write ``<stem>.pth`` and the ``<stem>.ckpt.json`` spec sidecar."""
+    os.makedirs(os.path.dirname(stem) or ".", exist_ok=True)
+    torch.save(to_tensors(state_dict), stem + ".pth")
+    meta = {"format": SIDECAR_FORMAT, "spec": spec.to_meta()}
+    if extra:
+        meta["extra"] = extra
+    with open(stem + ".ckpt.json", "w") as f:
+        json.dump(meta, f, indent=2)
+
+
+def load_checkpoint(stem: str):
+    """(state dict of tensors, sidecar metadata) for ``<stem>``."""
+    sd = torch.load(stem + ".pth", map_location="cpu", weights_only=True)
+    with open(stem + ".ckpt.json") as f:
+        meta = json.load(f)
+    return sd, meta

@@ -1,0 +1,156 @@
+"""DeepLabV2 dilated ResNet with a sum/concat ASPP head (output stride 8).
+
+The reference naming (``layer1.conv1``, ``layerN.blockM.{reduce,conv3x3,
+increase,shortcut}.{conv,bn}``, ``aspp.c0..c3``) is kept so reference-named
+state dicts load with ``strict=True``.  Stride sits on the 1x1 reduce conv
+(COCO/caffe convention); layer3 strides 2, layer4/5 dilate by 2/4.
+
+Modules take and return NCHW tensors; on the card they run in
+channels_last memory, where the NCHW <-> NHWC permutes the ASPP and the
+prototype head need are free views.
+
+ASPP (``aspp_mode='concat'``: rate r's F channels at ``[r*F, (r+1)*F)``;
+``'sum'``: branches summed):
+
+- ``fast`` and bf16 and C >= 512: the K2 kernel (``kernels.aspp``), its
+  bf16 output cast to float32; its packed weights are built once per set
+  of weights;
+- ``fast`` and bf16 below that depth: the shifted-matmul form with the
+  same bf16 contract;
+- otherwise the shifted-matmul form in float32, as the JAX package's XLA
+  path.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from scaleprotoseg_torch.kernels.aspp import (KERNEL_MIN_C, aspp_plain,
+                                              fused_aspp, pack_weights,
+                                              shifted_sum)
+from scaleprotoseg_torch.models.layers import (ConvBN, WeightCache,
+                                               max_pool_ceil)
+
+
+class Bottleneck(nn.Module):
+    """1x1 reduce -> 3x3 (dilated) -> 1x1 increase, projection shortcut on
+    the first block of a layer."""
+
+    def __init__(self, cin: int, mid: int, out: int, stride: int,
+                 dilation: int, shortcut: bool):
+        super().__init__()
+        self.reduce = ConvBN(cin, mid, 1, stride=stride)
+        self.conv3x3 = ConvBN(mid, mid, 3, dilation=dilation)
+        self.increase = ConvBN(mid, out, 1, relu=False)
+        self.shortcut = ConvBN(cin, out, 1, stride=stride, relu=False) \
+            if shortcut else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.increase(self.conv3x3(self.reduce(x)))
+        s = self.shortcut(x) if self.shortcut is not None else x
+        return torch.relu_(h + s)
+
+
+def res_layer(n_blocks: int, cin: int, mid: int, out: int, stride: int,
+              dilation: int) -> nn.Sequential:
+    return nn.Sequential(OrderedDict(
+        (f"block{i + 1}", Bottleneck(cin if i == 0 else out, mid, out,
+                                     stride if i == 0 else 1, dilation,
+                                     shortcut=(i == 0)))
+        for i in range(n_blocks)))
+
+
+class Stem(nn.Module):
+    """7x7/2 conv + BN + ReLU + 3x3/2 ceil-mode max pool."""
+
+    def __init__(self, out: int = 64):
+        super().__init__()
+        self.conv1 = ConvBN(3, out, 7, stride=2, padding=3)
+        self.pool = max_pool_ceil()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pool(self.conv1(x))
+
+
+class ASPPBranch(nn.Module):
+    """Parameters of one 3x3 atrous branch: ``weight`` (F, C, 3, 3) and
+    ``bias`` (F,), as an ``nn.Conv2d`` would name them."""
+
+    def __init__(self, cin: int, cout: int, rate: int):
+        super().__init__()
+        self.rate = rate
+        self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        nn.init.normal_(self.weight, std=0.01)
+
+    def hwio(self) -> torch.Tensor:
+        """(3, 3, C, F) view, the JAX package's kernel layout."""
+        return self.weight.permute(2, 3, 1, 0)
+
+
+class ASPP(nn.Module):
+    """Parallel 3x3 atrous branches ``c0..c{R-1}`` in 'sum' or 'concat'
+    mode; see the module docstring for the three forms."""
+
+    def __init__(self, cin: int, n_out: int, rates: Sequence[int],
+                 mode: str, fast: bool = False):
+        super().__init__()
+        if mode not in ("sum", "concat"):
+            raise ValueError(f"Unknown ASPP mode: {mode}")
+        self.rates = tuple(rates)
+        self.mode = mode
+        self.fast = fast
+        for i, r in enumerate(self.rates):
+            self.add_module(f"c{i}", ASPPBranch(cin, n_out, r))
+        self._packed = WeightCache()      # K2's weight stack, built once
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xh = x.permute(0, 2, 3, 1).contiguous()        # NHWC
+        branches = [getattr(self, f"c{i}") for i in range(len(self.rates))]
+        weights = [b.hwio() for b in branches]
+        biases = [b.bias for b in branches]
+        if self.fast and x.dtype == torch.bfloat16:
+            if xh.shape[-1] >= KERNEL_MIN_C:
+                packed = self._packed.get(
+                    list(self.parameters()),
+                    lambda: pack_weights(weights, biases))
+                y = fused_aspp(xh, weights, biases, self.rates, packed)
+            else:
+                y = aspp_plain(xh, weights, biases, self.rates)
+            y = y.float()
+        else:
+            y = shifted_sum(xh, weights, biases, self.rates)
+        if self.mode == "sum":
+            y = y.reshape(*y.shape[:-1], len(self.rates), -1).sum(-2)
+        return y.permute(0, 3, 1, 2)
+
+
+class DeepLabV2(nn.Module):
+    """Dilated ResNet + ASPP feature extractor (output stride 8).
+
+    ``n_blocks=(3, 4, 23, 3)`` is ResNet-101, ``(3, 4, 6, 3)`` ResNet-50.
+    Output channels: ``n_out`` for 'sum', ``len(rates) * n_out`` for
+    'concat'."""
+
+    def __init__(self, n_out: int, n_blocks: Tuple[int, ...] = (3, 4, 23, 3),
+                 atrous_rates: Tuple[int, ...] = (6, 12, 18, 24),
+                 aspp_mode: str = "concat", fast_aspp: bool = False):
+        super().__init__()
+        ch = [64 * 2 ** p for p in range(6)]
+        self.layer1 = Stem(ch[0])
+        self.layer2 = res_layer(n_blocks[0], ch[0], ch[0], ch[2], 1, 1)
+        self.layer3 = res_layer(n_blocks[1], ch[2], ch[1], ch[3], 2, 1)
+        self.layer4 = res_layer(n_blocks[2], ch[3], ch[2], ch[4], 1, 2)
+        self.layer5 = res_layer(n_blocks[3], ch[4], ch[3], ch[5], 1, 4)
+        self.aspp = ASPP(ch[5], n_out, atrous_rates, aspp_mode,
+                         fast=fast_aspp)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4,
+                      self.layer5):
+            x = layer(x)
+        return self.aspp(x)

@@ -1,0 +1,97 @@
+"""Model construction from a run's config bindings.
+
+Covers the DeepLabV2 ResNet backbones of the Cityscapes configs
+(``deeplabv2_resnet{101,50}`` with a summed ASPP and their ``_multiscale``
+concat-ASPP twins); the other backbones, the MSC input pyramid and the
+scale head are not part of the port yet and are refused by name.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from scaleprotoseg_torch.configlib import Bindings, query
+from scaleprotoseg_torch.models.deeplab import DeepLabV2
+from scaleprotoseg_torch.models.ppnet import PPNet
+from scaleprotoseg_torch.spec import ProtoSpec
+
+RATES = (6, 12, 18, 24)
+_BACKBONES = {
+    # name -> (config name, ResNet blocks, ASPP mode)
+    "deeplabv2_resnet101": ("deeplabv2_resnet101_features", (3, 4, 23, 3),
+                            "sum"),
+    "deeplabv2_resnet50": ("deeplabv2_resnet50_features", (3, 4, 6, 3),
+                           "sum"),
+    "deeplabv2_resnet101_multiscale": (
+        "deeplabv2_resnet101_features_multiscale", (3, 4, 23, 3), "concat"),
+    "deeplabv2_resnet50_multiscale": (
+        "deeplabv2_resnet50_features_multiscale", (3, 4, 6, 3), "concat"),
+}
+
+
+def build_backbone(base_architecture: str, bindings: Bindings
+                   ) -> Tuple[DeepLabV2, int]:
+    """(backbone, output channels) for a named architecture."""
+    if base_architecture not in _BACKBONES:
+        raise NotImplementedError(
+            f"backbone {base_architecture!r} is not ported yet; the port "
+            f"has {sorted(_BACKBONES)}")
+    name, n_blocks, mode = _BACKBONES[base_architecture]
+    n_features = query(bindings, name, "deeplab_n_features")
+    if n_features is None:
+        raise ValueError(f"{name}.deeplab_n_features is REQUIRED")
+    scales = [s for s in (query(bindings, name, "scales", ()) or ())
+              if s != 1.0]
+    if scales:
+        raise NotImplementedError(f"the MSC input pyramid {scales} is not "
+                                  "ported yet")
+    backbone = DeepLabV2(n_out=int(n_features), n_blocks=n_blocks,
+                         atrous_rates=RATES, aspp_mode=mode)
+    out_ch = int(n_features) * (len(RATES) if mode == "concat" else 1)
+    return backbone, out_ch
+
+
+def construct_ppnet(variant: str, base_architecture: str,
+                    prototype_shape=(2000, 512, 1, 1), num_classes: int = 200,
+                    prototype_activation_function: str = "log",
+                    add_on_layers_type: str = "deeplab_simple",
+                    scale_head_type: Optional[str] = None,
+                    bindings: Optional[Bindings] = None,
+                    spec: Optional[ProtoSpec] = None,
+                    incorrect_strength: float = -0.5,
+                    dtype: torch.dtype = torch.float32,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Tuple[PPNet, ProtoSpec]:
+    """Build (model, spec).  ``variant``: 'single' | 'multiscale' | 'group'.
+
+    ``spec`` overrides the equal-allocation bank (a pushed or pruned
+    checkpoint's own layout)."""
+    bindings = bindings or {}
+    if variant not in ("single", "multiscale", "group"):
+        raise ValueError(variant)
+    if scale_head_type is not None:
+        raise NotImplementedError("the scale head is not ported yet")
+    cls_name = "PPNet" if variant == "single" else "PPNetMultiScale"
+    num_scales = 1 if variant == "single" else \
+        int(query(bindings, cls_name, "num_scales", 4))
+    num_groups = int(query(bindings, cls_name, "num_groups", 3)) \
+        if variant == "group" else 0
+    if not query(bindings, cls_name, "patch_classification", True):
+        raise NotImplementedError("only per-pixel classification exists")
+    backbone, out_ch = build_backbone(base_architecture, bindings)
+    if spec is None:
+        spec = ProtoSpec.equal_allocation(
+            prototype_shape[0], prototype_shape[1], num_classes,
+            num_scales=num_scales, num_groups=num_groups)
+    if spec.feature_depth != out_ch:
+        raise ValueError(
+            f"backbone channels {out_ch} != num_scales*proto_depth "
+            f"{spec.feature_depth}; check deeplab_n_features / num_scales")
+    model = PPNet(backbone, spec, add_on_type=add_on_layers_type,
+                  activation_fn=prototype_activation_function,
+                  grouped=(variant == "group"),
+                  incorrect_strength=incorrect_strength,
+                  dtype=dtype, generator=generator)
+    return model, spec

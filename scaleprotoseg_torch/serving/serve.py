@@ -1,0 +1,183 @@
+"""Serving CLI: stream a directory of images through a run directory's
+model and write label maps.
+
+    python -m scaleprotoseg_torch.serving.serve MODEL_NAME PHASE \\
+        --input DIR [--output DIR] [--batch N] [--device cuda|cpu]
+
+The model is rebuilt from ``<results-root>/MODEL_NAME`` (``config.gin``
+plus the ``checkpoints/<stage>.pth`` state dict and its ``.ckpt.json``
+spec).  Input: ``.npy`` uint8 images (or ``.png``/``.jpg``) of one shape.
+Output: one grayscale PNG of train ids per image (``--raw-output``:
+``.npy`` arrays) and a JSON throughput line.
+
+The device is ``cuda`` unless ``--device`` names another; without a card
+that is an error, not a silent CPU run.  On the card the fast path runs
+(bf16 backbone, the K2 ASPP, K1 prototype-head and K3 upsample-argmax
+kernels; ``--no-fast`` turns it off); on the CPU the float32 plain path.
+Normalization runs on the device by default: raw uint8 ships to the card
+and the forward computes ``(x / 255 - mean) / std`` in float32
+(``--host-preprocess`` normalizes on the host instead; float sources
+imply it).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from scaleprotoseg_torch import settings
+from scaleprotoseg_torch.constants import IMAGENET_MEAN, IMAGENET_STD
+
+
+def _list_images(input_dir: str, limit: Optional[int]) -> List[str]:
+    names = sorted(p for p in os.listdir(input_dir)
+                   if p.endswith((".npy", ".png", ".jpg")))
+    if not names:
+        raise FileNotFoundError(f"no .npy/.png/.jpg images in {input_dir}")
+    return names[:limit] if limit else names
+
+
+def _load(path: str) -> np.ndarray:
+    if path.endswith(".npy"):
+        return np.load(path)
+    from PIL import Image
+    return np.asarray(Image.open(path).convert("RGB"))
+
+
+def _make_preprocess(input_dir: str, normalize: bool = True):
+    """Decode, then normalize to float32 (``normalize``) or pass raw
+    uint8 through for on-device normalization."""
+    mean = np.asarray(IMAGENET_MEAN, np.float32)
+    std = np.asarray(IMAGENET_STD, np.float32)
+
+    def preprocess(name: str) -> np.ndarray:
+        img = _load(os.path.join(input_dir, name))
+        if normalize:
+            return (img.astype(np.float32) / 255.0 - mean) / std
+        if img.dtype != np.uint8:
+            raise ValueError(f"{name} is {img.dtype}, not uint8: rerun with "
+                             "--host-preprocess for float sources")
+        return img
+
+    return preprocess
+
+
+def run_serving(predict, names, preprocess, out_dir: str, batch_size: int,
+                device: torch.device, workers: int = 2, writers: int = 2,
+                raw_output: bool = False) -> dict:
+    """Stream ``names`` through ``predict``, write the predictions, and
+    return throughput stats.  Timing starts after a one-batch warmup and
+    covers the whole pipeline, host decode and writes included; on the
+    card the record adds the device's idle share of that window."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from scaleprotoseg_torch.serving.engine import ServingEngine
+
+    os.makedirs(out_dir, exist_ok=True)
+    engine = ServingEngine(predict, batch_size, preprocess=preprocess,
+                           workers=workers, device=device)
+
+    def write_one(name, pred):
+        stem = os.path.splitext(name)[0]
+        if raw_output:
+            np.save(os.path.join(out_dir, f"{stem}.npy"),
+                    pred.astype(np.uint8))
+        else:
+            Image.fromarray(pred.astype(np.uint8)).convert("L").save(
+                os.path.join(out_dir, f"{stem}.png"))
+
+    for _ in engine.run((n, n) for n in names[:batch_size]):
+        pass
+    engine.device_seconds = 0.0
+    t0 = time.perf_counter()
+    count = 0
+    with ThreadPoolExecutor(max(1, writers)) as pool:
+        pending = []
+        for name, pred in engine.run((n, n) for n in names):
+            pending.append(pool.submit(write_one, name, pred))
+            count += 1
+            if len(pending) > 2 * writers:   # bound memory; surface errors
+                pending.pop(0).result()
+        for fut in pending:
+            fut.result()
+    dt = time.perf_counter() - t0
+    idle = 1.0 - engine.device_seconds / dt \
+        if device.type == "cuda" and dt else None
+    return {"images": count, "seconds": dt,
+            "img_per_s": count / dt if dt else None,
+            "device_idle_share": idle,
+            "batch_size": batch_size, "output_dir": out_dir}
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("model_name")
+    p.add_argument("training_phase")
+    p.add_argument("--input", required=True, help="image directory")
+    p.add_argument("--output", help="prediction directory "
+                   "(default <input>/predictions)")
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--limit", type=int)
+    p.add_argument("--workers", type=int, default=2,
+                   help="decode/preprocess threads")
+    p.add_argument("--writers", type=int, default=2,
+                   help="prediction-write threads")
+    p.add_argument("--raw-output", action="store_true",
+                   help="write .npy label arrays instead of PNGs")
+    p.add_argument("--results-root", help="override settings results dir")
+    p.add_argument("--host-preprocess", action="store_true",
+                   help="normalize on the host (float32) instead of on the "
+                   "device; implied by float image sources")
+    p.add_argument("--no-fast", action="store_true",
+                   help="disable the fused-kernel fast path")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' runs the float32 "
+                   "plain path)")
+    args = p.parse_args(argv)
+
+    from scaleprotoseg_torch.model_loading import (load_model,
+                                                   resolve_checkpoint,
+                                                   resolve_device)
+    device = resolve_device(args.device)
+    names = _list_images(args.input, args.limit)
+    raw0 = _load(os.path.join(args.input, names[0]))
+    device_pre = not (args.host_preprocess or raw0.dtype != np.uint8)
+    fast = (not args.no_fast) and device.type == "cuda"
+    dtype = torch.bfloat16 if fast else torch.float32
+
+    model_path = os.path.join(args.results_root or settings.results_dir(),
+                              args.model_name)
+    ckpt = resolve_checkpoint(model_path, args.training_phase)
+    model, _ = load_model(model_path, ckpt, dtype=dtype, fast=fast,
+                          device=device)
+    from scaleprotoseg_torch.serving.export import make_serving_fn
+    fn = make_serving_fn(model, fast=fast,
+                         normalize_to=dtype if device_pre else None)
+    if device_pre:
+        predict = fn
+    else:
+        predict = lambda x: fn(x.to(dtype))  # noqa: E731
+
+    out_dir = args.output or os.path.join(args.input, "predictions")
+    record = run_serving(predict, names,
+                         _make_preprocess(args.input, normalize=not device_pre),
+                         out_dir, args.batch, device, workers=args.workers,
+                         writers=args.writers, raw_output=args.raw_output)
+    record.update(preprocess="device" if device_pre else "host",
+                  fast=fast, device=str(device),
+                  device_name=(torch.cuda.get_device_name(device)
+                               if device.type == "cuda" else "cpu"))
+    print(json.dumps(record))
+    return record
+
+
+if __name__ == "__main__":
+    main()
