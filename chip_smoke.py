@@ -13,20 +13,40 @@ Phases; any failure exits non-zero and prints no result:
    plain PyTorch version on the same inputs: K2 within 2 bf16 ulps of
    the fp32-accumulated plain form, K1 rtol = atol = 1e-4 in fp32 with
    TF32 off on the plain side, K3 labels equal wherever the plain
-   version's top-two margin is at least 1e-5.  Times are CUDA-event
-   medians of 10 runs after warmup, beside the plain version, one PyTorch
-   library call computing the same function (a yardstick the port never
-   calls) and the least time the card could take;
-4. slice: a temporary run directory (the Cityscapes group config, seeded
-   synthetic weights for the full-depth ResNet-101 flagship, 256 seeded
-   uint8 1024 x 2048 images) served three times through
-   ``scaleprotoseg_torch.serving.serve.main`` at batch 2, a timed window
-   of several seconds each.  Every kernel must launch at least once per
-   batch of every run, and the labels must agree with the port's plain
-   path (same bf16 model, plain versions instead of kernels) on at least
-   99% of pixels.  Per run: img/s and the device's idle share of the
-   timed window (``ServingEngine``'s per-batch stream spans);
-5. one line per kernel with its times, bound and launches, the kernels
+   version's top-two margin is at least 1e-5.  K2's backward at the
+   training shapes (batch 2 at 65 x 65 x 2048): ``aspp_grad_pack`` bit
+   for bit against the plain pack, ``aspp_grad_weight`` within rtol =
+   atol = 1e-3 of the fp32 plain product (TF32 off) and the same bits on
+   a second run, and the whole ``aspp_trainable`` backward against
+   autograd through the plain form (dx within 2 bf16 ulps, dW and db
+   within 1e-3 of their scale).  Times are CUDA-event medians of 10 runs
+   after warmup, beside the plain version, one PyTorch library call
+   computing the same function (a yardstick the port never calls) and
+   the least time the card could take;
+4. serving slice: a temporary run directory (the Cityscapes group
+   config, seeded synthetic weights for the full-depth ResNet-101
+   flagship, 256 seeded uint8 1024 x 2048 images) served three times
+   through ``scaleprotoseg_torch.serving.serve.main`` at batch 2, a timed
+   window of several seconds each.  Every serving kernel must launch at
+   least once per batch of every run, and the labels must agree with the
+   port's plain path (same bf16 model, plain versions instead of kernels)
+   on at least 99% of pixels.  Per run: img/s and the device's idle share
+   of the timed window (``ServingEngine``'s per-batch stream spans);
+5. training slice: a temporary Cityscapes-layout data root (24 train and
+   4 val seeded uint8 1024 x 2048 images, raw category-index labels in
+   blocks holding void and every train class) trained through
+   ``scaleprotoseg_torch.train_wandb_multiscale.main --gpu-recipe`` on
+   the full-depth flagship backbone: 20 warm-up and 40 joint micro-steps
+   (``iter_size`` 5), a validation every 20.  Per phase: every micro-step's
+   loss finite, K2's forward launched once per micro-step and validation
+   batch, both backward kernels once per micro-step; training img/s,
+   median step ms (CUDA events) and the device's idle share past the
+   first 3 steps.  Then one micro-step of the kernel path against the
+   plain path (same bf16 model and batch; plain K2 forward and backward):
+   loss within 1e-3, ASPP-weight and prototype gradients within 2e-2
+   relative L2.  Finally ``push_final`` loads through ``load_model`` and
+   serves one finite batch;
+6. one line per kernel with its times, bound and launches, the kernels
    line (K1-K4 with their status), then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
@@ -47,10 +67,15 @@ import torch
 import torch.nn.functional as F
 
 from scaleprotoseg_torch import kernels
-from scaleprotoseg_torch.checkpoints.convert import (save_checkpoint,
+from scaleprotoseg_torch.checkpoints.convert import (load_checkpoint,
+                                                     save_checkpoint,
                                                      synthetic_state_dict)
 from scaleprotoseg_torch.configlib import parse_config
-from scaleprotoseg_torch.kernels.aspp import aspp_plain, pack_weights
+from scaleprotoseg_torch.constants import CITYSCAPES_19_EVAL_CATEGORIES
+from scaleprotoseg_torch.kernels.aspp import (aspp_plain, aspp_trainable,
+                                              grad_pack_plain,
+                                              grad_weight_plain, pack_weights,
+                                              shifted_sum)
 from scaleprotoseg_torch.kernels.proto import pack_head, proto_plain
 from scaleprotoseg_torch.kernels.upsample import upsample_argmax_plain
 from scaleprotoseg_torch.model_loading import load_model
@@ -70,9 +95,14 @@ PEAK_FP32_FLOPS = 67e12
 
 B, HEIGHT, WIDTH = 2, 1024, 2048
 FH, FW = 129, 257             # output-stride-8 grid of 1024 x 2048
+TH = TW = 65                  # output-stride-8 grid of a 513 x 513 crop
 RATES = (6, 12, 18, 24)
 N_IMAGES = 256                # ~5 s of serving per run at ~50 img/s
 SERVE_RUNS = 3
+N_TRAIN, N_VAL = 24, 4
+WARMUP_STEPS, JOINT_STEPS, VAL_EVERY = 20, 40, 20
+SERVING_KERNELS = ("aspp", "proto", "upsample")
+TRAINING_KERNELS = ("aspp", "aspp_grad_pack", "aspp_grad_weight")
 
 CONFIG = """\
 PPNetMultiScale.num_groups = 3
@@ -93,9 +123,15 @@ STILL_TO_PORT = [{
     "replaces": "benchmarks/bench_int8_mosaic.py:34 pallas_mm "
                 "(pallas_call :48)"}]
 
+BWD = "scaleprotoseg_tpu/ops/pallas_aspp.py:319 fused_aspp_trainable bwd"
+SOURCES = {"aspp": "aspp", "aspp_grad_pack": "aspp_bwd",
+           "aspp_grad_weight": "aspp_bwd", "proto": "proto",
+           "upsample": "upsample"}
 REPLACES = {
     "aspp": "scaleprotoseg_tpu/ops/pallas_aspp.py:68 fused_aspp "
             "(pallas_call :169)",
+    "aspp_grad_pack": BWD + " (shifted-gradient pack G, :349-360)",
+    "aspp_grad_weight": BWD + " (dW_all = x^T G, :369-370)",
     "proto": "scaleprotoseg_tpu/ops/pallas_proto.py:99 fused_proto_logits "
              "(pallas_call :173)",
     "upsample": "scaleprotoseg_tpu/ops/pallas_upsample.py:127 "
@@ -189,12 +225,7 @@ def check_aspp(gen, dev) -> dict:
                           for w, b, r in zip(w_oihw, b_bf, RATES)], dim=1)
 
     # work the function must do: only taps that land inside the image
-    taps = 0
-    for r in RATES:
-        for d in (-r, 0, r):
-            for e in (-r, 0, r):
-                taps += max(FH - abs(d), 0) * max(FW - abs(e), 0)
-    flops = 2.0 * B * taps * c * f
+    flops = valid_tap_flops(FH, FW, c, f)
     moved = nbytes(x, got.to(torch.bfloat16)) + len(RATES) * (
         9 * c * f * 2 + f * 4)
     b_ms, b_by = bound(moved, flops, PEAK_BF16_FLOPS)
@@ -304,7 +335,125 @@ def check_upsample(gen, dev) -> dict:
         library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
 
 
-def device_kernel_ms(fn, symbol: str, iters: int = 5):
+def valid_tap_flops(h: int, w: int, c: int, f: int) -> float:
+    """Operations of a concat-ASPP product over (h, w, c) -> 4 x f that
+    only counts the taps landing inside the image, batch B."""
+    taps = 0
+    for r in RATES:
+        for d in (-r, 0, r):
+            for e in (-r, 0, r):
+                taps += max(h - abs(d), 0) * max(w - abs(e), 0)
+    return 2.0 * B * taps * c * f
+
+
+def check_aspp_backward(gen, dev) -> list:
+    """K2's backward kernels at the training shapes (batch 2, 65 x 65 x
+    2048 bf16): the pack bit for bit, dW within 1e-3 of the fp32 plain
+    product and deterministic, and the whole Function backward against
+    autograd through the plain form."""
+    c, f = 2048, 64
+    x = torch.rand((B, TH, TW, c), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    std = math.sqrt(2.0 / (9 * c))
+    ws = [torch.randn((3, 3, c, f), generator=gen, device=dev) * std
+          for _ in RATES]
+    bs = [torch.randn((f,), generator=gen, device=dev) * 0.1 for _ in RATES]
+    g = torch.randn((B, TH, TW, len(RATES) * f), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    x2d = x.reshape(-1, c)
+
+    packed_g = kernels.aspp_grad_pack(g, RATES, f)
+    if not torch.equal(packed_g, grad_pack_plain(g, RATES, f)):
+        raise AssertionError("aspp_grad_pack differs from the plain pack")
+    dw = kernels.aspp_grad_weight(x2d, packed_g)
+    dw_plain = grad_weight_plain(x2d, packed_g)
+    torch.testing.assert_close(dw, dw_plain, rtol=1e-3, atol=1e-3)
+    if not torch.equal(dw, kernels.aspp_grad_weight(x2d, packed_g)):
+        raise AssertionError("aspp_grad_weight is not deterministic")
+    dw_err = (dw - dw_plain).abs().max().item()
+
+    # the whole backward: the Function against autograd through the plain
+    # form on x upcast (36 tap gradients added in fp32, rounded once) and
+    # on the bf16-rounded weights (the rounding passed through, so dW
+    # stays fp32)
+    def grads(fn):
+        xs = x.clone().requires_grad_()
+        wv = [w.clone().requires_grad_() for w in ws]
+        bv = [b.clone().requires_grad_() for b in bs]
+        fn(xs, wv, bv).backward(g)
+        return [xs.grad] + [w.grad for w in wv] + [b.grad for b in bv]
+
+    got = grads(lambda a, w, b: aspp_trainable(a, w, b, RATES))
+    want = grads(lambda a, w, b: shifted_sum(
+        a.float(), [wt + (wt.to(torch.bfloat16).float() - wt).detach()
+                    for wt in w], b, RATES).to(torch.bfloat16))
+    gx, wx = got[0].float(), want[0].float()
+    mag = torch.maximum(wx.abs(), wx.abs().max() * 2.0 ** -10)
+    ulps = ((gx - wx).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+            ).max().item()
+    if not ulps <= 2:
+        raise AssertionError(f"aspp backward dx: {ulps} bf16 ulps")
+    rel = []
+    for a, b in zip(got[1:], want[1:]):
+        scale = b.abs().max().item()
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3 * scale)
+        rel.append((a - b).abs().max().item() / scale)
+    log(f"aspp backward: dx within {ulps:g} bf16 ulps, dW/db within "
+        f"{max(rel):.3g} of their scale, of autograd through the plain form")
+    del got, want
+
+    # yardsticks: cuDNN's dilated convs, their weight gradient alone and
+    # their whole backward, on the same tensors
+    xc = x.permute(0, 3, 1, 2)                       # channels_last view
+    gc = g.permute(0, 3, 1, 2)
+
+    def cudnn_backward(x_grad: bool):
+        xs = xc.detach().requires_grad_(x_grad)
+        wv = [w.permute(3, 2, 0, 1).to(torch.bfloat16).requires_grad_()
+              for w in ws]
+        bv = [b.to(torch.bfloat16).requires_grad_() for b in bs]
+        y = torch.cat([F.conv2d(xs, w, b, padding=r, dilation=r)
+                       for w, b, r in zip(wv, bv, RATES)], dim=1)
+        inputs = ([xs] if x_grad else []) + wv + bv
+        return lambda: torch.autograd.grad(y, inputs, gc, retain_graph=True)
+
+    xr = x.clone().requires_grad_()
+    wr = [w.clone().requires_grad_() for w in ws]
+    br = [b.clone().requires_grad_() for b in bs]
+    y_fn = aspp_trainable(xr, wr, br, RATES)
+    fn_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        y_fn, [xr] + wr + br, g, retain_graph=True)
+    log(f"aspp backward ms: Function (dx, dW, db) "
+        f"{time_ms(fn_bwd):.4f}; cuDNN dilated convs + cat, whole backward "
+        f"{time_ms(cudnn_backward(True)):.4f}")
+
+    n = B * TH * TW
+    kc = packed_g.shape[1]
+    pack_ms, pack_by = bound(nbytes(g, packed_g), 0.0, PEAK_BF16_FLOPS)
+    w_ms, w_by = bound(nbytes(x, packed_g, dw),
+                       valid_tap_flops(TH, TW, c, f), PEAK_BF16_FLOPS)
+    log(f"aspp backward work: G {tuple(packed_g.shape)} over {n} pixels, "
+        f"dW {c} x {kc}; all taps {2.0 * n * c * kc / 1e9:.1f} GFLOP, "
+        f"inside the image {valid_tap_flops(TH, TW, c, f) / 1e9:.1f} GFLOP")
+    return [
+        dict(name="aspp_grad_pack", max_abs_err=0.0,
+             device_ms=device_kernel_ms(
+                 lambda: kernels.aspp_grad_pack(g, RATES, f),
+                 "aspp_grad_pack_kernel"),
+             ms=time_ms(lambda: kernels.aspp_grad_pack(g, RATES, f)),
+             plain_ms=time_ms(lambda: grad_pack_plain(g, RATES, f)),
+             library_ms=None, bound_ms=pack_ms, bound_by=pack_by),
+        dict(name="aspp_grad_weight", max_abs_err=dw_err,
+             device_ms=device_kernel_ms(
+                 lambda: kernels.aspp_grad_weight(x2d, packed_g),
+                 ("aspp_grad_weight_kernel", "split_sum_kernel")),
+             ms=time_ms(lambda: kernels.aspp_grad_weight(x2d, packed_g)),
+             plain_ms=time_ms(lambda: grad_weight_plain(x2d, packed_g)),
+             library_ms=time_ms(cudnn_backward(False)), bound_ms=w_ms,
+             bound_by=w_by)]
+
+
+def device_kernel_ms(fn, symbol, iters: int = 5):
     """Device ms per call of the CUDA kernel whose name holds ``symbol``,
     from the profiler (None if the trace shows no such kernel)."""
     from torch.profiler import ProfilerActivity, profile
@@ -314,9 +463,10 @@ def device_kernel_ms(fn, symbol: str, iters: int = 5):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    symbols = (symbol,) if isinstance(symbol, str) else symbol
     total = None
     for evt in prof.key_averages():
-        if symbol in evt.key:
+        if any(sym in evt.key for sym in symbols):
             total = (total or 0.0) + _device_us(evt) / 1e3 / iters
     return total
 
@@ -353,7 +503,8 @@ def serve_run(run_root: str, img_dir: str, out_dir: str) -> dict:
                          "--workers", "4"])
     counts = kernels.launch_counts()
     batches = 1 + math.ceil(N_IMAGES / B)     # warmup + timed pass
-    for name, n in counts.items():
+    for name in SERVING_KERNELS:
+        n = counts[name]
         if n < batches:
             raise AssertionError(f"{name} launched {n} times in "
                                  f"{batches} batches")
@@ -362,7 +513,7 @@ def serve_run(run_root: str, img_dir: str, out_dir: str) -> dict:
     return dict(record, counts=counts)
 
 
-def slice_phase(dev, smi: str) -> dict:
+def serving_phase(dev, smi: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         run = write_run(tmp, seed=0)
@@ -438,35 +589,222 @@ def slice_phase(dev, smi: str) -> dict:
                     batch_ms=batch_ms)
 
 
-def profile_batch(fn, top: int = 12) -> dict:
-    """Device ms per call: the three kernels, convolution/GEMM kernels,
-    batch norm, other elementwise kernels, the rest, and the ``top``
-    kernels by time."""
+# ---------------------------------------------------------------------------
+# phase 5: the training slice
+# ---------------------------------------------------------------------------
+def write_city_root(root: str, seed: int) -> str:
+    """Cityscapes layout at Cityscapes size: uint8 1024 x 2048 images and
+    raw category-index labels in a 4 x 5 grid of blocks, one void block
+    and one per train class, shuffled per image."""
+    rng = np.random.default_rng(seed)
+    cats = [0] + [next(k for k, v in CITYSCAPES_19_EVAL_CATEGORIES.items()
+                       if v == c) for c in range(1, 20)]
+    bh, bw = HEIGHT // 4, WIDTH // 5 + 1
+    index = {}
+    for split, n in (("train", N_TRAIN), ("val", N_VAL)):
+        ann = os.path.join(root, "annotations", split)
+        img = os.path.join(root, "img_with_margin_0", split)
+        os.makedirs(ann)
+        os.makedirs(img)
+        index[split] = [f"{split}_{i:03d}" for i in range(n)]
+        for name in index[split]:
+            grid = rng.permutation(cats).reshape(4, 5).astype(np.uint8)
+            label = np.repeat(np.repeat(grid, bh, 0), bw, 1)[:HEIGHT, :WIDTH]
+            np.save(os.path.join(ann, name + ".npy"),
+                    np.ascontiguousarray(label))
+            np.save(os.path.join(img, name + ".npy"),
+                    rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8))
+    with open(os.path.join(root, "all_images.json"), "w") as f:
+        json.dump(index, f)
+    return root
+
+
+def micro_step_grads(model, batch, dev) -> tuple:
+    """(loss, ASPP-weight gradient, prototype gradient) of one micro-step
+    of ``model`` on ``batch``, every parameter trainable."""
+    from scaleprotoseg_torch.train.steps import LossWeights, compute_losses
+    model.zero_grad(set_to_none=True)
+    for p in model.parameters():
+        p.requires_grad_(True)
+    x = torch.from_numpy(batch[0]).to(dev)
+    t = torch.from_numpy(batch[1]).to(dev)
+    loss, _ = compute_losses(model, model(x), t,
+                             LossWeights(crs_ent=1.0, l1=1e-4, kld=0.25))
+    loss.backward()
+    aspp = torch.cat([p.grad.flatten() for n, p in model.named_parameters()
+                      if ".aspp." in n and n.endswith("weight")])
+    return loss.item(), aspp, model.prototype_vectors.grad.flatten().clone()
+
+
+def training_phase(dev, smi: str) -> dict:
+    from scaleprotoseg_torch import cli_common, train_wandb_multiscale
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = write_city_root(os.path.join(tmp, "city"), seed=1)
+        log(f"train: {N_TRAIN} + {N_VAL} Cityscapes-size images written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        gin = ["train.push_proto = False", "train.finetune_steps = 0",
+               f"train.warmup_steps = {WARMUP_STEPS}",
+               f"train.joint_steps = {JOINT_STEPS}",
+               f"Trainer.val_check_interval = {VAL_EVERY}"]
+        argv = ["scaleproto_cityscapes", "city_train", "--gpu-recipe",
+                "--data-root", data, "--results-root", tmp]
+        for line in gin:
+            argv += ["--gin", line]
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = train_wandb_multiscale.main(argv)
+        counts = kernels.launch_counts()
+        log(f"train: main took {time.perf_counter() - t0:.1f} s; launches "
+            f"{counts}")
+        val_batches = math.ceil(N_VAL / B)
+        for phase, steps in ((0, WARMUP_STEPS), (1, JOINT_STEPS)):
+            res = out["phases"][phase]
+            n_val = res.validations * val_batches
+            want = {"aspp": steps + n_val, "aspp_grad_pack": steps,
+                    "aspp_grad_weight": steps}
+            if res.steps_done != steps or len(res.losses) != steps or \
+                    not all(math.isfinite(v) for v in res.losses):
+                raise AssertionError(f"phase {phase}: {res.steps_done} "
+                                     f"steps, losses {res.losses}")
+            if res.launches != {**res.launches, **want}:
+                raise AssertionError(f"phase {phase}: launches "
+                                     f"{res.launches}, want {want}")
+            log(f"train phase {phase}: {steps} micro-steps, "
+                f"{res.validations} validations; launches {res.launches}; "
+                f"losses first {res.losses[0]:.4f} last "
+                f"{res.losses[-1]:.4f}, all finite")
+            perf = res.perf
+            log(f"train phase {phase}: {perf['img_per_s']} img/s, median "
+                f"step {perf['step_ms_median']} ms (CUDA events), device "
+                f"idle share {perf['device_idle_share']} over "
+                f"{perf['steps_timed']} steps past the first 3; batch {B} "
+                f"at 513 x 513, full depth, bf16 recipe, on {smi}")
+        if sum(counts[k] for k in TRAINING_KERNELS) != sum(
+                sum(out["phases"][p].launches[k] for k in TRAINING_KERNELS)
+                for p in (0, 1)):
+            raise AssertionError(f"launches outside the phases: {counts}")
+
+        # one micro-step of the kernel path against the plain path, from
+        # the trained weights and one batch
+        run = os.path.join(tmp, "city_train")
+        _, bindings = cli_common.load_config(os.path.join(run, "config.gin"))
+        sd, _ = load_checkpoint(out["final"])
+        batch = next(iter(cli_common.make_loaders(bindings, B, seed=5,
+                                                  data_root=data)[0]))
+        res = {}
+        for fast in (False, True):
+            model, _ = train_wandb_multiscale.build_model(bindings, 0)
+            model.load_state_dict(sd, strict=True)
+            model.set_compute_dtype(torch.bfloat16)
+            model.features.base.aspp.fast = fast
+            res[fast] = micro_step_grads(model.to(dev), batch, dev)
+        step_profiles = profile_train_steps(model, bindings, batch, dev)
+        del model
+        (lk, ak, pk), (lp, ap, pp) = res[True], res[False]
+        rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+        step_cmp = dict(loss_kernel=lk, loss_plain=lp,
+                        loss_abs_err=abs(lk - lp),
+                        aspp_grad_rel_l2=rel(ak, ap),
+                        proto_grad_rel_l2=rel(pk, pp))
+        log("train: one micro-step, kernel path vs plain path: "
+            + json.dumps(step_cmp))
+        if not (step_cmp["loss_abs_err"] <= 1e-3
+                and step_cmp["aspp_grad_rel_l2"] <= 2e-2
+                and step_cmp["proto_grad_rel_l2"] <= 2e-2):
+            raise AssertionError(f"kernel vs plain micro-step {step_cmp}")
+
+        # the trained model serves
+        served, _ = load_model(run, out["final"] + ".pth",
+                               dtype=torch.bfloat16, fast=True, device=dev)
+        x = torch.from_numpy(np.random.default_rng(2).integers(
+            0, 256, (B, HEIGHT, WIDTH, 3), dtype=np.uint8)).to(dev)
+        logits = make_serving_fn(served, output="logits", upsample=False,
+                                 fast=True, normalize_to=torch.bfloat16)(x)
+        if logits.shape != (B, FH, FW, 19) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError("push_final does not serve finite logits")
+        log(f"train: push_final serves {tuple(logits.shape)} finite logits")
+        return dict(counts=counts, step_cmp=step_cmp, profiles=step_profiles,
+                    perf={p: out["phases"][p].perf for p in (0, 1)})
+
+
+def profile_train_steps(model, bindings, batch, dev) -> dict:
+    """Where a micro-step's time goes, per phase, on a resident batch
+    (no loader): the trainer's own step and phase optimizer, profiled."""
+    from scaleprotoseg_torch.train.optim import (PhaseOptimizer,
+                                                 phase_groups, poly_schedule)
+    from scaleprotoseg_torch.train.runner import module_hparams
+    from scaleprotoseg_torch.train.state import TrainState
+    from scaleprotoseg_torch.train.steps import make_train_step
+    hp = module_hparams(bindings, "multiscale")
+    x = torch.from_numpy(batch[0]).to(dev)
+    t = torch.from_numpy(batch[1]).to(dev)
+    out = {}
+    for phase in (0, 1):
+        opt = PhaseOptimizer(
+            model.named_parameters(),
+            phase_groups("multiscale", phase, hp["hp"]),
+            schedule=poly_schedule(hp["poly_lr_power"], 8),
+            iter_size=hp["iter_size"], guard_nonfinite=50)
+        state = TrainState(model, opt)
+        step = make_train_step(hp["weights"])
+        out[phase] = profile_batch(lambda: step(state, x, t),
+                                   TRAINING_GROUPS, iters=5)
+        log(f"train phase {phase}: one micro-step on a resident batch, "
+            f"device ms by kernel: {json.dumps(out[phase])}")
+    return out
+
+
+SERVING_GROUPS = ("aspp_kernel", "proto_kernel", "upsample_argmax_kernel",
+                  "conv", "batch_norm", "elementwise", "other")
+TRAINING_GROUPS = ("aspp_kernel", "aspp_grad_pack_kernel",
+                   "aspp_grad_weight_kernel", "split_sum_kernel", "adam",
+                   "conv", "batch_norm", "elementwise", "other")
+
+
+def profile_batch(fn, groups=SERVING_GROUPS, top: int = 12,
+                  iters: int = 3) -> dict:
+    """Device ms per call by group (a kernel named in ``groups``, else
+    convolution/GEMM kernels, batch norm, other elementwise kernels, the
+    rest), the ``top`` kernels by time, the host-clock ms per call of an
+    unprofiled run (``wall_ms``), the share of it the card is busy, and
+    the device operations (kernels and copies) per call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    iters = 3
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / iters
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    groups = dict.fromkeys(("aspp_kernel", "proto_kernel",
-                            "upsample_argmax_kernel", "conv", "batch_norm",
-                            "elementwise", "other"), 0.0)
+    sums = dict.fromkeys(groups, 0.0)
     per_kernel = []
+    calls = 0
     for evt in prof.key_averages():
+        calls += evt.count
         ms = _device_us(evt) / 1e3 / iters
         key = evt.key
         low = key.lower()
-        name = next((g for g in groups if g in key), None)
+        name = next((g for g in groups if g in low), None)
         if name is None:
             name = "conv" if any(t in low for t in (
-                "conv", "gemm", "xmma", "fprop", "cutlass", "nvjet")) \
-                else "elementwise" if "elementwise" in low else "other"
-        groups[name] += ms
+                "conv", "gemm", "xmma", "fprop", "dgrad", "wgrad", "cutlass",
+                "nvjet")) else "elementwise" if "elementwise" in low \
+                else "other"
+        sums[name] += ms
         per_kernel.append((ms, evt.count // iters, key[:90]))
     per_kernel.sort(reverse=True)
-    out = {k: round(v, 4) for k, v in groups.items()}
+    out = {k: round(v, 4) for k, v in sums.items()}
+    device = sum(sums.values())
+    out.update(device_ms=round(device, 4), wall_ms=round(wall, 4),
+               busy_share=round(device / wall, 4),
+               kernels_per_call=calls / iters)
     out["top"] = [[round(ms, 4), n, key] for ms, n, key in per_kernel[:top]]
     return out
 
@@ -481,25 +819,39 @@ def main() -> None:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
-    for check in (check_aspp, check_proto, check_upsample):
-        r = check(gen, dev)
-        results[r["name"]] = r
+    for check in (check_aspp, check_aspp_backward, check_proto,
+                  check_upsample):
+        out = check(gen, dev)
+        for r in out if isinstance(out, list) else [out]:
+            results[r["name"]] = r
         torch.cuda.empty_cache()
     log("kernel device ms per call (profiler): " + json.dumps(
         {name: r["device_ms"] for name, r in results.items()}))
 
-    sl = slice_phase(dev, smi)
+    served = serving_phase(dev, smi)
+    torch.cuda.empty_cache()
+    trained = training_phase(dev, smi)
+    by_path = {name: {"serving": served["counts"][name],
+                      "training": trained["counts"][name]}
+               for name in results}
+    # each kernel's launches in the main path of its slice: the training
+    # run for K2's forward and backward, the serving run for K1 and K3
+    launches = {name: trained["counts"][name] if name in TRAINING_KERNELS
+                else served["counts"][name] for name in results}
     for r in results.values():
+        lib = "null" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f}"
         log(f"{r['name']}: kernel_ms {r['ms']:.4f} plain_ms "
-            f"{r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} bound_ms "
+            f"{r['plain_ms']:.4f} library_ms {lib} bound_ms "
             f"{r['bound_ms']:.4f} ({r['bound_by']}) launches "
-            f"{sl['counts'][r['name']]} max_abs_err {r['max_abs_err']:.3g} "
+            f"{by_path[r['name']]} max_abs_err {r['max_abs_err']:.3g} "
             f"on {smi}")
 
     line = {"kernels": [dict(
         name=r["name"], status="ported", route="cuda",
-        source=f"scaleprotoseg_torch/csrc/{r['name']}.cu",
-        replaces=REPLACES[r["name"]], launches=sl["counts"][r["name"]],
+        source=f"scaleprotoseg_torch/csrc/{SOURCES[r['name']]}.cu",
+        replaces=REPLACES[r["name"]], launches=launches[r["name"]],
+        launches_by_path=by_path[r["name"]],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=r["library_ms"]) for r in results.values()] + [dict(

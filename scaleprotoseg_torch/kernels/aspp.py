@@ -15,11 +15,21 @@ column realignment have no counterpart here.
 ``fused_aspp`` launches the kernel for a CUDA tensor and runs
 ``aspp_plain`` for a CPU tensor; ``aspp_plain`` is the shifted-matmul form
 of the JAX package's ``_xla_shifted_aspp`` with the same bf16 contract.
+
+Training goes through ``aspp_trainable``, the counterpart of the JAX
+package's ``fused_aspp_trainable``: the forward above (the shifted-matmul
+form below ``KERNEL_MIN_C`` input channels) and the tap-packed backward
+of ``csrc/aspp_bwd.cu``: ``aspp_grad_pack`` builds the shifted-gradient
+family G once, ``aspp_grad_weight`` reduces dW = x^T G in fp32, dx = G
+W_all^T is one bf16 ``torch.matmul`` (a plain large product, as XLA's in
+the JAX package) and db a sum.  Each wrapper runs its plain version for
+a CPU tensor and launches its kernel, or raises, for a CUDA one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from functools import lru_cache
 from typing import Optional, Sequence, Tuple
 
@@ -32,6 +42,10 @@ from scaleprotoseg_torch.kernels._build import check, library
 # package's ``_KERNEL_MIN_C`` crossover, kept as the dispatch rule).
 KERNEL_MIN_C = 512
 _TILE = 64  # the kernel's channel chunk and output-channel tile
+# aspp_grad_weight: 128-channel x 64-column output tiles; the pixels are
+# split into chunks of this many (a multiple of its 64-pixel stage), so
+# the training shape's 8450 pixels run as 2 x 576 blocks
+_DW_TILE_C, _DW_TILE_K, _DW_CHUNK = 128, 64, 4352
 
 
 def shifted_sum(x: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -126,3 +140,171 @@ def fused_aspp(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
 
 fused_aspp.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Backward: shifted-gradient pack and weight gradient (csrc/aspp_bwd.cu)
+# ---------------------------------------------------------------------------
+def grad_pack_plain(g: torch.Tensor, rates: Sequence[int],
+                    f: int) -> torch.Tensor:
+    """``aspp_grad_pack``'s function in plain PyTorch, as the JAX
+    package's backward builds it: pad g by the largest rate, take the
+    R x 9 shifted (H, W) windows, concatenate.  g (B, H, W, R*F) ->
+    G (B*H*W, R*9*F) in g's dtype, with ``G[q, (r, di, dj, f)] =
+    g_r[q - ((di-1) r, (dj-1) r)]`` and zero outside the image."""
+    halo = max(rates)
+    b, h, w, _ = g.shape
+    gp = F.pad(g, (0, 0, halo, halo, halo, halo))
+    slices = []
+    for ri, rate in enumerate(rates):
+        gr = gp[..., ri * f:(ri + 1) * f]
+        for di in range(3):
+            for dj in range(3):
+                y0 = halo - (di - 1) * rate
+                x0 = halo - (dj - 1) * rate
+                slices.append(gr[:, y0:y0 + h, x0:x0 + w, :])
+    return torch.cat(slices, dim=-1).reshape(b * h * w, -1)
+
+
+@lru_cache(maxsize=None)
+def _bwd_launchers():
+    lib = library("aspp_bwd")
+    pack = lib.aspp_grad_pack
+    pack.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + \
+        [ctypes.c_void_p]
+    pack.restype = ctypes.c_int
+    weight = lib.aspp_grad_weight
+    weight.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+        [ctypes.c_void_p]
+    weight.restype = ctypes.c_int
+    return pack, weight
+
+
+def aspp_grad_pack(g: torch.Tensor, rates: Sequence[int],
+                   f: int) -> torch.Tensor:
+    """G (B*H*W, R*9*F) from the ASPP output gradient g (B, H, W, R*F);
+    see ``grad_pack_plain``.  The kernel takes contiguous bf16 g."""
+    if g.device.type == "cpu":
+        return grad_pack_plain(g, rates, f)
+    if g.device.type != "cuda":
+        raise ValueError(f"aspp_grad_pack: unsupported device {g.device}")
+    b, h, w, rf = g.shape
+    n_rates = len(rates)
+    if g.dtype != torch.bfloat16 or not g.is_contiguous():
+        raise ValueError("aspp_grad_pack: g must be contiguous bf16 NHWC")
+    if f % 8 or rf != n_rates * f or not 1 <= n_rates <= 4:
+        raise ValueError(f"aspp_grad_pack: needs F % 8 == 0, 1-4 rates and "
+                         f"R*F channels, got F={f} rates={rates} C={rf}")
+    out = torch.empty((b * h * w, n_rates * 9 * f), dtype=torch.bfloat16,
+                      device=g.device)
+    r = list(rates) + [0] * (4 - n_rates)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    status = _bwd_launchers()[0](g.data_ptr(), out.data_ptr(), b, h, w, f,
+                                 n_rates, *r, stream)
+    check(library("aspp_bwd"), status, "aspp_grad_pack")
+    aspp_grad_pack.launches += 1
+    return out
+
+
+aspp_grad_pack.launches = 0
+
+
+def grad_weight_plain(x: torch.Tensor, packed_g: torch.Tensor
+                      ) -> torch.Tensor:
+    """``aspp_grad_weight``'s function in plain PyTorch: x (N, C) and G
+    (N, K) -> x^T G (C, K) in float32 (exact products of the bf16
+    operands; on the card the caller turns TF32 off)."""
+    return x.float().t() @ packed_g.float()
+
+
+def aspp_grad_weight(x: torch.Tensor, packed_g: torch.Tensor
+                     ) -> torch.Tensor:
+    """dW_all = x^T G (C, K) float32 for x (N, C) and G (N, K).  The
+    kernel takes contiguous bf16 operands and needs C % 128 == 0 and
+    K % 64 == 0; its pixel split is reduced in a fixed order."""
+    if x.device.type == "cpu":
+        return grad_weight_plain(x, packed_g)
+    if x.device.type != "cuda":
+        raise ValueError(f"aspp_grad_weight: unsupported device {x.device}")
+    n, c = x.shape
+    k = packed_g.shape[1]
+    if x.dtype != torch.bfloat16 or packed_g.dtype != torch.bfloat16 or \
+            not x.is_contiguous() or not packed_g.is_contiguous():
+        raise ValueError("aspp_grad_weight: x and G must be contiguous bf16")
+    if packed_g.shape[0] != n or c % _DW_TILE_C or k % _DW_TILE_K:
+        raise ValueError(f"aspp_grad_weight: needs x (N, C) and G (N, K) "
+                         f"with C % {_DW_TILE_C} == 0 and K % {_DW_TILE_K} "
+                         f"== 0, got {tuple(x.shape)} {tuple(packed_g.shape)}")
+    splits = math.ceil(n / _DW_CHUNK)
+    out = torch.empty((c, k), dtype=torch.float32, device=x.device)
+    work = torch.empty((splits, c, k), dtype=torch.float32,
+                       device=x.device) if splits > 1 else None
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = _bwd_launchers()[1](
+        x.data_ptr(), packed_g.data_ptr(), out.data_ptr(),
+        work.data_ptr() if work is not None else None, n, c, k, _DW_CHUNK,
+        splits, stream)
+    check(library("aspp_bwd"), status, "aspp_grad_weight")
+    aspp_grad_weight.launches += 1
+    return out
+
+
+aspp_grad_weight.launches = 0
+
+
+def stack_weights_t(weights: Sequence[torch.Tensor],
+                    dtype: torch.dtype) -> torch.Tensor:
+    """W_all (R*9*F, C): row (r, di, dj, f) holds W_r[di, dj][:, f], the
+    k order of G."""
+    c, f = weights[0].shape[2], weights[0].shape[3]
+    return torch.cat([wt.to(dtype).permute(0, 1, 3, 2).reshape(9 * f, c)
+                      for wt in weights], dim=0)
+
+
+class _TrainableASPP(torch.autograd.Function):
+    """The concat-ASPP with the tap-packed backward.  Inputs: x, rates,
+    the packed forward weights (or None), then the R per-rate (3, 3, C, F)
+    weights and the R biases, so their gradients reach the parameters."""
+
+    @staticmethod
+    def forward(ctx, x, rates, packed, *params):
+        n_rates = len(rates)
+        weights, biases = params[:n_rates], params[n_rates:]
+        if x.shape[-1] >= KERNEL_MIN_C:
+            y = fused_aspp(x, weights, biases, rates, packed)
+        else:
+            y = aspp_plain(x, weights, biases, rates)
+        ctx.rates = tuple(rates)
+        ctx.save_for_backward(x, *weights)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *weights = ctx.saved_tensors
+        rates = ctx.rates
+        n_rates = len(rates)
+        b, h, w, c = x.shape
+        f = weights[0].shape[-1]
+        cdt = x.dtype          # the products follow the input dtype
+        packed_g = aspp_grad_pack(g.to(cdt).contiguous(), rates, f)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = (packed_g @ stack_weights_t(weights, cdt)) \
+                .reshape(b, h, w, c)
+        dw_all = aspp_grad_weight(x.reshape(b * h * w, c), packed_g) \
+            .reshape(c, n_rates, 3, 3, f)
+        dws = [dw_all[:, ri].permute(1, 2, 0, 3).to(weights[ri].dtype)
+               for ri in range(n_rates)]
+        dbs = list(g.float().reshape(-1, n_rates, f).sum(0))
+        return (dx, None, None, *dws, *dbs)
+
+
+def aspp_trainable(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                   biases: Sequence[torch.Tensor],
+                   rates: Tuple[int, ...] = (6, 12, 18, 24),
+                   packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> torch.Tensor:
+    """Concat-ASPP x (B, H, W, C) -> (B, H, W, R*F) bf16, differentiable
+    in x, the per-rate (3, 3, C, F) weights and the (F,) biases through
+    the tap-packed backward.  ``packed`` as for ``fused_aspp``."""
+    return _TrainableASPP.apply(x, tuple(rates), packed, *weights, *biases)

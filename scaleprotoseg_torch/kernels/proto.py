@@ -78,8 +78,9 @@ def proto_plain(features: torch.Tensor, prototypes: torch.Tensor,
                 group_projection: Optional[torch.Tensor] = None,
                 last_layer_group: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-    """The kernel's function in plain PyTorch (float32)."""
-    d = scale_l2_distances(features, prototypes, spec.scale_bounds)
+    """The kernel's function in plain PyTorch (float32, the features
+    upcast exactly, as the kernel reads them)."""
+    d = scale_l2_distances(features.float(), prototypes, spec.scale_bounds)
     act = distance_to_similarity(d)
     if group_projection is not None:
         group = group_activations(act, group_projection, spec)

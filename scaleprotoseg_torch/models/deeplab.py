@@ -12,13 +12,15 @@ prototype head need are free views.
 ASPP (``aspp_mode='concat'``: rate r's F channels at ``[r*F, (r+1)*F)``;
 ``'sum'``: branches summed):
 
-- ``fast`` and bf16 and C >= 512: the K2 kernel (``kernels.aspp``), its
-  bf16 output cast to float32; its packed weights are built once per set
-  of weights;
-- ``fast`` and bf16 below that depth: the shifted-matmul form with the
-  same bf16 contract;
-- otherwise the shifted-matmul form in float32, as the JAX package's XLA
-  path.
+- ``fast`` and bf16: ``kernels.aspp.aspp_trainable``, the JAX package's
+  ``fused_aspp_trainable``: the K2 kernel forward at C >= 512 (the
+  shifted-matmul form with the same bf16 contract below), the tap-packed
+  backward kernels in training; its bf16 output cast to float32.  K2's
+  packed weight stack is built once per set of weights, so once per
+  optimizer step in training, while the per-rate weights stay the
+  Function's inputs and take the gradients;
+- otherwise the shifted-matmul form (weights rounded to the input dtype,
+  float32 sums), as the JAX package's XLA path.
 """
 
 from __future__ import annotations
@@ -29,9 +31,8 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from scaleprotoseg_torch.kernels.aspp import (KERNEL_MIN_C, aspp_plain,
-                                              fused_aspp, pack_weights,
-                                              shifted_sum)
+from scaleprotoseg_torch.kernels.aspp import (KERNEL_MIN_C, aspp_trainable,
+                                              pack_weights, shifted_sum)
 from scaleprotoseg_torch.models.layers import (ConvBN, WeightCache,
                                                max_pool_ceil)
 
@@ -114,14 +115,12 @@ class ASPP(nn.Module):
         weights = [b.hwio() for b in branches]
         biases = [b.bias for b in branches]
         if self.fast and x.dtype == torch.bfloat16:
-            if xh.shape[-1] >= KERNEL_MIN_C:
-                packed = self._packed.get(
-                    list(self.parameters()),
-                    lambda: pack_weights(weights, biases))
-                y = fused_aspp(xh, weights, biases, self.rates, packed)
-            else:
-                y = aspp_plain(xh, weights, biases, self.rates)
-            y = y.float()
+            packed = self._packed.get(
+                list(self.parameters()),
+                lambda: pack_weights(weights, biases)) \
+                if xh.shape[-1] >= KERNEL_MIN_C else None
+            y = aspp_trainable(xh, weights, biases, self.rates,
+                               packed).float()
         else:
             y = shifted_sum(xh, weights, biases, self.rates)
         if self.mode == "sum":

@@ -4,7 +4,13 @@ BatchNorm is frozen, as the reference freezes all pretrained BN: the
 statistics and affine parameters are constants, applied in inference
 form ``(x - mean) * weight / sqrt(var + 1e-5) + bias`` whatever the
 module's train flag.  Its parameters stay float32 while the convolutions
-may run in bf16 (``cast_convs``).
+may run in bf16, in one of two ways:
+
+- serving: ``cast_convs`` casts the conv weights themselves;
+- training: ``set_compute_dtype`` leaves the parameters float32 and each
+  ``ConvBN`` casts its input and weight to the compute dtype at the call,
+  as the JAX package's ``param_dtype=float32, dtype=bfloat16`` convs do,
+  so the gradients reach float32 parameters.
 """
 
 from __future__ import annotations
@@ -40,9 +46,14 @@ class ConvBN(nn.Module):
         # momentum 0.001 is flax's 0.999; the statistics never update here
         self.bn = FrozenBatchNorm2d(cout, eps=1e-5, momentum=0.001)
         self.relu = relu
+        self.compute_dtype: Optional[torch.dtype] = None  # None: weight's
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(self.conv(x))
+        conv = self.conv
+        dt = self.compute_dtype or conv.weight.dtype
+        x = F.conv2d(x.to(dt), conv.weight.to(dt), None, conv.stride,
+                     conv.padding, conv.dilation)
+        x = self.bn(x)
         return F.relu(x, inplace=True) if self.relu else x
 
 
@@ -57,6 +68,15 @@ def cast_convs(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
             m.to(dtype)
+    return module
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Run every ``ConvBN`` under ``module`` in ``dtype``, parameters
+    untouched (the training form of mixed precision)."""
+    for m in module.modules():
+        if isinstance(m, ConvBN):
+            m.compute_dtype = dtype
     return module
 
 

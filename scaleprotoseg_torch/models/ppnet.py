@@ -25,7 +25,7 @@ import torch.nn as nn
 
 from scaleprotoseg_torch.kernels.proto import (fused_proto_logits,
                                                group_activations, pack_head)
-from scaleprotoseg_torch.models.layers import WeightCache
+from scaleprotoseg_torch.models.layers import WeightCache, set_compute_dtype
 from scaleprotoseg_torch.ops.prototype import (distance_to_similarity,
                                                scale_l2_distances)
 from scaleprotoseg_torch.spec import ProtoSpec
@@ -141,6 +141,16 @@ class PPNet(nn.Module):
         glw = torch.zeros((c * g, c), dtype=packed.dtype, device=dev)
         glw[self._glw_rows] = self.last_layer_group.weight.t()
         return gw.reshape(c, pc, g).permute(0, 2, 1), glw
+
+    def set_compute_dtype(self, dtype: torch.dtype) -> "PPNet":
+        """Training form of mixed precision: parameters stay float32, the
+        convs and the add-on compute in ``dtype``; the features then stay
+        in ``dtype`` (bf16 takes the block-diagonal distance head) and the
+        distances, activations and logits are float32."""
+        set_compute_dtype(self.features, dtype)
+        self.add_on_layers.dtype = dtype
+        self.dtype = dtype
+        return self
 
     # ------------------------------------------------------------------
     # Forward

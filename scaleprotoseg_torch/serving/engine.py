@@ -29,6 +29,8 @@ from typing import Any, Callable, Iterable, Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from scaleprotoseg_torch.model_loading import resolve_device
+
 
 class ServingEngine:
     """Drive ``predict(batch) -> device tensor`` over a stream of items.
@@ -39,7 +41,8 @@ class ServingEngine:
       preprocess: item -> (H, W, 3) array, run in host threads (``None``:
         items already are arrays).
       workers: preprocess thread count.
-      device: where ``predict`` runs; host batches are pinned for CUDA.
+      device: where ``predict`` runs (default ``cuda``, an error without
+        a card); host batches are pinned for CUDA.
     """
 
     # dispatched-but-unfetched batches: 2 takes batch i's results while
@@ -50,14 +53,14 @@ class ServingEngine:
                  batch_size: int,
                  preprocess: Optional[Callable[[Any], np.ndarray]] = None,
                  workers: int = 2,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Optional[Union[str, torch.device]] = None):
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
         self.predict = predict
         self.batch_size = batch_size
         self.preprocess = preprocess
         self.workers = max(1, workers)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.device_seconds = 0.0   # stream time of the fetched batches
 
     def _dispatch(self, arrs):

@@ -1,9 +1,12 @@
-"""Environment-driven paths: ``RESULTS_DIR`` from the environment or a
-``.env`` file in the working directory (default ``results``)."""
+"""Environment-driven paths, read from the environment or a ``.env`` file
+in the working directory: ``RESULTS_DIR`` (default ``results``) and the
+preprocessed dataset roots (``DATA_PATH_CITY`` for Cityscapes)."""
 
 from __future__ import annotations
 
 import os
+
+_DATA_ENV = {"cityscapes": "DATA_PATH_CITY"}
 
 
 def _dotenv(path: str = ".env") -> dict:
@@ -20,6 +23,23 @@ def _dotenv(path: str = ".env") -> dict:
     return out
 
 
+def _env(key: str, default: str = "") -> str:
+    return os.environ.get(key) or _dotenv().get(key, default)
+
+
 def results_dir() -> str:
-    return os.environ.get("RESULTS_DIR") or _dotenv().get("RESULTS_DIR",
-                                                           "results")
+    return _env("RESULTS_DIR", "results")
+
+
+def data_path(data_type: str) -> str:
+    """The preprocessed dataset directory of ``data_type``."""
+    if data_type not in _DATA_ENV:
+        raise NotImplementedError(
+            f"data type {data_type!r} is not ported yet; the port reads "
+            f"{sorted(_DATA_ENV)}")
+    key = _DATA_ENV[data_type]
+    path = _env(key)
+    if not path:
+        raise RuntimeError(f"{key} is not set; point it at the preprocessed "
+                           f"{data_type} directory (or pass --data-root)")
+    return path

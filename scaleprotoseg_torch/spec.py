@@ -159,6 +159,44 @@ class ProtoSpec:
         return out
 
     @functools.cached_property
+    def class_proto_mask(self) -> np.ndarray:
+        """(C, Pc_max) float32 validity mask of ``class_proto_index``."""
+        return (self.class_proto_index >= 0).astype(np.float32)
+
+    @functools.cached_property
+    def class_scale_proto_index(self) -> np.ndarray:
+        """(C, S, k_max) int32 prototype indices per (class, scale), -1
+        pad."""
+        per = {(c, s): [p for p in range(lo, hi) if self.class_ids[p] == c]
+               for c in range(self.num_classes)
+               for s, (lo, hi) in enumerate(self.scale_bounds)}
+        k = max([len(v) for v in per.values()] + [1])
+        out = np.full((self.num_classes, self.num_scales, k), -1, np.int32)
+        for (c, s), idx in per.items():
+            out[c, s, :len(idx)] = idx
+        return out
+
+    @functools.cached_property
+    def class_scale_proto_mask(self) -> np.ndarray:
+        """(C, S, k_max) float32 validity mask of the above."""
+        return (self.class_scale_proto_index >= 0).astype(np.float32)
+
+    @functools.cached_property
+    def class_scale_proto_onehot(self) -> np.ndarray:
+        """(C, S, k_max, Pa) float32 one-hot selection of
+        ``class_scale_proto_index`` over the distance layout."""
+        idx = self.class_scale_proto_index
+        out = np.zeros(idx.shape + (self.num_active_prototypes,), np.float32)
+        c, s, k = np.nonzero(idx >= 0)
+        out[c, s, k, idx[c, s, k]] = 1.0
+        return out
+
+    @functools.cached_property
+    def class_scale_counts(self) -> np.ndarray:
+        """(C, S) int32 prototype counts per (class, scale)."""
+        return self.class_scale_proto_mask.sum(axis=-1).astype(np.int32)
+
+    @functools.cached_property
     def class_has_protos(self) -> np.ndarray:
         """(C,) float32, 1 where the class owns at least one prototype."""
         return (self.class_counts > 0).astype(np.float32)

@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from scaleprotoseg_torch import kernels
-from scaleprotoseg_torch.kernels.aspp import aspp_plain
+from scaleprotoseg_torch.kernels.aspp import (aspp_plain, aspp_trainable,
+                                              grad_pack_plain,
+                                              grad_weight_plain, shifted_sum)
 from scaleprotoseg_torch.kernels.proto import proto_plain
 from scaleprotoseg_torch.kernels.upsample import upsample_argmax_plain
 from scaleprotoseg_torch.ops.resize import resize_bilinear_matrix
@@ -75,6 +77,99 @@ def test_aspp_kernel_matches_plain(dev, gen, hw, c, f):
     assert kernels.fused_aspp.launches == before + 1
     want = aspp_plain(x, ws, bs).float().cpu().numpy()
     assert _bf16_ulps(got, want) <= 2
+
+
+@pytest.mark.parametrize("hw,rates", [((65, 65), (6, 12, 18, 24)),
+                                      ((7, 30), (1, 2, 3, 9))])
+def test_aspp_grad_pack_is_bit_exact(dev, gen, hw, rates):
+    g = torch.from_numpy(gen.standard_normal((2, *hw, 4 * 64)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    before = kernels.aspp_grad_pack.launches
+    got = kernels.aspp_grad_pack(g, rates, 64)
+    torch.cuda.synchronize()
+    assert kernels.aspp_grad_pack.launches == before + 1
+    assert torch.equal(got, grad_pack_plain(g, rates, 64))
+
+
+@pytest.mark.parametrize("n,c,k", [(8450, 2048, 2304), (100, 256, 128),
+                                   (4352, 128, 64)])
+def test_aspp_grad_weight_matches_plain(dev, gen, n, c, k):
+    """fp32 sums of exact bf16 products: within 1e-3 of the plain fp32
+    product (TF32 off), and the same bits on a second run."""
+    x = torch.from_numpy(gen.random((n, c), np.float32)).to(
+        dev, torch.bfloat16)
+    pg = torch.from_numpy(gen.standard_normal((n, k)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    got = kernels.aspp_grad_weight(x, pg)
+    want = grad_weight_plain(x, pg)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+    assert torch.equal(got, kernels.aspp_grad_weight(x, pg))
+
+
+@pytest.mark.parametrize("c", [2048, 256], ids=["kernel_fwd", "shifted_fwd"])
+def test_aspp_trainable_backward_matches_plain(dev, gen, c):
+    """The Function's gradients against autograd through the plain
+    shifted-matmul form on x upcast to float32 (so the 36 tap gradients
+    of dx add up in float32 and round to bf16 once, as the Function's
+    product does) and on the bf16-rounded weights, the rounding passed
+    straight through so that dW stays float32: dW and db within 1e-3
+    relative to their scale, dx within 2 bf16 ulps."""
+    rates = (6, 12, 18, 24)
+    x = torch.from_numpy(gen.random((2, 33, 33, c), np.float32)).to(
+        dev, torch.bfloat16)
+    ws = [torch.from_numpy(gen.standard_normal((3, 3, c, 64)).astype(
+        np.float32) * 0.02).to(dev) for _ in rates]
+    bs = [torch.from_numpy(gen.standard_normal(64).astype(np.float32)).to(
+        dev) for _ in rates]
+    cot = torch.from_numpy(gen.standard_normal((2, 33, 33, 256)).astype(
+        np.float32)).to(dev)
+
+    def grads(fn):
+        xs = x.clone().requires_grad_()
+        wv = [w.clone().requires_grad_() for w in ws]
+        bv = [b.clone().requires_grad_() for b in bs]
+        (fn(xs, wv, bv).float() * cot).sum().backward()
+        return xs.grad, [w.grad for w in wv], [b.grad for b in bv]
+
+    counts = (kernels.aspp_grad_pack.launches,
+              kernels.aspp_grad_weight.launches)
+    gx, gw, gb = grads(lambda a, w, b: aspp_trainable(a, w, b, rates))
+    assert (kernels.aspp_grad_pack.launches,
+            kernels.aspp_grad_weight.launches) == (counts[0] + 1,
+                                                   counts[1] + 1)
+    rx, rw, rb = grads(lambda a, w, b: shifted_sum(
+        a.float(), [wt + (wt.to(torch.bfloat16).float() - wt).detach()
+                    for wt in w], b, rates).to(torch.bfloat16))
+    assert _bf16_ulps(gx.float().cpu().numpy(),
+                      rx.float().cpu().numpy()) <= 2
+    for got, want in zip(gw + gb, rw + rb):
+        scale = want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * scale)
+
+
+def test_aspp_forward_follows_optimizer_updates(dev, gen):
+    """After a fused-Adam update K2's forward reads the new weights: its
+    packed weight stack is rebuilt, in training and in a no-grad pass."""
+    from scaleprotoseg_torch.models.deeplab import ASPP
+    from scaleprotoseg_torch.train.optim import OptimGroup, PhaseOptimizer
+    rates = (6, 12, 18, 24)
+    module = ASPP(512, 64, rates, "concat", fast=True).to(dev)
+    opt = PhaseOptimizer(
+        [(f"features.base.aspp.{n}", p) for n, p in module.named_parameters()],
+        {"aspp_w": OptimGroup(1e-2), "aspp_b": OptimGroup(1e-2)})
+    x = torch.from_numpy(gen.random((1, 512, 17, 19), np.float32)).to(
+        dev, torch.bfloat16)
+    before = kernels.fused_aspp.launches
+    module(x).square().sum().backward()
+    opt.step()
+    with torch.no_grad():
+        got = module(x).permute(0, 2, 3, 1).cpu().numpy()
+        branches = [getattr(module, f"c{i}") for i in range(4)]
+        want = aspp_plain(x.permute(0, 2, 3, 1).contiguous(),
+                          [b.hwio() for b in branches],
+                          [b.bias for b in branches], rates)
+    assert kernels.fused_aspp.launches == before + 2
+    assert _bf16_ulps(got, want.float().cpu().numpy()) <= 2
 
 
 @pytest.mark.parametrize("grouped", [False, True], ids=["plain", "group"])

@@ -27,6 +27,7 @@ from scaleprotoseg_tpu.ops.resize import (_bilinear_matrix,
                                           resize_bilinear_matrix)
 from scaleprotoseg_tpu.spec import ProtoSpec
 from scaleprotoseg_torch import kernels
+from scaleprotoseg_torch.kernels import aspp as taspp
 from scaleprotoseg_torch.kernels import upsample as tup
 from scaleprotoseg_torch.kernels.proto import pack_head, proto_plain
 from scaleprotoseg_torch.models import deeplab as tdeeplab
@@ -166,13 +167,13 @@ def test_aspp_matches_pallas_at_kernel_depth(rng):
 @pytest.mark.parametrize("c,expect_kernel", [(256, False), (512, True)])
 def test_aspp_module_dispatch(rng, monkeypatch, c, expect_kernel):
     """fast + bf16 takes the K2 wrapper from C = 512 up and the
-    shifted-matmul form below; both keep the bf16 contract of
-    ``_xla_shifted_aspp`` and hand float32 on."""
+    shifted-matmul form below (both inside ``aspp_trainable``); both keep
+    the bf16 contract of ``_xla_shifted_aspp`` and hand float32 on."""
     rates = (2, 4, 6, 8)
     x, weights, biases = _aspp_problem(rng, c, 16, hw=(9, 10))
     calls = []
-    real = tdeeplab.fused_aspp
-    monkeypatch.setattr(tdeeplab, "fused_aspp",
+    real = taspp.fused_aspp
+    monkeypatch.setattr(taspp, "fused_aspp",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     module = tdeeplab.ASPP(c, 16, rates, "concat", fast=True)
     with torch.no_grad():

@@ -103,7 +103,7 @@ def test_engine_order_and_tail_padding():
     imgs = np.arange(5, dtype=np.float32)[:, None, None, None] * \
         np.ones((5, 2, 2, 3), np.float32)
     engine = ServingEngine(predict, batch_size=2, preprocess=lambda i: imgs[i],
-                           workers=3)
+                           workers=3, device="cpu")
     out = list(engine.run((f"img{i}", i) for i in range(5)))
     assert [k for k, _ in out] == [f"img{i}" for i in range(5)]
     assert [float(v) for _, v in out] == [0.0, 10.0, 20.0, 30.0, 40.0]
@@ -113,4 +113,13 @@ def test_engine_order_and_tail_padding():
 
 def test_engine_rejects_bad_batch():
     with pytest.raises(ValueError):
-        ServingEngine(lambda x: x, batch_size=0)
+        ServingEngine(lambda x: x, batch_size=0, device="cpu")
+
+
+def test_engine_defaults_to_the_card(monkeypatch):
+    """Without ``device`` the engine runs on CUDA, and says so where
+    there is none instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(lambda x: x, batch_size=2)
+    assert ServingEngine(lambda x: x, 2, device="cpu").device.type == "cpu"
