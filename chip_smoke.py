@@ -19,10 +19,20 @@ Phases; any failure exits non-zero and prints no result:
    atol = 1e-3 of the fp32 plain product (TF32 off) and the same bits on
    a second run, and the whole ``aspp_trainable`` backward against
    autograd through the plain form (dx within 2 bf16 ulps, dW and db
-   within 1e-3 of their scale).  Times are CUDA-event medians of 10 runs
-   after warmup, beside the plain version, one PyTorch library call
-   computing the same function (a yardstick the port never calls) and
-   the least time the card could take;
+   within 1e-3 of their scale).  The int8 kernels of the quant8 path:
+   ``int8_mm`` (K4) at ``pallas_mm``'s own 8192 x 512 x 512 and at the
+   eight 1x1 conv shapes of layer4/5 (66306 pixels), its int32 arm bit
+   for bit against the plain version (float64 products cast to int32,
+   exact), its dequantized bf16 epilogue within 1 bf16 ulp of
+   ``(acc.float() * (sx * sw)).bfloat16()``, its bf16 arm within rtol =
+   1e-4, atol = 1e-3 of the float32 product (TF32 off); ``int8_conv3x3``
+   at layer4's and layer5's dilated 3x3 shapes, the int32 accumulator bit
+   for bit against a float64 conv of the int8 values; ``quantize_int8``
+   (static and dynamic) and ``int8_absmax`` bit for bit.  Times are
+   CUDA-event medians of 10 runs after warmup, beside the plain version,
+   one PyTorch library call computing the same function (a yardstick the
+   port never calls: cuDNN, ``torch._int_mm``, ``torch.matmul``) and the
+   least time the card could take;
 4. serving slice: a temporary run directory (the Cityscapes group
    config, seeded synthetic weights for the full-depth ResNet-101
    flagship, 256 seeded uint8 1024 x 2048 images) served three times
@@ -31,7 +41,24 @@ Phases; any failure exits non-zero and prints no result:
    least once per batch of every run, and the labels must agree with the
    port's plain path (same bf16 model, plain versions instead of kernels)
    on at least 99% of pixels.  Per run: img/s and the device's idle share
-   of the timed window (``ServingEngine``'s per-batch stream spans);
+   of the timed window (``ServingEngine``'s per-batch stream spans).
+   Then quant8 serving: the same run and images served three times
+   through ``serve.main --quant8-static --calib-images 8`` and once with
+   ``--quant8``: the int8 kernels launch 54 / 26 / 80 times per batch
+   (and ``int8_absmax`` 80 under ``--quant8``), K1, K2 and K3 on every
+   batch under static and not at all under dynamic; on the first 16
+   images the static labels agree on >= 99% of pixels with the plain
+   quant8 path (same calibration, every kernel replaced by its plain
+   version, int8 products in float64); the agreement with the bf16 labels
+   is reported, not gated; img/s and idle share per run and a profile of
+   one resident quant8 batch.  Then evaluation: a temporary
+   Cityscapes-layout val root (8 images of 1024 x 2048, labels holding
+   void and every class) evaluated on the same run through
+   ``eval_valid_multiscale.run_evaluation``, bf16 and
+   ``--quant8-static``: both finish into separate directories with a
+   finite mIoU, and each run's confusion matrix equals the host
+   ``bincount`` over its own predicted labels; both mIoUs, their
+   difference, img/s and the launches are printed;
 5. training slice: a temporary Cityscapes-layout data root (24 train and
    4 val seeded uint8 1024 x 2048 images, raw category-index labels in
    blocks holding void and every train class) trained through
@@ -46,8 +73,9 @@ Phases; any failure exits non-zero and prints no result:
    loss within 1e-3, ASPP-weight and prototype gradients within 2e-2
    relative L2.  Finally ``push_final`` loads through ``load_model`` and
    serves one finite batch;
-6. one line per kernel with its times, bound and launches, the kernels
-   line (K1-K4 with their status), then the last line
+6. one line per kernel with its times, bound and launches, the card's
+   name and power limit, the kernels line (every kernel with its status),
+   then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -66,19 +94,28 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from scaleprotoseg_torch import eval_valid_multiscale as evm
 from scaleprotoseg_torch import kernels
 from scaleprotoseg_torch.checkpoints.convert import (load_checkpoint,
                                                      save_checkpoint,
                                                      synthetic_state_dict)
 from scaleprotoseg_torch.configlib import parse_config
-from scaleprotoseg_torch.constants import CITYSCAPES_19_EVAL_CATEGORIES
+from scaleprotoseg_torch.constants import (CITYSCAPES_19_EVAL_CATEGORIES,
+                                           IMAGENET_MEAN, IMAGENET_STD)
+from scaleprotoseg_torch.eval.miou import SegEvaluator
+from scaleprotoseg_torch.eval_valid_multiscale import eval_targets
 from scaleprotoseg_torch.kernels.aspp import (aspp_plain, aspp_trainable,
                                               grad_pack_plain,
                                               grad_weight_plain, pack_weights,
                                               shifted_sum)
+from scaleprotoseg_torch.kernels.int8 import (absmax_plain,
+                                              int8_conv3x3_plain,
+                                              int8_mm_plain,
+                                              quantize_int8_plain)
 from scaleprotoseg_torch.kernels.proto import pack_head, proto_plain
 from scaleprotoseg_torch.kernels.upsample import upsample_argmax_plain
-from scaleprotoseg_torch.model_loading import load_model
+from scaleprotoseg_torch.model_loading import (calibrate_quant_scales,
+                                               load_model, quant_sites)
 from scaleprotoseg_torch.models.factory import construct_ppnet
 from scaleprotoseg_torch.ops.prototype import EPSILON
 from scaleprotoseg_torch.ops.resize import _bilinear_matrix
@@ -92,6 +129,7 @@ from scaleprotoseg_torch.spec import ProtoSpec
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 
 B, HEIGHT, WIDTH = 2, 1024, 2048
 FH, FW = 129, 257             # output-stride-8 grid of 1024 x 2048
@@ -118,15 +156,30 @@ deeplabv2_resnet101_features_multiscale.deeplab_n_features = 64
 deeplabv2_resnet101_features_multiscale.scales = []
 """
 
-STILL_TO_PORT = [{
-    "name": "pallas_mm",
-    "replaces": "benchmarks/bench_int8_mosaic.py:34 pallas_mm "
-                "(pallas_call :48)"}]
+# every pallas_call site of the repo is ported; a site still to port
+# would be listed here with its name and "replaces"
+STILL_TO_PORT = []
+
+# quant8: layer4 and layer5 (23 and 3 bottlenecks) of ResNet-101 at the
+# serving grid; per batch each block runs reduce, conv3x3 and increase,
+# the first a shortcut too, and every conv quantizes its input once
+N_BLOCKS = {"layer4": (23, 512, 256, 1024, 2),
+            "layer5": (3, 1024, 512, 2048, 4)}   # n, cin, mid, out, dilation
+PER_BATCH = {"int8_mm": sum(2 * n + 1 for n, *_ in N_BLOCKS.values()),
+             "int8_conv3x3": sum(n for n, *_ in N_BLOCKS.values()),
+             "quantize_int8": sum(3 * n + 1 for n, *_ in N_BLOCKS.values())}
+QUANT_KERNELS = tuple(PER_BATCH)
+N_CALIB = 8
+N_CHECK_PLAIN = 16
+N_EVAL = 8
 
 BWD = "scaleprotoseg_tpu/ops/pallas_aspp.py:319 fused_aspp_trainable bwd"
 SOURCES = {"aspp": "aspp", "aspp_grad_pack": "aspp_bwd",
            "aspp_grad_weight": "aspp_bwd", "proto": "proto",
-           "upsample": "upsample"}
+           "upsample": "upsample", "int8_mm": "int8_mm",
+           "int8_conv3x3": "int8_mm", "quantize_int8": "int8_mm",
+           "int8_absmax": "int8_mm"}
+QUANT = "scaleprotoseg_tpu/ops/quant.py"
 REPLACES = {
     "aspp": "scaleprotoseg_tpu/ops/pallas_aspp.py:68 fused_aspp "
             "(pallas_call :169)",
@@ -136,6 +189,15 @@ REPLACES = {
              "(pallas_call :173)",
     "upsample": "scaleprotoseg_tpu/ops/pallas_upsample.py:127 "
                 "fused_upsample_argmax (_apply :62, pallas_call :96)",
+    "int8_mm": "benchmarks/bench_int8_mosaic.py:34 pallas_mm "
+               "(pallas_call :48)",
+    "int8_conv3x3": "benchmarks/bench_int8_mosaic.py:63 int8_dilated_conv "
+                    "(pallas_mm over 9 taps); XLA's s8 conv in " + QUANT +
+                    ":154 static_int8_conv and :125 dynamic_int8_conv",
+    "quantize_int8": QUANT + ":150-152 static quantize and :102 dynamic "
+                     "quantize (XLA-fused elementwise)",
+    "int8_absmax": QUANT + ":93-94 quantize_symmetric per-tensor max|x| "
+                   "(XLA reduce)",
 }
 
 
@@ -335,11 +397,13 @@ def check_upsample(gen, dev) -> dict:
         library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
 
 
-def valid_tap_flops(h: int, w: int, c: int, f: int) -> float:
-    """Operations of a concat-ASPP product over (h, w, c) -> 4 x f that
-    only counts the taps landing inside the image, batch B."""
+def valid_tap_flops(h: int, w: int, c: int, f: int,
+                    rates=RATES) -> float:
+    """Operations of dilated 3x3 products over (h, w, c) -> f per rate
+    (the concat ASPP by default) that only count the taps landing inside
+    the image, batch B."""
     taps = 0
-    for r in RATES:
+    for r in rates:
         for d in (-r, 0, r):
             for e in (-r, 0, r):
                 taps += max(h - abs(d), 0) * max(w - abs(e), 0)
@@ -453,6 +517,179 @@ def check_aspp_backward(gen, dev) -> list:
              bound_by=w_by)]
 
 
+def _int8(gen, shape, dev) -> torch.Tensor:
+    return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                         dtype=torch.int8)
+
+
+def _scales(gen, n, dev):
+    sx = torch.tensor(2e-3, device=dev)
+    sw = torch.rand((n,), generator=gen, device=dev) * 1e-3 + 1e-5
+    return sx, sw
+
+
+def _bf16_within_one_ulp(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Each bf16 value equal to the float32 one rounded, or one bf16 step
+    from it."""
+    g = got.float()
+    r = want.to(torch.bfloat16).float()
+    step = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1e-30))) - 7)
+    return bool(((g - r).abs() <= step).all())
+
+
+def path_1x1_shapes() -> list:
+    """(K, N, convs per batch) of the 1x1 convs of layer4/5."""
+    out = []
+    for n, cin, mid, cout, _ in N_BLOCKS.values():
+        out += [(cin, mid, 1), (cin, cout, 1), (mid, cout, n),
+                (cout, mid, n - 1)]
+    return out
+
+
+def check_int8_mm(gen, dev) -> dict:
+    """K4 at pallas_mm's own shape, both arms, and at the path's 1x1 conv
+    shapes with the dequant epilogue the model uses."""
+    m, k, n = 8192, 512, 512
+    a, bt = _int8(gen, (m, k), dev), _int8(gen, (n, k), dev)
+    got = kernels.int8_mm(a, bt)
+    if not torch.equal(got, int8_mm_plain(a, bt)):
+        raise AssertionError("int8_mm int32 arm differs from the plain "
+                             "product at 8192 x 512 x 512")
+    af = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    bf = torch.randn((n, k), generator=gen, device=dev).to(torch.bfloat16)
+    got_f = kernels.int8_mm(af, bf)
+    want_f = int8_mm_plain(af, bf)
+    torch.testing.assert_close(got_f, want_f, rtol=1e-4, atol=1e-3)
+    bf16_err = (got_f - want_f).abs().max().item()
+    b_ms, b_by = bound(nbytes(af, bf, got_f), 2.0 * m * k * n,
+                       PEAK_BF16_FLOPS)
+    log(f"int8_mm bf16 arm 8192x512x512: max_abs_err {bf16_err:.3g}; "
+        f"kernel {time_ms(lambda: kernels.int8_mm(af, bf)):.4f} ms, "
+        f"plain {time_ms(lambda: int8_mm_plain(af, bf)):.4f} ms, "
+        f"torch.matmul (bf16 out) "
+        f"{time_ms(lambda: torch.matmul(af, bf.t())):.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    del af, bf, got_f, want_f
+
+    px = B * FH * FW
+    total = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for kk, nn, per_batch in path_1x1_shapes():
+        xa, wt = _int8(gen, (px, kk), dev), _int8(gen, (nn, kk), dev)
+        sx, sw = _scales(gen, nn, dev)
+        acc = kernels.int8_mm(xa, wt)
+        want = int8_mm_plain(xa, wt)
+        if not torch.equal(acc, want):
+            raise AssertionError(f"int8_mm int32 differs at {px}x{kk}x{nn}")
+        del acc
+        deq = kernels.int8_mm(xa, wt, sx, sw, torch.bfloat16)
+        if not _bf16_within_one_ulp(deq, want.float() * (sx * sw)):
+            raise AssertionError(f"int8_mm epilogue > 1 bf16 ulp at "
+                                 f"{px}x{kk}x{nn}")
+        del want
+        ms = time_ms(lambda: kernels.int8_mm(xa, wt, sx, sw, torch.bfloat16))
+        lib = time_ms(lambda: torch._int_mm(xa, wt.t()))
+        bms, bby = bound(nbytes(xa, wt, deq, sw), 2.0 * px * kk * nn,
+                         PEAK_INT8_OPS)
+        for key, v in (("ms", ms), ("library_ms", lib), ("bound_ms", bms)):
+            total[key] += v * per_batch
+        log(f"int8_mm path 1x1 {px}x{kk}x{nn} (x{per_batch} per batch): "
+            f"kernel (bf16 epilogue) {ms:.4f} ms, torch._int_mm (int32) "
+            f"{lib:.4f} ms, bound {bms:.4f} ms ({bby}); "
+            f"{2.0 * px * kk * nn / ms / 1e9:.1f} TOP/s")
+        del xa, wt, deq
+    log(f"int8_mm path 1x1 convs per batch: kernel {total['ms']:.3f} ms, "
+        f"torch._int_mm {total['library_ms']:.3f} ms, bound "
+        f"{total['bound_ms']:.3f} ms")
+
+    b_ms, b_by = bound(nbytes(a, bt, got), 2.0 * m * k * n, PEAK_INT8_OPS)
+    return dict(
+        name="int8_mm", max_abs_err=0.0,
+        device_ms=device_kernel_ms(lambda: kernels.int8_mm(a, bt),
+                                   "int8_gemm_kernel"),
+        ms=time_ms(lambda: kernels.int8_mm(a, bt)),
+        plain_ms=time_ms(lambda: int8_mm_plain(a, bt)),
+        library_ms=time_ms(lambda: torch._int_mm(a, bt.t())),
+        bound_ms=b_ms, bound_by=b_by, path_ms_per_batch=total)
+
+
+def check_int8_conv3x3(gen, dev) -> dict:
+    """The dilated 3x3 int8 convs of layer4 (256 ch, d=2) and layer5 (512
+    ch, d=4) at the serving grid; the row reports layer5's."""
+    row = None
+    for layer in ("layer4", "layer5"):
+        _, _, c, _, dil = N_BLOCKS[layer]
+        x, wt = _int8(gen, (B, FH, FW, c), dev), _int8(gen, (9, c, c), dev)
+        sx, sw = _scales(gen, c, dev)
+        acc = kernels.int8_conv3x3(x, wt, dil)
+        if not torch.equal(acc, int8_conv3x3_plain(x, wt, dil)):
+            raise AssertionError(f"int8_conv3x3 accumulator differs at "
+                                 f"{layer}")
+        deq = kernels.int8_conv3x3(x, wt, dil, sx, sw, torch.bfloat16)
+        if not _bf16_within_one_ulp(deq, acc.float() * (sx * sw)):
+            raise AssertionError(f"int8_conv3x3 epilogue > 1 bf16 ulp at "
+                                 f"{layer}")
+        del acc
+        xc = torch.randn((B, c, FH, FW), generator=gen, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wc = (torch.randn((c, c, 3, 3), generator=gen, device=dev) * 0.02) \
+            .to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        ops = valid_tap_flops(FH, FW, c, c, rates=(dil,))
+        b_ms, b_by = bound(nbytes(x, wt, deq, sw), ops, PEAK_INT8_OPS)
+        fn = lambda: kernels.int8_conv3x3(  # noqa: E731
+            x, wt, dil, sx, sw, torch.bfloat16)
+        r = dict(
+            name="int8_conv3x3", max_abs_err=0.0,
+            device_ms=device_kernel_ms(fn, "int8_conv3x3_kernel"),
+            ms=time_ms(fn),
+            plain_ms=time_ms(lambda: int8_conv3x3_plain(
+                x, wt, dil, sx, sw, torch.bfloat16), warmup=1, iters=3),
+            library_ms=time_ms(lambda: F.conv2d(xc, wc, padding=dil,
+                                                dilation=dil)),
+            bound_ms=b_ms, bound_by=b_by)
+        log(f"int8_conv3x3 {layer} {B}x{FH}x{FW}x{c} d={dil}: kernel "
+            f"{r['ms']:.4f} ms ({ops / r['ms'] / 1e9:.1f} TOP/s on the taps "
+            f"inside the image), device {r['device_ms']}, plain "
+            f"{r['plain_ms']:.4f}, bf16 cuDNN conv {r['library_ms']:.4f}, "
+            f"bound {b_ms:.4f} ({b_by})")
+        del x, wt, deq, xc, wc
+        row = r
+    return row
+
+
+def check_quantize(gen, dev) -> list:
+    """Both quantize forms and the dynamic scale at the path's widest
+    activation (layer5's 2048 channels at the serving grid, bf16)."""
+    x = (torch.randn((B, FH, FW, 2048), generator=gen, device=dev) * 3) \
+        .to(torch.bfloat16)
+    scale = torch.tensor(0.02, device=dev)
+    q = kernels.quantize_int8(x, scale)
+    if not torch.equal(q, quantize_int8_plain(x, scale)):
+        raise AssertionError("quantize_int8 (static) differs")
+    s = kernels.int8_absmax(x)
+    if not torch.equal(s, absmax_plain(x)):
+        raise AssertionError("int8_absmax differs")
+    if not torch.equal(kernels.quantize_int8(x, s, divide=True),
+                       quantize_int8_plain(x, s, divide=True)):
+        raise AssertionError("quantize_int8 (dynamic) differs")
+    q_ms, q_by = bound(nbytes(x, q, scale), 0.0, PEAK_INT8_OPS)
+    a_ms, a_by = bound(nbytes(x, s), 0.0, PEAK_INT8_OPS)
+    log(f"quantize_int8 dynamic form (division): "
+        f"{time_ms(lambda: kernels.quantize_int8(x, s, divide=True)):.4f} ms")
+    return [
+        dict(name="quantize_int8", max_abs_err=0.0,
+             device_ms=device_kernel_ms(
+                 lambda: kernels.quantize_int8(x, scale), "quantize_kernel"),
+             ms=time_ms(lambda: kernels.quantize_int8(x, scale)),
+             plain_ms=time_ms(lambda: quantize_int8_plain(x, scale)),
+             library_ms=None, bound_ms=q_ms, bound_by=q_by),
+        dict(name="int8_absmax", max_abs_err=0.0,
+             device_ms=device_kernel_ms(lambda: kernels.int8_absmax(x),
+                                        "absmax_"),
+             ms=time_ms(lambda: kernels.int8_absmax(x)),
+             plain_ms=time_ms(lambda: absmax_plain(x)),
+             library_ms=None, bound_ms=a_ms, bound_by=a_by)]
+
+
 def device_kernel_ms(fn, symbol, iters: int = 5):
     """Device ms per call of the CUDA kernel whose name holds ``symbol``,
     from the profiler (None if the trace shows no such kernel)."""
@@ -479,7 +716,15 @@ def _device_us(evt) -> float:
 # ---------------------------------------------------------------------------
 # phase 4: the serving slice
 # ---------------------------------------------------------------------------
-def write_run(root: str, seed: int) -> str:
+def write_run(root: str, seed: int, dev) -> str:
+    """The flagship run directory with seeded weights that give varied
+    labels: ``synthetic_state_dict``, except that the last BN of every
+    residual branch is scaled by 0.1 (activations stay bounded at full
+    depth instead of growing ~1e8-fold), the group last layer keeps the
+    model's own class connection (1 own class, -0.5 others) and each
+    prototype sits on the features of a seeded pixel of a seeded image, as
+    push places it.  With random weights throughout every pixel takes the
+    same class, and a label comparison would prove little."""
     run = os.path.join(root, "city_flagship")
     os.makedirs(run)
     with open(os.path.join(run, "config.gin"), "w") as f:
@@ -487,10 +732,60 @@ def write_run(root: str, seed: int) -> str:
     model, spec = construct_ppnet(
         "group", "deeplabv2_resnet101_multiscale", (228, 64, 1, 1), 19,
         add_on_layers_type="deeplab_simple", bindings=parse_config(CONFIG))
-    save_checkpoint(os.path.join(run, "checkpoints", "push_final"),
-                    synthetic_state_dict(model, seed=seed), spec,
+    sd = synthetic_state_dict(model, seed=seed)
+    for key in sd:
+        if key.endswith(".increase.bn.weight"):
+            sd[key] = sd[key] * np.float32(0.1)
+    sd["last_layer_group.weight"] = \
+        model.last_layer_group.weight.detach().numpy().copy()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.integers(0, 256, (1, HEIGHT, WIDTH, 3),
+                                        dtype=np.uint8)).to(dev)
+    mean = torch.tensor(IMAGENET_MEAN, device=dev)
+    std = torch.tensor(IMAGENET_STD, device=dev)
+    with torch.no_grad():
+        feats = model.to(dev).eval().conv_features(
+            (img.float() / 255.0 - mean) / std).reshape(-1, 256).cpu()
+    pixels = rng.choice(feats.shape[0], size=spec.num_prototypes,
+                        replace=False)
+    protos = sd["prototype_vectors"]
+    for s_, (lo, hi) in enumerate(spec.scale_bounds):
+        for p in range(lo, hi):
+            protos[p] = feats[pixels[p], s_ * 64:(s_ + 1) * 64].numpy() \
+                .reshape(protos[p].shape)
+    del model
+    save_checkpoint(os.path.join(run, "checkpoints", "push_final"), sd, spec,
                     extra={"variant": "group"})
     return run
+
+
+def plain_path(model):
+    """``fn(x)`` for raw uint8 batches: the labels of the serving fast path
+    with every kernel replaced by its plain version (K2 by ``aspp_plain``,
+    the float32-accumulated ASPP rounded to bf16 as the kernel rounds its
+    output; K1 by ``proto_plain``; K3 by ``upsample_argmax_plain``; the
+    int8 kernels by ``static_int8_conv`` / ``dynamic_int8_conv``)."""
+    base = model.features.base
+    base.aspp.fast = False
+    base.aspp.register_forward_hook(
+        lambda m, i, out: out.to(torch.bfloat16).float())
+    for _, m in quant_sites(model):
+        m.plain = True
+    dev = next(model.parameters()).device
+    mean = torch.tensor(IMAGENET_MEAN, device=dev)
+    std = torch.tensor(IMAGENET_STD, device=dev)
+
+    @torch.inference_mode()
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        xn = ((x.float() / 255.0 - mean) / std).to(torch.bfloat16)
+        feats = model.conv_features(xn).contiguous()
+        gw, glw = model.group_weights()
+        logits = proto_plain(feats, model.prototypes(), None, model.spec,
+                             group_projection=gw, last_layer_group=glw)
+        return upsample_argmax_plain(logits, x.shape[1], x.shape[2])
+
+    return fn
 
 
 def serve_run(run_root: str, img_dir: str, out_dir: str) -> dict:
@@ -516,7 +811,7 @@ def serve_run(run_root: str, img_dir: str, out_dir: str) -> dict:
 def serving_phase(dev, smi: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        run = write_run(tmp, seed=0)
+        run = write_run(tmp, seed=0, dev=dev)
         img_dir = os.path.join(tmp, "images")
         os.makedirs(img_dir)
         rng = np.random.default_rng(0)
@@ -537,8 +832,7 @@ def serving_phase(dev, smi: str) -> dict:
         ckpt = os.path.join(run, "checkpoints", "push_final.ckpt")
         plain_model, _ = load_model(run, ckpt, dtype=torch.bfloat16,
                                     fast=False, device=dev)
-        plain = make_serving_fn(plain_model, fast=False,
-                                normalize_to=torch.bfloat16)
+        plain = plain_path(plain_model)
         agree = total = 0
         names = sorted(os.listdir(img_dir))
         for i in range(0, N_IMAGES, B):
@@ -548,7 +842,7 @@ def serving_phase(dev, smi: str) -> dict:
             got = np.stack([np.load(os.path.join(out_dir, n))
                             for n in names[i:i + B]])
             if got.shape != want.shape or got.dtype != np.uint8 \
-                    or got.max() >= 19:
+                    or got.max() >= 19 or want.dtype != np.uint8:
                 raise AssertionError(f"labels {got.shape} {got.dtype}")
             agree += int((got == want).sum())
             total += got.size
@@ -585,23 +879,239 @@ def serving_phase(dev, smi: str) -> dict:
             f"{(max(rates) - min(rates)) / statistics.median(rates)}; device "
             f"forward {batch_ms} ms per batch (CUDA-event median of 10)")
         log("slice: device time per batch by kernel: " + json.dumps(breakdown))
+        del fast_model, fast, logits, x
+        torch.cuda.empty_cache()
+        quant = quant8_phase(tmp, run, img_dir, out_dir, dev, smi)
+        log(f"slice: img/s bf16 {rates} vs quant8-static "
+            f"{quant['img_per_s']} vs quant8 dynamic "
+            f"{quant['dyn_img_per_s']}, same call; device forward per batch "
+            f"bf16 {batch_ms} ms vs quant8-static {quant['batch_ms']} ms")
+        evals = eval_phase(tmp, dev, smi)
         return dict(counts=counts, img_per_s=rates, agreement=agreement,
-                    batch_ms=batch_ms)
+                    batch_ms=batch_ms, quant=quant, evals=evals)
+
+
+def serve_quant8_run(run_root: str, img_dir: str, out_dir: str,
+                     static: bool) -> dict:
+    """One quant8 run through serve.main, launch counts from zero: the
+    int8 kernels on every conv of layer4/5 of every batch; under static
+    K1, K2 and K3 on every batch too, under dynamic none of them."""
+    flag = ["--quant8-static", "--calib-images", str(N_CALIB)] if static \
+        else ["--quant8"]
+    kernels.reset_launch_counts()
+    record = serve.main(["city_flagship", "push_final", "--input", img_dir,
+                         "--output", out_dir, "--batch", str(B),
+                         "--raw-output", "--results-root", run_root,
+                         "--workers", "4", *flag])
+    counts = kernels.launch_counts()
+    batches = 1 + math.ceil(N_IMAGES / B)
+    want = {k: v * batches for k, v in PER_BATCH.items()}
+    want["int8_absmax"] = 0 if static else want["quantize_int8"]
+    if not static:
+        want.update(aspp=0, proto=0, upsample=0)
+    if counts != {**counts, **want}:
+        raise AssertionError(f"quant8 {'static' if static else 'dynamic'}: "
+                             f"launches {counts}, want {want} over "
+                             f"{batches} batches")
+    if static and min(counts[k] for k in SERVING_KERNELS) < batches:
+        raise AssertionError(f"static quant8 skipped a serving kernel: "
+                             f"{counts}")
+    if record["quant8"] != ("static" if static else True) or \
+            record["fast"] != static or record["images"] != N_IMAGES:
+        raise AssertionError(f"unexpected quant8 serve record {record}")
+    return dict(record, counts=counts)
+
+
+def _labels(out_dir: str, names) -> np.ndarray:
+    return np.stack([np.load(os.path.join(out_dir, n)) for n in names])
+
+
+def quant8_phase(tmp: str, run: str, img_dir: str, bf16_dir: str, dev,
+                 smi: str) -> dict:
+    """Quant8 serving of the same run and images: three static runs and
+    one dynamic, the static labels against the plain quant8 path, and the
+    profile of one resident static batch."""
+    out_dir = os.path.join(tmp, "labels_q8")
+    runs = [serve_quant8_run(tmp, img_dir, out_dir, static=True)
+            for _ in range(SERVE_RUNS)]
+    dyn = serve_quant8_run(tmp, img_dir, os.path.join(tmp, "labels_q8d"),
+                           static=False)
+    names = sorted(os.listdir(img_dir))
+    ckpt = os.path.join(run, "checkpoints", "push_final.ckpt")
+
+    def calibrated(fast: bool):
+        """The bf16 static model calibrated as serve.main calibrates it."""
+        model, _ = load_model(run, ckpt, dtype=torch.bfloat16, fast=fast,
+                              device=dev, quant8="static")
+        pre = serve._make_preprocess(img_dir, normalize=True)
+        calibrate_quant_scales(model, (
+            torch.from_numpy(pre(n))[None].to(dev, torch.bfloat16)
+            for n in names[:N_CALIB]))
+        return model
+
+    # the plain quant8 path: the same calibration, every kernel replaced
+    # by its plain version (int8 products in float64)
+    plain_model = calibrated(fast=False)
+    plain_scales = [m.x_scale.item() for _, m in quant_sites(plain_model)]
+    plain = plain_path(plain_model)
+    kernels.reset_launch_counts()
+    agree = total = 0
+    for i in range(0, N_CHECK_PLAIN, B):
+        batch = np.stack([np.load(os.path.join(img_dir, n))
+                          for n in names[i:i + B]])
+        want = plain(torch.from_numpy(batch).to(dev)).cpu().numpy()
+        got = _labels(out_dir, names[i:i + B])
+        if got.shape != want.shape or got.dtype != np.uint8:
+            raise AssertionError(f"quant8 labels {got.shape} {got.dtype}")
+        agree += int((got == want).sum())
+        total += got.size
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"the plain quant8 path launched kernels: "
+                             f"{kernels.launch_counts()}")
+    agreement = agree / total
+    classes = len(np.unique(_labels(out_dir, names[:N_CHECK_PLAIN])))
+    log(f"quant8: static labels agree with the plain quant8 path on "
+        f"{100 * agreement:.4f}% of {total} pixels (first "
+        f"{N_CHECK_PLAIN} images, {classes} distinct labels)")
+    if agreement < 0.99:
+        raise AssertionError(f"quant8 agreement {agreement} < 0.99")
+    del plain_model, plain
+    torch.cuda.empty_cache()
+    same = sum(int((_labels(out_dir, names[i:i + 16]) ==
+                    _labels(bf16_dir, names[i:i + 16])).sum())
+               for i in range(0, N_IMAGES, 16))
+    vs_bf16 = same / (N_IMAGES * HEIGHT * WIDTH)
+    log(f"quant8: static labels agree with the bf16 kernel-path labels on "
+        f"{100 * vs_bf16:.4f}% of pixels over {N_IMAGES} images "
+        f"(reported, not gated)")
+
+    model = calibrated(fast=True)
+    if plain_scales != [m.x_scale.item() for _, m in quant_sites(model)]:
+        raise AssertionError("calibration is not deterministic: the plain "
+                             "and kernel-path models got other scales")
+    fast = make_serving_fn(model, fast=True, normalize_to=torch.bfloat16)
+    x = torch.from_numpy(np.stack([np.load(os.path.join(img_dir, n))
+                                   for n in names[:B]])).to(dev)
+    logits = make_serving_fn(model, output="logits", upsample=False,
+                             fast=True, normalize_to=torch.bfloat16)(x)
+    if logits.shape != (B, FH, FW, 19) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("quant8 logits not finite or misshapen")
+    batch_ms = time_ms(lambda: fast(x), warmup=2, iters=10)
+    breakdown = profile_batch(lambda: fast(x), QUANT_GROUPS)
+    share = breakdown["quantize_kernel"] / breakdown["device_ms"]
+    del model, fast, logits, x
+    torch.cuda.empty_cache()
+    for i, r in enumerate(runs + [dyn]):
+        kind = "dynamic" if r is dyn else f"static run {i + 1}"
+        log(f"quant8 {kind}: {r['img_per_s']} img/s through serve.main "
+            f"({N_IMAGES} images in {r['seconds']} s, batch {B}, {HEIGHT}x"
+            f"{WIDTH}, full depth); device idle share "
+            f"{r['device_idle_share']}; launches {r['counts']} on {smi}")
+    log(f"quant8: static device forward {batch_ms} ms per batch "
+        f"(CUDA-event median of 10); quantize passes "
+        f"{100 * share:.2f}% of its device time")
+    log("quant8: device time per static batch by kernel: "
+        + json.dumps(breakdown))
+    return dict(counts=runs[0]["counts"], dyn_counts=dyn["counts"],
+                img_per_s=[r["img_per_s"] for r in runs],
+                dyn_img_per_s=dyn["img_per_s"], agreement=agreement,
+                vs_bf16=vs_bf16, batch_ms=batch_ms)
+
+
+class RecordingEvaluator(SegEvaluator):
+    """``SegEvaluator`` that keeps each batch's predicted labels on the
+    host, so the confusion matrix can be rebuilt from them."""
+
+    last = None
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.preds = []
+        RecordingEvaluator.last = self
+
+    def predict(self, images, h, w):
+        out, pred = super().predict(images, h, w)
+        self.preds.append(pred.cpu().numpy())
+        return out, pred
+
+
+def eval_phase(tmp: str, dev, smi: str) -> dict:
+    """``run_evaluation`` of the flagship run over a Cityscapes-size val
+    root, bf16 and static quant8."""
+    data = write_city_root(os.path.join(tmp, "city_val"), seed=3,
+                           splits=(("val", N_EVAL),))
+    names = sorted(p[:-4] for p in os.listdir(
+        os.path.join(data, "annotations", "val")))
+    targets = np.stack([eval_targets(np.load(os.path.join(
+        data, "annotations", "val", n + ".npy")), "cityscapes")
+        for n in names])
+    batches = math.ceil(N_EVAL / B)
+    out = {}
+    evm.SegEvaluator = RecordingEvaluator
+    try:
+        for quant8 in (False, "static"):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = evm.run_evaluation("city_flagship", "push_final",
+                                     batch_size=B, data_root=data,
+                                     results_root=tmp, quant8=quant8,
+                                     calib_images=N_CALIB)
+            secs = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            ev = RecordingEvaluator.last
+            pred = np.concatenate(ev.preds)
+            t = targets.astype(np.int64) - 1
+            valid = t >= 0
+            host = np.bincount(t[valid] * 19 + pred[valid],
+                               minlength=19 * 19).reshape(19, 19)
+            if not np.array_equal(ev.cm, host):
+                raise AssertionError(f"eval {quant8}: confusion matrix "
+                                     "differs from the host bincount")
+            want = {"upsample": batches, "int8_absmax": 0,
+                    "aspp": batches + (N_CALIB if quant8 else 0)}
+            want.update({k: (v * batches if quant8 else 0)
+                         for k, v in PER_BATCH.items()})
+            if counts != {**counts, **want}:
+                raise AssertionError(f"eval {quant8}: launches {counts}, "
+                                     f"want {want}")
+            name = "push_final" + ("-quant8static" if quant8 else "")
+            path = os.path.join(tmp, "city_flagship", "evaluation", name,
+                                "mean_iou.txt")
+            if not (math.isfinite(res["mean_iou"]) and os.path.exists(path)):
+                raise AssertionError(f"eval {quant8}: {res['mean_iou']} "
+                                     f"{path}")
+            out[quant8] = dict(miou=res["mean_iou"],
+                               pixel_accuracy=res["pixel_accuracy"],
+                               img_per_s=N_EVAL / secs, counts=counts)
+            log(f"eval {'quant8-static' if quant8 else 'bf16'}: mIoU "
+                f"{res['mean_iou']:.6f}, pixel acc "
+                f"{res['pixel_accuracy']:.6f}, {N_EVAL / secs:.3f} img/s "
+                f"({N_EVAL} images of {HEIGHT}x{WIDTH}, load and "
+                f"calibration included); confusion matrix equal to the host "
+                f"bincount; launches {counts} on {smi}")
+    finally:
+        evm.SegEvaluator = SegEvaluator
+    log(f"eval: quant8-static mIoU - bf16 mIoU = "
+        f"{out['static']['miou'] - out[False]['miou']:.6f}")
+    return out
 
 
 # ---------------------------------------------------------------------------
 # phase 5: the training slice
 # ---------------------------------------------------------------------------
-def write_city_root(root: str, seed: int) -> str:
+def write_city_root(root: str, seed: int,
+                    splits=(("train", N_TRAIN), ("val", N_VAL))) -> str:
     """Cityscapes layout at Cityscapes size: uint8 1024 x 2048 images and
     raw category-index labels in a 4 x 5 grid of blocks, one void block
-    and one per train class, shuffled per image."""
+    and one per train class, shuffled per image; ``splits`` gives the
+    image count of each split."""
     rng = np.random.default_rng(seed)
     cats = [0] + [next(k for k, v in CITYSCAPES_19_EVAL_CATEGORIES.items()
                        if v == c) for c in range(1, 20)]
     bh, bw = HEIGHT // 4, WIDTH // 5 + 1
     index = {}
-    for split, n in (("train", N_TRAIN), ("val", N_VAL)):
+    for split, n in splits:
         ann = os.path.join(root, "annotations", split)
         img = os.path.join(root, "img_with_margin_0", split)
         os.makedirs(ann)
@@ -759,6 +1269,8 @@ def profile_train_steps(model, bindings, batch, dev) -> dict:
 
 SERVING_GROUPS = ("aspp_kernel", "proto_kernel", "upsample_argmax_kernel",
                   "conv", "batch_norm", "elementwise", "other")
+QUANT_GROUPS = ("int8_gemm_kernel", "int8_conv3x3_kernel", "quantize_kernel",
+                "absmax") + SERVING_GROUPS
 TRAINING_GROUPS = ("aspp_kernel", "aspp_grad_pack_kernel",
                    "aspp_grad_weight_kernel", "split_sum_kernel", "adam",
                    "conv", "batch_norm", "elementwise", "other")
@@ -820,7 +1332,8 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
     for check in (check_aspp, check_aspp_backward, check_proto,
-                  check_upsample):
+                  check_upsample, check_int8_mm, check_int8_conv3x3,
+                  check_quantize):
         out = check(gen, dev)
         for r in out if isinstance(out, list) else [out]:
             results[r["name"]] = r
@@ -831,13 +1344,26 @@ def main() -> None:
     served = serving_phase(dev, smi)
     torch.cuda.empty_cache()
     trained = training_phase(dev, smi)
+    quant, evals = served["quant"], served["evals"]
     by_path = {name: {"serving": served["counts"][name],
+                      "quant8_serving": quant["counts"][name],
+                      "quant8_dynamic": quant["dyn_counts"][name],
+                      "eval": evals[False]["counts"][name],
+                      "eval_quant8": evals["static"]["counts"][name],
                       "training": trained["counts"][name]}
                for name in results}
     # each kernel's launches in the main path of its slice: the training
-    # run for K2's forward and backward, the serving run for K1 and K3
-    launches = {name: trained["counts"][name] if name in TRAINING_KERNELS
-                else served["counts"][name] for name in results}
+    # run for K2's forward and backward, the bf16 serving run for K1 and
+    # K3, the static quant8 serving run for the int8 kernels and the
+    # dynamic one for its max reduction
+    path = {**{k: trained for k in TRAINING_KERNELS},
+            **{k: served for k in ("proto", "upsample")}}
+    launches = {name: path[name]["counts"][name] if name in path
+                else quant["dyn_counts"][name] if name == "int8_absmax"
+                else quant["counts"][name] for name in results}
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"{name} never launched on its main path")
     for r in results.values():
         lib = "null" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f}"

@@ -9,6 +9,10 @@ the reference stores them; the port's ``PPNet`` loads the result with
 ``convert_checkpoint export-torch``), so both produce the same dict for
 the modules the port holds.
 
+``quant_scales_from_jax`` / ``quant_scales_to_jax`` carry the calibrated
+activation scales of a ``quant8='static'`` model between the JAX
+package's ``quant_scales`` collection and the port's per-site buffers.
+
 A checkpoint on disk is ``<stem>.pth`` (the state dict) beside
 ``<stem>.ckpt.json`` (the spec sidecar the JAX package writes next to
 ``<stem>.ckpt``).
@@ -113,6 +117,42 @@ def ppnet_params_to_statedict(params: Dict, batch_stats: Optional[Dict],
         log(f"export-torch: NOT exporting unrecognized param subtree(s) "
             f"{dropped}")
     return sd
+
+
+def quant_scales_from_jax(tree: Dict) -> Dict[str, np.float32]:
+    """The JAX package's ``quant_scales`` collection (nested dicts keyed by
+    each ``_QuantConv`` site's path, ``backbone/layer4/block1/reduce/conv/
+    x_scale``) -> ``{port module name: float32 scale}``, the module names
+    of the port's ``QuantConvBN`` sites (``features.base.layer4.block1.
+    reduce``), for ``model_loading.set_quant_scales``."""
+    out: Dict[str, np.float32] = {}
+
+    def walk(node, path):
+        if not isinstance(node, dict):
+            if path[-2:] != ["conv", "x_scale"] or path[0] != "backbone":
+                raise ValueError(f"not a quant_scales leaf: {'/'.join(path)}")
+            name = ".".join(["features.base", *path[1:-2]])
+            out[name] = np.float32(np.asarray(node))
+            return
+        for key, child in node.items():
+            walk(child, path + [str(key)])
+
+    walk(tree, [])
+    return out
+
+
+def quant_scales_to_jax(scales: Dict[str, float]) -> Dict:
+    """Inverse of ``quant_scales_from_jax``."""
+    tree: Dict = {}
+    prefix = "features.base."
+    for name, value in scales.items():
+        if not name.startswith(prefix):
+            raise ValueError(f"not a backbone quant8 site: {name}")
+        node = tree.setdefault("backbone", {})
+        for part in name[len(prefix):].split("."):
+            node = node.setdefault(part, {})
+        node["conv"] = {"x_scale": np.float32(value)}
+    return tree
 
 
 def to_tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:

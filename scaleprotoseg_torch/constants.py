@@ -5,8 +5,10 @@ is stored as ``c + 1``; losses and evaluation subtract 1.  The
 preprocessed Cityscapes ``.npy`` annotations hold category indices (the
 official label ids 0-33 with the void ids merged, then license plate);
 ``convert_targets`` maps them to 1 + the 19-class train id.  Only
-Cityscapes converts here: the other datasets are not part of the port
-yet and are refused by name.
+Cityscapes converts here: the other datasets are not part of the port's
+training yet and are refused by name.  The evaluation reads COCO-Stuff
+and EM labels as they are stored (their ids are final after offline
+preprocessing) and names their classes with the tables below.
 """
 
 from __future__ import annotations
@@ -43,6 +45,45 @@ CITYSCAPES_19_EVAL_CATEGORIES = {
           if name in CITYSCAPES_19_NAMES else 0)
     for idx, name in enumerate(CITYSCAPES_CATEGORIES)
 }
+
+
+# COCO-Stuff: raw id k is class k (stored as k + 1, 255 -> 0 void)
+COCO_LABELS = [
+    # 80 "things" (ids 0-89 in the original paper numbering incl. gaps kept
+    # as named placeholders) + 91 "stuff"
+    "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train",
+    "truck", "boat", "traffic light", "fire hydrant", "street sign",
+    "stop sign", "parking meter", "bench", "bird", "cat", "dog", "horse",
+    "sheep", "cow", "elephant", "bear", "zebra", "giraffe", "hat",
+    "backpack", "umbrella", "shoe", "eye glasses", "handbag", "tie",
+    "suitcase", "frisbee", "skis", "snowboard", "sports ball", "kite",
+    "baseball bat", "baseball glove", "skateboard", "surfboard",
+    "tennis racket", "bottle", "plate", "wine glass", "cup", "fork", "knife",
+    "spoon", "bowl", "banana", "apple", "sandwich", "orange", "broccoli",
+    "carrot", "hot dog", "pizza", "donut", "cake", "chair", "couch",
+    "potted plant", "bed", "mirror", "dining table", "window", "desk",
+    "toilet", "door", "tv", "laptop", "mouse", "remote", "keyboard",
+    "cell phone", "microwave", "oven", "toaster", "sink", "refrigerator",
+    "blender", "book", "clock", "vase", "scissors", "teddy bear",
+    "hair drier", "toothbrush", "hair brush", "banner", "blanket", "branch",
+    "bridge", "building-other", "bush", "cabinet", "cage", "cardboard",
+    "carpet", "ceiling-other", "ceiling-tile", "cloth", "clothes", "clouds",
+    "counter", "cupboard", "curtain", "desk-stuff", "dirt", "door-stuff",
+    "fence", "floor-marble", "floor-other", "floor-stone", "floor-tile",
+    "floor-wood", "flower", "fog", "food-other", "fruit", "furniture-other",
+    "grass", "gravel", "ground-other", "hill", "house", "leaves", "light",
+    "mat", "metal", "mirror-stuff", "moss", "mountain", "mud", "napkin",
+    "net", "paper", "pavement", "pillow", "plant-other", "plastic",
+    "platform", "playingfield", "railing", "railroad", "river", "road",
+    "rock", "roof", "rug", "salad", "sand", "sea", "shelf", "sky-other",
+    "skyscraper", "snow", "solid-other", "stairs", "stone", "straw",
+    "structural-other", "table", "tent", "textile-other", "towel", "tree",
+    "vegetable", "wall-brick", "wall-concrete", "wall-other", "wall-panel",
+    "wall-stone", "wall-tile", "wall-wood", "water-other", "waterdrops",
+    "window-blind", "window-other", "wood",
+]
+COCO_ID_2_LABEL = dict(enumerate(COCO_LABELS))
+EM_ID_2_LABEL = {0: "background", 1: "cell"}
 
 
 def mapping_to_lut(mapping: dict, size: int = 256,

@@ -1,0 +1,280 @@
+"""Validation-set evaluation (multi-scale and grouped models).
+
+    python -m scaleprotoseg_torch.eval_valid_multiscale MODEL_NAME PHASE \\
+        [batch_size] [data_type] [--quant8-static | --quant8] \\
+        [--calib-images N] [--fast-output | --exact-output] [--fp32] \\
+        [--limit N] [--data-root DIR] [--results-root DIR] [--device cpu]
+
+The port's counterpart of ``scaleprotoseg_tpu/eval_valid_multiscale.py``:
+loads the run's checkpoint, runs full-image inference over the raw val
+``.npy`` files (Cityscapes, COCO-Stuff, EM), upsamples the logits to
+label resolution, and accumulates mIoU and pixel accuracy ignoring void,
+with the top-K prototype purity curve over the whole split.  Writes
+``evaluation/<phase>[-quant8static|-quant8]/{iou_scores.json,
+mean_iou.txt, eval.log, proto_purity.json}``, and the plots where
+matplotlib is importable (a plot failure is logged; the result stays).
+
+On the card (the default) the forward runs in bf16 with K2 and the
+output through K3 (``--exact-output``: the gather-form resize instead;
+``--fp32``: the float32 forward without K2); ``--device cpu`` runs the
+float32 plain path.  Quantized evaluations get their own directory, so
+the mIoU difference to the unquantized one is the accuracy cost of int8:
+``--quant8-static`` calibrates on the first ``--calib-images`` val images
+(float32, one per batch); ``--quant8`` (dynamic) forces the non-K3
+output path.  Pascal and ADE resize their images with cv2, which the
+port does not have yet, and are refused.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from scaleprotoseg_torch import settings
+from scaleprotoseg_torch.constants import (CITYSCAPES_19_EVAL_CATEGORIES,
+                                           CITYSCAPES_19_LUT,
+                                           CITYSCAPES_CATEGORIES,
+                                           COCO_ID_2_LABEL, EM_ID_2_LABEL,
+                                           IMAGENET_MEAN, IMAGENET_STD)
+from scaleprotoseg_torch.eval.miou import SegEvaluator
+from scaleprotoseg_torch.model_loading import (calibrate_quant_scales,
+                                               load_model, resolve_checkpoint,
+                                               resolve_device)
+from scaleprotoseg_torch.train.metrics import create_logger
+
+FULL_IMAGE = ("cityscapes", "coco", "em")
+
+
+def class_names(data_type: str, num_classes: int) -> List[str]:
+    if data_type == "cityscapes":
+        inv = {v - 1: k for k, v in CITYSCAPES_19_EVAL_CATEGORIES.items()
+               if v > 0}
+        return [CITYSCAPES_CATEGORIES[inv[i]] for i in range(num_classes)]
+    if data_type == "em":
+        return [EM_ID_2_LABEL[i] for i in range(num_classes)]
+    if data_type == "coco":
+        return [COCO_ID_2_LABEL[i] for i in range(num_classes)]
+    return [str(i) for i in range(num_classes)]
+
+
+def _check_protocol(data_type: str) -> None:
+    if data_type in ("pascal", "ade"):
+        raise NotImplementedError(
+            f"{data_type} evaluation resizes each image with cv2 "
+            "(INTER_LINEAR), which the port does not have yet; the port "
+            f"evaluates the full-image protocol of {FULL_IMAGE}")
+    if data_type not in FULL_IMAGE:
+        raise ValueError(f"unknown data type {data_type!r}")
+
+
+def eval_targets(ann: np.ndarray, data_type: str) -> np.ndarray:
+    """Stored annotation -> labels (0 = void): Cityscapes converts its
+    category indices online, COCO-Stuff and EM ids are already final."""
+    if ann.ndim == 3:
+        ann = ann[..., 0]
+    if data_type == "cityscapes":
+        ann = CITYSCAPES_19_LUT[ann]
+    return ann.astype(np.int32)
+
+
+def normalize(img: np.ndarray) -> np.ndarray:
+    """uint8 RGB -> ``(x / 255 - mean) / std``, the constants taken in
+    float64 and the result cast to float32, as the JAX package's eval."""
+    x = img.astype(np.float32) / 255.0
+    x = (x - np.asarray(IMAGENET_MEAN)) / np.asarray(IMAGENET_STD)
+    return x.astype(np.float32)
+
+
+def run_evaluation(model_name: str, training_phase: str,
+                   batch_size: int = 2, data_type: str = "cityscapes",
+                   margin: int = 0, limit: Optional[int] = None,
+                   data_root: Optional[str] = None,
+                   results_root: Optional[str] = None,
+                   fast_output: Optional[bool] = None,
+                   quant8=False, calib_images: int = 8,
+                   fp32: bool = False, device=None) -> dict:
+    """Evaluate one checkpoint over the val split; returns the result
+    dict (``mean_iou``, ``pixel_accuracy``, ``per_class_iou``, the purity
+    curve) and writes the evaluation directory."""
+    _check_protocol(data_type)
+    dev = resolve_device(device)
+    model_path = os.path.join(results_root or settings.results_dir(),
+                              model_name)
+    checkpoint = resolve_checkpoint(model_path, training_phase)
+    eval_name = training_phase + (
+        "-quant8static" if quant8 == "static" else
+        "-quant8" if quant8 else "")
+    out_dir = os.path.join(model_path, "evaluation", eval_name)
+    os.makedirs(out_dir, exist_ok=True)
+    log = create_logger(os.path.join(out_dir, "eval.log"))
+    log(f"Loading model from {checkpoint}")
+
+    fast = dev.type == "cuda" and not fp32
+    model, spec = load_model(
+        model_path, checkpoint,
+        dtype=torch.bfloat16 if fast else torch.float32, fast=fast,
+        device=dev, quant8=quant8)
+    if fast_output is None:
+        fast_output = dev.type == "cuda"
+    if quant8 is True and fast_output:
+        log("dynamic quant8: the output takes the resize + argmax path, "
+            "not K3 (as the JAX package's dynamic quant8)")
+        fast_output = False
+
+    dataset_path = data_root or settings.data_path(data_type)
+    img_dir = os.path.join(dataset_path, f"img_with_margin_{margin}", "val")
+    ann_dir = os.path.join(dataset_path, "annotations", "val")
+    files = sorted(p[:-4] for p in os.listdir(img_dir) if p.endswith(".npy"))
+    if limit:
+        files = files[:limit]
+    log(f"Evaluating {len(files)} val images ({data_type}) on {dev}")
+
+    def load_one(name):
+        img = np.load(os.path.join(img_dir, name + ".npy"))
+        if margin:
+            img = img[margin:-margin, margin:-margin]
+        ann = np.load(os.path.join(ann_dir, name + ".npy"))
+        return normalize(img), eval_targets(ann, data_type)
+
+    if quant8 == "static":
+        calib = (torch.from_numpy(load_one(n)[0][None]).to(dev)
+                 for n in files[:max(1, calib_images)])
+        calibrate_quant_scales(model, calib, log=log)
+
+    evaluator = SegEvaluator(
+        model, spec.num_classes, fast_output=fast_output,
+        proto_class=np.argmax(
+            spec.class_identity[:spec.num_active_prototypes], axis=1))
+    pending_imgs, pending_anns, pending_shape = [], [], None
+
+    def flush():
+        nonlocal pending_imgs, pending_anns
+        if pending_imgs:
+            evaluator.update(torch.from_numpy(np.stack(pending_imgs)),
+                             torch.from_numpy(np.stack(pending_anns)))
+            pending_imgs, pending_anns = [], []
+
+    # a bounded prefetch of the disk loads overlaps the device work
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        it = iter(files)
+        window = deque(pool.submit(load_one, n) for _, n in zip(range(4), it))
+        while window:
+            x, ann = window.popleft().result()
+            nxt = next(it, None)
+            if nxt is not None:
+                window.append(pool.submit(load_one, nxt))
+            if pending_shape not in (None, (x.shape, ann.shape)) or \
+                    len(pending_imgs) >= batch_size:
+                flush()
+            pending_shape = (x.shape, ann.shape)
+            pending_imgs.append(x)
+            pending_anns.append(ann)
+    flush()
+
+    result = evaluator.result()
+    # the scores first: a plot failure must never lose the result
+    names = class_names(data_type, spec.num_classes)
+    iou_scores = {names[i]: result["per_class_iou"][i]
+                  for i in range(spec.num_classes)}
+    with open(os.path.join(out_dir, "iou_scores.json"), "w") as f:
+        json.dump(iou_scores, f, indent=2)
+    with open(os.path.join(out_dir, "mean_iou.txt"), "w") as f:
+        f.write(f"{result['mean_iou']}\n")
+    if "top_k_purity_percent" in result:
+        with open(os.path.join(out_dir, "proto_purity.json"), "w") as f:
+            json.dump({"top_k_purity_percent": result["top_k_purity_percent"],
+                       "n_images": int(result["purity_images"])}, f, indent=2)
+        log(f"top-1 prototype purity over {result['purity_images']} "
+            f"images: {result['top_k_purity_percent'][0]:.2f}%")
+    try:
+        _save_plots(out_dir, iou_scores, result.get("top_k_purity_percent"))
+    except Exception as e:  # the plots are best-effort artifacts
+        log(f"eval plot artifacts skipped: {e!r}")
+    log(f"mean IoU: {result['mean_iou']:.4f}  "
+        f"pixel acc: {result['pixel_accuracy']:.4f}")
+    return result
+
+
+def _save_plots(out_dir: str, iou_scores: dict, curve) -> None:
+    """The per-class IoU bar chart and the top-K purity plot, where
+    matplotlib is importable."""
+    try:
+        import matplotlib
+    except ImportError:
+        return
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(max(6, len(iou_scores) * 0.4), 4))
+    ax.bar(list(iou_scores), list(iou_scores.values()))
+    ax.set_ylabel("IoU")
+    plt.xticks(rotation=90)
+    fig.tight_layout()
+    fig.savefig(os.path.join(out_dir, "iou_per_class.png"), dpi=120)
+    plt.close(fig)
+    if curve is not None:
+        fig, ax = plt.subplots(figsize=(10, 5))
+        ax.plot(curve)
+        ax.set_xlabel("Nearest K prototypes to a pixel")
+        ax.set_ylabel("% of K prototypes from pixel class")
+        ax.set_ylim(0, 100)
+        fig.tight_layout()
+        fig.savefig(os.path.join(out_dir,
+                                 "class_prototypes_in_nearest_k.png"),
+                    dpi=110)
+        plt.close(fig)
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("model_name")
+    p.add_argument("training_phase")
+    p.add_argument("batch_size", nargs="?", type=int, default=2)
+    p.add_argument("data_type", nargs="?", default="cityscapes")
+    p.add_argument("--margin", type=int, default=0)
+    p.add_argument("--limit", type=int, default=None)
+    p.add_argument("--data-root", default=None)
+    p.add_argument("--results-root", default=None)
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' runs the float32 "
+                   "plain path)")
+    g = p.add_mutually_exclusive_group()
+    g.add_argument("--fast-output", dest="fast_output", action="store_true",
+                   default=None,
+                   help="labels through K3, the fused upsample + argmax "
+                   "(the default on the card)")
+    g.add_argument("--exact-output", dest="fast_output",
+                   action="store_false",
+                   help="labels through the gather-form bilinear resize, "
+                   "the reference's protocol")
+    q = p.add_mutually_exclusive_group()
+    q.add_argument("--quant8-static", dest="quant8", action="store_const",
+                   const="static", default=False,
+                   help="static int8 layer4/5, calibrated on the first "
+                   "--calib-images val images; results in "
+                   "evaluation/<phase>-quant8static")
+    q.add_argument("--quant8", dest="quant8", action="store_true",
+                   help="dynamic int8 layer4/5 (no K3 output path)")
+    p.add_argument("--calib-images", type=int, default=8,
+                   help="calibration images for --quant8-static")
+    p.add_argument("--fp32", action="store_true",
+                   help="the float32 forward without K2")
+    a = p.parse_args(argv)
+    return run_evaluation(a.model_name, a.training_phase, a.batch_size,
+                          a.data_type, margin=a.margin, limit=a.limit,
+                          data_root=a.data_root,
+                          results_root=a.results_root,
+                          fast_output=a.fast_output, quant8=a.quant8,
+                          calib_images=a.calib_images, fp32=a.fp32,
+                          device=a.device)
+
+
+if __name__ == "__main__":
+    main()

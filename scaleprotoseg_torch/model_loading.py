@@ -5,12 +5,15 @@ A run directory holds ``config.gin`` (the experiment config) and
 ``checkpoints/<stage>.pth`` (the reference-named state dict, as the JAX
 package's ``convert_checkpoint export-torch`` writes it).  The msgpack
 ``.ckpt`` itself is not read.
+
+``quant8='static'`` models calibrate their activation scales with
+``calibrate_quant_scales`` before they serve.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple, Union
+from typing import Dict, Iterable, Optional, Tuple, Union
 
 import torch
 
@@ -18,7 +21,7 @@ from scaleprotoseg_torch import configlib
 from scaleprotoseg_torch.checkpoints.convert import (load_checkpoint,
                                                      spec_from_meta)
 from scaleprotoseg_torch.models.factory import construct_ppnet
-from scaleprotoseg_torch.models.layers import cast_convs
+from scaleprotoseg_torch.models.layers import QuantConvBN, cast_convs
 from scaleprotoseg_torch.models.ppnet import PPNet
 from scaleprotoseg_torch.spec import ProtoSpec
 
@@ -46,16 +49,81 @@ def resolve_checkpoint(model_path: str, training_phase: str) -> str:
                         f"{training_phase}_last.ckpt")
 
 
+def quant_sites(model: torch.nn.Module):
+    """The ``(name, QuantConvBN)`` sites of a quant8 model, in order."""
+    return [(n, m) for n, m in model.named_modules()
+            if isinstance(m, QuantConvBN)]
+
+
+def calibrate_quant_scales(model: PPNet, batches: Iterable[torch.Tensor],
+                           log=None) -> PPNet:
+    """Post-training max calibration of a ``quant8='static'`` model: run
+    the float forward over ``batches`` (normalized (B, H, W, 3) tensors
+    on the model's device, in its input space) with every static site
+    folding ``max|x| / 127`` into its scale.  Returns ``model``, ready to
+    serve.  Raises on a model without static sites or an empty
+    ``batches``."""
+    sites = [m for _, m in quant_sites(model) if m.static]
+    if not sites:
+        raise ValueError("calibrate_quant_scales: the model has no "
+                         "quant8='static' conv sites")
+    n = 0
+    for m in sites:
+        m.calibrating = True
+    try:
+        with torch.no_grad():
+            for x in batches:
+                model(x)
+                n += 1
+    finally:
+        for m in sites:
+            m.calibrating = False
+    if n == 0:
+        raise ValueError("calibrate_quant_scales: no calibration batches")
+    if log:
+        scales = torch.stack([m.x_scale for m in sites]).cpu()
+        log(f"quant8 calibration: {n} batches, {len(sites)} conv sites, "
+            f"scale range [{float(scales.min()):.2e}, "
+            f"{float(scales.max()):.2e}]")
+    return model
+
+
+def set_quant_scales(model: PPNet, scales: Dict[str, float]) -> PPNet:
+    """Load per-site activation scales ``{module name: scale}`` (see
+    ``checkpoints.convert.quant_scales_from_jax``) into a static quant8
+    model; every static site must be covered."""
+    sites = {n: m for n, m in quant_sites(model) if m.static}
+    missing = sorted(set(sites) - set(scales))
+    extra = sorted(set(scales) - set(sites))
+    if missing or extra:
+        raise ValueError(f"quant scales do not match the model's static "
+                         f"sites: missing {missing}, unknown {extra}")
+    for name, m in sites.items():
+        m.set_scale(scales[name])
+    return model
+
+
 def load_model(model_path: str, checkpoint_path: str,
                dtype: torch.dtype = torch.float32, fast: bool = False,
-               device: Optional[Union[str, torch.device]] = None
+               device: Optional[Union[str, torch.device]] = None,
+               quant8: Union[bool, str] = False
                ) -> Tuple[PPNet, ProtoSpec]:
     """(model in eval mode on ``device``, spec).
 
     ``dtype`` is the compute dtype of the convolutions and the add-on
     (the prototype head stays float32); ``fast`` routes the ASPP through
     the K2 kernel when the dtype is bf16 (``models/deeplab.py``).  On the
-    card the model runs in channels_last memory."""
+    card the model runs in channels_last memory.
+
+    ``quant8=True`` runs the layer4/5 convs as dynamic w8a8 int8 and drops
+    ``fast``, as the JAX package does; ``quant8='static'`` uses calibrated
+    per-site scales (``calibrate_quant_scales``) and keeps ``fast``.
+    Serving only; the state dict is the same either way."""
+    if quant8 not in (False, True, "static"):
+        raise ValueError(f"quant8 must be False, True or 'static', got "
+                         f"{quant8!r}")
+    if quant8 is True:
+        fast = False
     dev = resolve_device(device)
     stem = os.path.splitext(checkpoint_path)[0]
     sd, meta = load_checkpoint(stem)
@@ -78,15 +146,19 @@ def load_model(model_path: str, checkpoint_path: str,
                 return value
         return default
 
+    arch = q("base_architecture")
+    if quant8 and not str(arch).startswith("deeplabv2_"):
+        raise ValueError(f"quant8 serving needs a DeepLabV2 backbone; got "
+                         f"{arch!r}")
     model, _ = construct_ppnet(
-        variant=variant, base_architecture=q("base_architecture"),
+        variant=variant, base_architecture=arch,
         prototype_shape=(spec.num_prototypes, spec.proto_depth, 1, 1),
         num_classes=spec.num_classes,
         prototype_activation_function=q("prototype_activation_function",
                                         "log"),
         add_on_layers_type=q("add_on_layers_type", "deeplab_simple"),
         scale_head_type=q("scale_head_type"), bindings=bindings, spec=spec,
-        dtype=dtype)
+        dtype=dtype, quant8=quant8)
     model.load_state_dict(sd, strict=True)
     model.features.base.aspp.fast = fast
     cast_convs(model, dtype)

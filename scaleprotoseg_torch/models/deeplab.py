@@ -26,15 +26,18 @@ ASPP (``aspp_mode='concat'``: rate r's F channels at ``[r*F, (r+1)*F)``;
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Sequence, Tuple
+from functools import partial
+from typing import Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 
 from scaleprotoseg_torch.kernels.aspp import (KERNEL_MIN_C, aspp_trainable,
                                               pack_weights, shifted_sum)
-from scaleprotoseg_torch.models.layers import (ConvBN, WeightCache,
-                                               max_pool_ceil)
+from scaleprotoseg_torch.models.layers import (ConvBN, QuantConvBN,
+                                               WeightCache, max_pool_ceil)
+
+Quant8 = Union[bool, str]       # False | True (dynamic) | "static"
 
 
 class Bottleneck(nn.Module):
@@ -42,12 +45,14 @@ class Bottleneck(nn.Module):
     the first block of a layer."""
 
     def __init__(self, cin: int, mid: int, out: int, stride: int,
-                 dilation: int, shortcut: bool):
+                 dilation: int, shortcut: bool, quant8: Quant8 = False):
         super().__init__()
-        self.reduce = ConvBN(cin, mid, 1, stride=stride)
-        self.conv3x3 = ConvBN(mid, mid, 3, dilation=dilation)
-        self.increase = ConvBN(mid, out, 1, relu=False)
-        self.shortcut = ConvBN(cin, out, 1, stride=stride, relu=False) \
+        conv_bn = partial(QuantConvBN, static=quant8 == "static") \
+            if quant8 else ConvBN
+        self.reduce = conv_bn(cin, mid, 1, stride=stride)
+        self.conv3x3 = conv_bn(mid, mid, 3, dilation=dilation)
+        self.increase = conv_bn(mid, out, 1, relu=False)
+        self.shortcut = conv_bn(cin, out, 1, stride=stride, relu=False) \
             if shortcut else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -57,11 +62,11 @@ class Bottleneck(nn.Module):
 
 
 def res_layer(n_blocks: int, cin: int, mid: int, out: int, stride: int,
-              dilation: int) -> nn.Sequential:
+              dilation: int, quant8: Quant8 = False) -> nn.Sequential:
     return nn.Sequential(OrderedDict(
         (f"block{i + 1}", Bottleneck(cin if i == 0 else out, mid, out,
                                      stride if i == 0 else 1, dilation,
-                                     shortcut=(i == 0)))
+                                     shortcut=(i == 0), quant8=quant8))
         for i in range(n_blocks)))
 
 
@@ -137,14 +142,21 @@ class DeepLabV2(nn.Module):
 
     def __init__(self, n_out: int, n_blocks: Tuple[int, ...] = (3, 4, 23, 3),
                  atrous_rates: Tuple[int, ...] = (6, 12, 18, 24),
-                 aspp_mode: str = "concat", fast_aspp: bool = False):
+                 aspp_mode: str = "concat", fast_aspp: bool = False,
+                 quant8: Quant8 = False):
         super().__init__()
+        if quant8 not in (False, True, "static"):
+            raise ValueError(f"quant8 must be False, True or 'static', got "
+                             f"{quant8!r}")
+        self.quant8 = quant8
         ch = [64 * 2 ** p for p in range(6)]
         self.layer1 = Stem(ch[0])
         self.layer2 = res_layer(n_blocks[0], ch[0], ch[0], ch[2], 1, 1)
         self.layer3 = res_layer(n_blocks[1], ch[2], ch[1], ch[3], 2, 1)
-        self.layer4 = res_layer(n_blocks[2], ch[3], ch[2], ch[4], 1, 2)
-        self.layer5 = res_layer(n_blocks[3], ch[4], ch[3], ch[5], 1, 4)
+        self.layer4 = res_layer(n_blocks[2], ch[3], ch[2], ch[4], 1, 2,
+                                quant8)
+        self.layer5 = res_layer(n_blocks[3], ch[4], ch[3], ch[5], 1, 4,
+                                quant8)
         self.aspp = ASPP(ch[5], n_out, atrous_rates, aspp_mode,
                          fast=fast_aspp)
 

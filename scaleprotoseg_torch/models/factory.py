@@ -31,9 +31,10 @@ _BACKBONES = {
 }
 
 
-def build_backbone(base_architecture: str, bindings: Bindings
-                   ) -> Tuple[DeepLabV2, int]:
-    """(backbone, output channels) for a named architecture."""
+def build_backbone(base_architecture: str, bindings: Bindings,
+                   quant8=False) -> Tuple[DeepLabV2, int]:
+    """(backbone, output channels) for a named architecture; ``quant8``
+    as ``DeepLabV2``'s."""
     if base_architecture not in _BACKBONES:
         raise NotImplementedError(
             f"backbone {base_architecture!r} is not ported yet; the port "
@@ -48,7 +49,7 @@ def build_backbone(base_architecture: str, bindings: Bindings
         raise NotImplementedError(f"the MSC input pyramid {scales} is not "
                                   "ported yet")
     backbone = DeepLabV2(n_out=int(n_features), n_blocks=n_blocks,
-                         atrous_rates=RATES, aspp_mode=mode)
+                         atrous_rates=RATES, aspp_mode=mode, quant8=quant8)
     out_ch = int(n_features) * (len(RATES) if mode == "concat" else 1)
     return backbone, out_ch
 
@@ -62,12 +63,13 @@ def construct_ppnet(variant: str, base_architecture: str,
                     spec: Optional[ProtoSpec] = None,
                     incorrect_strength: float = -0.5,
                     dtype: torch.dtype = torch.float32,
-                    generator: Optional[torch.Generator] = None
-                    ) -> Tuple[PPNet, ProtoSpec]:
+                    generator: Optional[torch.Generator] = None,
+                    quant8=False) -> Tuple[PPNet, ProtoSpec]:
     """Build (model, spec).  ``variant``: 'single' | 'multiscale' | 'group'.
 
     ``spec`` overrides the equal-allocation bank (a pushed or pruned
-    checkpoint's own layout)."""
+    checkpoint's own layout); ``quant8`` (False, True or 'static') runs
+    the backbone's layer4/5 as int8 convs (``DeepLabV2``)."""
     bindings = bindings or {}
     if variant not in ("single", "multiscale", "group"):
         raise ValueError(variant)
@@ -80,7 +82,7 @@ def construct_ppnet(variant: str, base_architecture: str,
         if variant == "group" else 0
     if not query(bindings, cls_name, "patch_classification", True):
         raise NotImplementedError("only per-pixel classification exists")
-    backbone, out_ch = build_backbone(base_architecture, bindings)
+    backbone, out_ch = build_backbone(base_architecture, bindings, quant8)
     if spec is None:
         spec = ProtoSpec.equal_allocation(
             prototype_shape[0], prototype_shape[1], num_classes,

@@ -21,6 +21,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from scaleprotoseg_torch.ops.quant import (dynamic_int8_conv, int8_conv,
+                                           pack_int8_weight, static_int8_conv)
+
 
 class FrozenBatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (same state-dict keys) that always normalizes
@@ -57,6 +60,84 @@ class ConvBN(nn.Module):
         return F.relu(x, inplace=True) if self.relu else x
 
 
+class QuantConvBN(ConvBN):
+    """``ConvBN`` whose conv runs as a w8a8 int8 convolution
+    (``ops/quant.py``): the counterpart of the JAX package's
+    ``_QuantConv``.  Same parameters and state-dict keys, so any
+    checkpoint loads with ``strict=True``; the float32 conv weight is
+    quantized per output channel once per set of weights.
+
+    ``static=False`` (dynamic): the activation scale is computed per call.
+    ``static=True``: the scale is the non-persistent buffer ``x_scale``
+    (0 until calibrated).  While ``calibrating`` the module runs the float
+    conv in the compute dtype and folds ``max|x| / 127`` into ``x_scale``,
+    which later batches can only raise; serving an uncalibrated site
+    raises.  ``plain`` routes the conv through the plain versions
+    (``static_int8_conv`` / ``dynamic_int8_conv``) instead of the kernel
+    dispatch ``int8_conv``: the reference path on the card.  The int8
+    output is dequantized into the compute dtype."""
+
+    def __init__(self, *args, static: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.static = static
+        self.register_buffer("x_scale", torch.zeros((), dtype=torch.float32),
+                             persistent=False)
+        self.calibrated = False
+        self.calibrating = False
+        self.plain = False
+        self._packed = WeightCache()
+
+    def set_scale(self, value: torch.Tensor) -> None:
+        """Load a calibrated activation scale (e.g. carried from JAX)."""
+        with torch.no_grad():
+            self.x_scale.copy_(torch.as_tensor(value, dtype=torch.float32))
+        self.calibrated = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.conv
+        dt = self.compute_dtype or conv.weight.dtype
+        if self.calibrating:
+            if not self.static:
+                raise ValueError("only static quant8 sites calibrate")
+            with torch.no_grad():
+                torch.maximum(self.x_scale,
+                              x.detach().float().abs().amax() / 127.0,
+                              out=self.x_scale)
+            self.calibrated = True
+            y = F.conv2d(x.to(dt), conv.weight.to(dt), None, conv.stride,
+                         conv.padding, conv.dilation)
+        else:
+            if self.static and not self.calibrated:
+                raise ValueError(
+                    "quant8='static' model served without calibrated "
+                    "scales: run model_loading.calibrate_quant_scales "
+                    "first (serve's --quant8-static does this on the "
+                    "first inputs)")
+            y = self._int8(x.permute(0, 2, 3, 1), dt).permute(0, 3, 1, 2)
+        y = self.bn(y)
+        return F.relu(y, inplace=True) if self.relu else y
+
+    def _int8(self, xh: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        conv = self.conv
+        scale = self.x_scale if self.static else None
+        if self.plain:
+            pad = [(p, p) for p in conv.padding]
+            kw = dict(strides=conv.stride, padding=pad,
+                      dilation=conv.dilation, out_dtype=dt)
+            kernel = conv.weight.permute(2, 3, 1, 0)
+            return static_int8_conv(xh, kernel, scale, **kw) if self.static \
+                else dynamic_int8_conv(xh, kernel, **kw)
+        k = conv.kernel_size[0]
+        if conv.stride != (1, 1) or conv.padding != (
+                (k - 1) * conv.dilation[0] // 2,) * 2 or k not in (1, 3):
+            raise ValueError("int8 kernels take stride-1 'same' 1x1 and 3x3 "
+                             "convs only")
+        packed = self._packed.get(
+            [conv.weight],
+            lambda: pack_int8_weight(conv.weight.permute(2, 3, 1, 0).float()))
+        return int8_conv(xh, packed, scale, conv.dilation[0], dt)
+
+
 def max_pool_ceil() -> nn.MaxPool2d:
     """3x3 stride-2 pad-1 ceil-mode max pool (the stem's)."""
     return nn.MaxPool2d(3, 2, 1, ceil_mode=True)
@@ -64,9 +145,16 @@ def max_pool_ceil() -> nn.MaxPool2d:
 
 def cast_convs(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast every ``nn.Conv2d`` under ``module`` to ``dtype`` (the compute
-    dtype), leaving the frozen BN parameters in float32."""
+    dtype), leaving the frozen BN parameters in float32.  A
+    ``QuantConvBN`` keeps its float32 weight (it is quantized from that,
+    as the JAX package quantizes its float32 parameter) and computes in
+    ``dtype``."""
+    quant = {id(m.conv) for m in module.modules()
+             if isinstance(m, QuantConvBN)}
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, QuantConvBN):
+            m.compute_dtype = dtype
+        elif isinstance(m, nn.Conv2d) and id(m) not in quant:
             m.to(dtype)
     return module
 

@@ -4,6 +4,12 @@
   grid, in the separable dense-matrix form: ``_bilinear_matrix`` builds
   each (out, in) matrix on a float64 grid and casts it to float32, as the
   JAX package does, so both interpolate with bit-equal weights.
+- Bilinear as the JAX package's ``resize_bilinear`` computes it
+  (``jax.image.resize``, linear, no antialias: the eval upsample behind
+  ``--exact-output``): ``_linear_weights`` builds each axis's weights in
+  float32 the way ``jax.image`` does, a triangle kernel normalized per
+  output sample; and ``bilinear_sample``: the grid's values at chosen
+  output pixels without the full upsampled volume (the purity curve).
 - Label resize as PIL's ``Image.resize(..., NEAREST)``: ``_nearest_index``
   gives PIL's source index for every output pixel without PIL.
 """
@@ -89,3 +95,57 @@ def resize_bilinear_matrix(x: torch.Tensor, height: int,
     mx = torch.as_tensor(_bilinear_matrix(width, x.shape[-2]), **kw)
     y = torch.einsum("oh,...hwc->...owc", my, x.float())
     return torch.einsum("pw,...owc->...opc", mx, y)
+
+
+@lru_cache(maxsize=512)
+def _linear_weights(out_size: int, in_size: int) -> np.ndarray:
+    """(in, out) float32 weights of ``jax.image.resize``'s linear kernel
+    without antialias as XLA computes them: sample ``s = (o + 0.5) *
+    in/out - 0.5`` rounded once (XLA fuses the multiply-add; the float64
+    product of two float32 values is exact), weight ``max(0, 1 - |s -
+    i|)``, each column normalized by its sum, in float32."""
+    inv = np.float32(1.0 / (out_size / in_size))
+    q = np.arange(out_size, dtype=np.float32) + np.float32(0.5)
+    s = (q.astype(np.float64) * np.float64(inv) - 0.5).astype(np.float32)
+    w = np.maximum(np.float32(0), np.float32(1) - np.abs(
+        s[None, :] - np.arange(in_size, dtype=np.float32)[:, None]))
+    total = w.sum(0, keepdims=True, dtype=np.float32)
+    w = np.where(np.abs(total) > 1000 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0).astype(np.float32)
+    inside = (s >= -0.5) & (s <= in_size - 0.5)
+    return np.where(inside[None, :], w, 0).astype(np.float32)
+
+
+def resize_bilinear(x: torch.Tensor, height: int, width: int
+                    ) -> torch.Tensor:
+    """(..., H, W, C) -> (..., height, width, C) float32: the JAX package's
+    ``resize_bilinear`` (torch's ``align_corners=False`` grid, no
+    antialias), with ``jax.image``'s float32 weights."""
+    kw = dict(dtype=torch.float32, device=x.device)
+    wy = torch.as_tensor(_linear_weights(height, x.shape[-3]), **kw)
+    wx = torch.as_tensor(_linear_weights(width, x.shape[-2]), **kw)
+    y = torch.einsum("...hwc,ho->...owc", x.float(), wy)
+    return torch.einsum("...owc,wp->...opc", y, wx)
+
+
+def bilinear_sample(arr: torch.Tensor, rows: torch.Tensor,
+                    cols: torch.Tensor, out_h: int, out_w: int
+                    ) -> torch.Tensor:
+    """Values of the align_corners=False bilinear upsample of ``arr`` (B,
+    H, W, C) to (out_h, out_w) at the output pixels ``rows``/``cols`` (B,
+    n): (B, n, C) float32, computed from the four source neighbours."""
+    b, h, w = arr.shape[:3]
+    sy = ((rows.float() + 0.5) * (h / out_h) - 0.5).clamp(0, h - 1)
+    sx = ((cols.float() + 0.5) * (w / out_w) - 0.5).clamp(0, w - 1)
+    y0 = sy.floor().long()
+    x0 = sx.floor().long()
+    y1 = torch.clamp_max(y0 + 1, h - 1)
+    x1 = torch.clamp_max(x0 + 1, w - 1)
+    wy = (sy - y0)[..., None]
+    wx = (sx - x0)[..., None]
+    bi = torch.arange(b, device=arr.device)[:, None]
+    a = arr.float()
+    return (a[bi, y0, x0] * (1 - wy) * (1 - wx) +
+            a[bi, y0, x1] * (1 - wy) * wx +
+            a[bi, y1, x0] * wy * (1 - wx) +
+            a[bi, y1, x1] * wy * wx)

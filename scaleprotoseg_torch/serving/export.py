@@ -4,6 +4,10 @@
 normalization of raw uint8 RGB, the model (fused prototype head when
 ``fast``), then the label upsample + argmax (the fused K3 kernel when
 ``fast``).  The ``jax.export`` artifact form is not part of the port yet.
+
+A dynamic quant8 model (``quant8=True``) serves without ``fast``, as in
+the JAX package; a static one serves with it once calibrated, and an
+uncalibrated static model raises at its first quantized conv.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ def make_serving_fn(model, *, output: str = "labels", upsample: bool = True,
     the same float32 ops as the host pipeline, then cast to this dtype."""
     if output not in ("labels", "logits"):
         raise ValueError(f"output must be labels|logits, got {output!r}")
+    if getattr(model.features.base, "quant8", False) is True:
+        fast = False
     device = next(model.parameters()).device
     mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device)
     std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device)

@@ -18,6 +18,13 @@ Normalization runs on the device by default: raw uint8 ships to the card
 and the forward computes ``(x / 255 - mean) / std`` in float32
 (``--host-preprocess`` normalizes on the host instead; float sources
 imply it).
+
+``--quant8-static`` runs layer4/5 as int8 convs with activation scales
+calibrated on the first ``--calib-images`` inputs (host-normalized, one
+image per batch) and keeps the fast path: on the card the int8 kernels
+run beside K1, K2 and K3.  ``--quant8`` is the dynamic form, which
+serves without the fast path, as in the JAX package.  The record line
+says which (``"quant8"``).
 """
 
 from __future__ import annotations
@@ -77,8 +84,6 @@ def run_serving(predict, names, preprocess, out_dir: str, batch_size: int,
     card the record adds the device's idle share of that window."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from PIL import Image
-
     from scaleprotoseg_torch.serving.engine import ServingEngine
 
     os.makedirs(out_dir, exist_ok=True)
@@ -91,6 +96,7 @@ def run_serving(predict, names, preprocess, out_dir: str, batch_size: int,
             np.save(os.path.join(out_dir, f"{stem}.npy"),
                     pred.astype(np.uint8))
         else:
+            from PIL import Image   # only for PNGs: --raw-output needs none
             Image.fromarray(pred.astype(np.uint8)).convert("L").save(
                 os.path.join(out_dir, f"{stem}.png"))
 
@@ -141,11 +147,22 @@ def main(argv: Optional[List[str]] = None) -> dict:
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the float32 "
                    "plain path)")
+    q = p.add_mutually_exclusive_group()
+    q.add_argument("--quant8", action="store_true",
+                   help="dynamic w8a8 int8 layer4/5 convs (serves without "
+                   "the fast path)")
+    q.add_argument("--quant8-static", action="store_true",
+                   help="static-scale w8a8 int8 layer4/5 convs, calibrated "
+                   "on the first --calib-images inputs")
+    p.add_argument("--calib-images", type=int, default=8,
+                   help="calibration inputs for --quant8-static")
     args = p.parse_args(argv)
 
-    from scaleprotoseg_torch.model_loading import (load_model,
+    from scaleprotoseg_torch.model_loading import (calibrate_quant_scales,
+                                                   load_model,
                                                    resolve_checkpoint,
                                                    resolve_device)
+    quant8 = "static" if args.quant8_static else args.quant8
     device = resolve_device(args.device)
     names = _list_images(args.input, args.limit)
     raw0 = _load(os.path.join(args.input, names[0]))
@@ -157,7 +174,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
                               args.model_name)
     ckpt = resolve_checkpoint(model_path, args.training_phase)
     model, _ = load_model(model_path, ckpt, dtype=dtype, fast=fast,
-                          device=device)
+                          device=device, quant8=quant8)
+    if quant8 == "static":
+        calib = _make_preprocess(args.input, normalize=True)
+        batches = (torch.from_numpy(calib(n))[None].to(device, dtype)
+                   for n in names[:max(args.calib_images, 1)])
+        calibrate_quant_scales(model, batches, log=print)
     from scaleprotoseg_torch.serving.export import make_serving_fn
     fn = make_serving_fn(model, fast=fast,
                          normalize_to=dtype if device_pre else None)
@@ -172,7 +194,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
                          out_dir, args.batch, device, workers=args.workers,
                          writers=args.writers, raw_output=args.raw_output)
     record.update(preprocess="device" if device_pre else "host",
-                  fast=fast, device=str(device),
+                  fast=fast and quant8 is not True, quant8=quant8,
+                  device=str(device),
                   device_name=(torch.cuda.get_device_name(device)
                                if device.type == "cuda" else "cpu"))
     print(json.dumps(record))

@@ -80,6 +80,11 @@ def make_train_step(weights: LossWeights, ignore_void: bool = True,
 
     def step(state: TrainState, image: torch.Tensor,
              target: torch.Tensor) -> Metrics:
+        if getattr(state.model.features.base, "quant8", False):
+            raise ValueError(
+                "model was built with quant8 (int8 serving convs: their "
+                "round() has zero gradient, so training would silently "
+                "freeze the backbone); reload without quant8 to train")
         state.model.train()
         out = state.model(image)
         loss, metrics = compute_losses(state.model, out, target, weights,

@@ -7,7 +7,10 @@ machine with the card it runs without the JAX package's conftest:
 
 Tolerances as in ``chip_smoke.py``: K2 within 2 bf16 ulps of the fp32
 accumulated plain form, K1 rtol = atol = 1e-4 without TF32, K3 labels
-equal where the top-two margin is at least 1e-5.
+equal where the top-two margin is at least 1e-5; the int8 products and
+the quantize bit for bit, their bf16 epilogue within 1 bf16 ulp, the
+bf16 arm of ``int8_mm`` within rtol = 1e-4, atol = 1e-3 of the float32
+product without TF32.
 """
 
 import numpy as np
@@ -18,6 +21,10 @@ from scaleprotoseg_torch import kernels
 from scaleprotoseg_torch.kernels.aspp import (aspp_plain, aspp_trainable,
                                               grad_pack_plain,
                                               grad_weight_plain, shifted_sum)
+from scaleprotoseg_torch.kernels.int8 import (absmax_plain,
+                                              int8_conv3x3_plain,
+                                              int8_mm_plain,
+                                              quantize_int8_plain)
 from scaleprotoseg_torch.kernels.proto import proto_plain
 from scaleprotoseg_torch.kernels.upsample import upsample_argmax_plain
 from scaleprotoseg_torch.ops.resize import resize_bilinear_matrix
@@ -245,3 +252,133 @@ def test_engine_times_the_device(dev):
     got = [k for k, _ in engine.run(items)]
     assert got == list(range(5))
     assert engine.device_seconds > 0
+
+
+def _int8(gen, shape, dev):
+    return torch.from_numpy(gen.integers(-127, 128, size=shape).astype(
+        np.int8)).to(dev)
+
+
+@pytest.mark.parametrize("m,k,n", [(8192, 512, 512), (1000, 256, 128),
+                                   (2 * 17 * 33, 2048, 512),
+                                   (70, 64, 256)])
+def test_int8_mm_matches_plain(dev, gen, m, k, n):
+    """The int32 product bit for bit (rows past M masked); the dequantized
+    bf16 within 1 bf16 ulp and float32 bit for bit of ``float(acc) *
+    (sx * sw)``."""
+    a, bt = _int8(gen, (m, k), dev), _int8(gen, (n, k), dev)
+    before = kernels.int8_mm.launches
+    got = kernels.int8_mm(a, bt)
+    torch.cuda.synchronize()
+    assert kernels.int8_mm.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, int8_mm_plain(a, bt))
+    sx = torch.tensor(3e-3, device=dev)
+    sw = torch.from_numpy(gen.random(n, np.float32) * 1e-3 + 1e-5).to(dev)
+    want = int8_mm_plain(a, bt, sx, sw, torch.float32)
+    assert torch.equal(kernels.int8_mm(a, bt, sx, sw, torch.float32), want)
+    got_bf = kernels.int8_mm(a, bt, sx, sw, torch.bfloat16).float()
+    assert _bf16_ulps(got_bf.cpu().numpy(), want.cpu().numpy()) <= 1
+    assert torch.equal(got_bf, want.to(torch.bfloat16).float())
+
+
+def test_int8_mm_bf16_arm_matches_plain(dev, gen):
+    a = torch.from_numpy(gen.standard_normal((8192, 512)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    bt = torch.from_numpy(gen.standard_normal((512, 512)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    got = kernels.int8_mm(a, bt)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, int8_mm_plain(a, bt), rtol=1e-4,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("shape,dil", [((2, 17, 33, 256, 256), 2),
+                                       ((1, 9, 130, 512, 512), 4),
+                                       ((2, 3, 5, 64, 128), 4)])
+def test_int8_conv3x3_matches_plain(dev, gen, shape, dil):
+    """The nine-tap accumulator bit for bit against a float64 conv of the
+    int8 values, including maps smaller than the dilation (every shifted
+    tap partly outside), and the dequantized bf16 form."""
+    b, h, w, c, n = shape
+    x, wt = _int8(gen, (b, h, w, c), dev), _int8(gen, (9, n, c), dev)
+    before = kernels.int8_conv3x3.launches
+    got = kernels.int8_conv3x3(x, wt, dil)
+    torch.cuda.synchronize()
+    assert kernels.int8_conv3x3.launches == before + 1
+    assert torch.equal(got, int8_conv3x3_plain(x, wt, dil))
+    sx = torch.tensor(2e-3, device=dev)
+    sw = torch.from_numpy(gen.random(n, np.float32) * 1e-3 + 1e-5).to(dev)
+    assert torch.equal(
+        kernels.int8_conv3x3(x, wt, dil, sx, sw, torch.bfloat16),
+        int8_conv3x3_plain(x, wt, dil, sx, sw, torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantize_int8_matches_plain(dev, gen, dtype):
+    """Both forms bit for bit: static (reciprocal multiply, saturating)
+    and dynamic (the device scale from ``int8_absmax``, then division),
+    with exact .5 cases for the half-to-even rounding."""
+    x = torch.from_numpy(gen.standard_normal((2, 33, 65, 256)).astype(
+        np.float32) * 4).to(dev, dtype)
+    x.view(-1)[:8] = torch.tensor([0.5, 1.5, 2.5, -0.5, -2.5, 3.5, -3.5,
+                                   126.5], device=dev, dtype=dtype)
+    counts = (kernels.quantize_int8.launches, kernels.int8_absmax.launches)
+    for scale in (torch.tensor(1.0, device=dev),
+                  torch.tensor(0.03, device=dev)):
+        assert torch.equal(kernels.quantize_int8(x, scale),
+                           quantize_int8_plain(x, scale))
+    s = kernels.int8_absmax(x)
+    assert s.device.type == "cuda" and s.shape == ()
+    assert torch.equal(s, absmax_plain(x))
+    assert torch.equal(kernels.quantize_int8(x, s, divide=True),
+                       quantize_int8_plain(x, s, divide=True))
+    torch.cuda.synchronize()
+    assert (kernels.quantize_int8.launches,
+            kernels.int8_absmax.launches) == (counts[0] + 3, counts[1] + 1)
+
+
+@pytest.mark.parametrize("quant8", ["static", True], ids=["static",
+                                                          "dynamic"])
+def test_quant_conv_kernel_path_matches_plain(dev, gen, quant8):
+    """A layer5 block of the bf16 serving model: the kernel path
+    (``int8_conv``) against the plain path (``static_int8_conv`` /
+    ``dynamic_int8_conv``, float64 products) within 1 bf16 ulp."""
+    from scaleprotoseg_torch.models.deeplab import Bottleneck
+    from scaleprotoseg_torch.models.layers import QuantConvBN, cast_convs
+    block = Bottleneck(1024, 512, 2048, 1, 4, shortcut=True, quant8=quant8)
+    for m in block.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.weight.data = torch.from_numpy(gen.standard_normal(
+                m.weight.shape).astype(np.float32) * 0.02)
+    block = cast_convs(block, torch.bfloat16).to(dev).eval()
+    block.to(memory_format=torch.channels_last)
+    x = torch.from_numpy(gen.random((1, 1024, 17, 33), np.float32)).to(
+        dev, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    sites = [m for m in block.modules() if isinstance(m, QuantConvBN)]
+    if quant8 == "static":
+        for m in sites:
+            m.calibrating = True
+        with torch.no_grad():
+            block(x)
+        for m in sites:
+            m.calibrating = False
+    before = kernels.int8_mm.launches
+    with torch.no_grad():
+        got = block.conv3x3(block.reduce(x)).float().cpu().numpy()
+        for m in sites:
+            m.plain = True
+        want = block.conv3x3(block.reduce(x)).float().cpu().numpy()
+    assert kernels.int8_mm.launches == before + 1
+    assert _bf16_ulps(got, want) <= 1
+
+
+def test_int8_wrappers_refuse_misaligned_operands(dev):
+    buf = torch.zeros(8 + 128 * 64, dtype=torch.int8, device=dev)
+    a = buf[8:].view(128, 64)
+    bt = torch.zeros((128, 64), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.int8_mm(a, bt)
+    x = torch.zeros(2 + 64, dtype=torch.float32, device=dev)[2:]
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.quantize_int8(x, torch.tensor(1.0, device=dev))

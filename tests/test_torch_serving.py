@@ -19,6 +19,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from scaleprotoseg_torch.constants import IMAGENET_MEAN, IMAGENET_STD
 from scaleprotoseg_torch.serving.engine import ServingEngine
 from torch_parity import labels_equal_outside_ties
 
@@ -123,3 +124,55 @@ def test_engine_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingEngine(lambda x: x, batch_size=2)
     assert ServingEngine(lambda x: x, 2, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("flag", ["--quant8-static", "--quant8"])
+def test_port_quant8_serve_matches_jax_serve(run_dir, tmp_path, flag):
+    """``serve.main`` with static (calibrated on the served images) and
+    dynamic int8 layer4/5 on both sides: the port's labels agree with the
+    JAX package's wherever the top-two margin of the JAX quant8 model's
+    upsampled logits is at least 1e-5."""
+    from scaleprotoseg_tpu.model_loading import calibrate_quant_scales
+    from scaleprotoseg_tpu.serving.export import make_serving_fn
+    from scaleprotoseg_tpu.serving.serve import main as jax_main
+    from scaleprotoseg_torch.serving.serve import main as port_main
+
+    root, images, raw, _, variables = run_dir
+    rec_j = _serve(jax_main, root, images, tmp_path / "jax", (flag,))
+    rec_t = _serve(port_main, root, images, tmp_path / "port",
+                   (flag, "--device", "cpu"))
+    quant8 = "static" if flag == "--quant8-static" else True
+    assert rec_j["images"] == rec_t["images"] == 3
+    assert rec_t["quant8"] == quant8 and rec_t["fast"] is False
+
+    from __graft_entry__ import _flagship
+    model, _ = _flagship(tiny=False, grouped=True, dtype=jnp.float32,
+                         quant8=quant8)
+    if quant8 == "static":
+        mean, std = np.asarray(IMAGENET_MEAN), np.asarray(IMAGENET_STD)
+        variables = calibrate_quant_scales(model, variables, [
+            ((img.astype(np.float32) / 255.0 - mean) / std)
+            .astype(np.float32)[None] for img in raw])
+    up = np.asarray(jax.jit(make_serving_fn(
+        model, output="logits", normalize_to=jnp.float32))(variables, raw))
+    for i in range(3):
+        want = np.load(tmp_path / "jax" / f"frame_{i}.npy")
+        got = np.load(tmp_path / "port" / f"frame_{i}.npy")
+        labels_equal_outside_ties(got, want, up[i])
+
+
+def test_raw_output_serves_without_pil(run_dir, tmp_path, monkeypatch):
+    """``--raw-output`` writes ``.npy`` labels and needs no PIL: the card
+    machine has none."""
+    import sys
+
+    from scaleprotoseg_torch.serving.serve import main as port_main
+
+    root, images, _, _, _ = run_dir
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    rec = _serve(port_main, root, images, tmp_path / "nopil",
+                 ("--device", "cpu"))
+    assert rec["images"] == 3
+    assert sorted(os.listdir(tmp_path / "nopil")) == [
+        f"frame_{i}.npy" for i in range(3)]

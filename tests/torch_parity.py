@@ -34,23 +34,28 @@ def to_numpy_tree(tree):
     return jax.tree.map(lambda a: np.asarray(a), tree)
 
 
-def jax_flagship(grouped: bool = True, side: int = 33, seed: int = 0):
+def jax_flagship(grouped: bool = True, side: int = 33, seed: int = 0,
+                 quant8=False):
     """Tiny-depth flagship (full widths) in float32 with synthetic weights:
-    (model, spec, variables)."""
-    model, spec = _flagship(tiny=True, grouped=grouped, dtype=jnp.float32)
+    (model, spec, variables); ``quant8`` as the JAX package's (the
+    variables hold no ``quant_scales``: they come from calibration)."""
+    model, spec = _flagship(tiny=True, grouped=grouped, dtype=jnp.float32,
+                            quant8=quant8)
     x = jnp.zeros((1, side, side, 3), jnp.float32)
-    shapes = jax.eval_shape(lambda k: model.init(k, x),
-                            jax.random.PRNGKey(0))
+    shapes = dict(jax.eval_shape(lambda k: model.init(k, x),
+                                 jax.random.PRNGKey(0)))
+    shapes.pop("quant_scales", None)
     return model, spec, synthetic_init(shapes, seed=seed)
 
 
-def port_model(model, spec, variables) -> TPPNet:
+def port_model(model, spec, variables, quant8=False) -> TPPNet:
     """The port's counterpart of a JAX DeepLabV2 PPNet, weights carried
-    over by ``ppnet_params_to_statedict`` with ``strict=True``."""
+    over by ``ppnet_params_to_statedict`` with ``strict=True``; ``quant8``
+    builds the backbone's layer4/5 as int8 convs."""
     bb = model.backbone
     backbone = TDeepLabV2(n_out=bb.n_out, n_blocks=tuple(bb.n_blocks),
                           atrous_rates=tuple(bb.atrous_rates),
-                          aspp_mode=bb.aspp_mode)
+                          aspp_mode=bb.aspp_mode, quant8=quant8)
     tspec = port_spec(spec)
     tm = TPPNet(backbone, tspec, add_on_type=model.add_on_type,
                 activation_fn=model.activation_fn, grouped=model.grouped)
