@@ -11,7 +11,10 @@ Phases; any failure exits non-zero and prints no result:
 3. kernels: K2 (ASPP), K1 (prototype head) and K3 (upsample + argmax) at
    the flagship serving shapes (batch 2 at 1024 x 2048), each against its
    plain PyTorch version on the same inputs: K2 within 2 bf16 ulps of
-   the fp32-accumulated plain form, K1 rtol = atol = 1e-4 in fp32 with
+   the fp32-accumulated plain form and the same bits on a second run,
+   also at the training shape (2 x 65 x 65 x 2048) and at a ragged one
+   (2 x 21 x 37 x 512: no multiple of the kernel's patch, smaller than
+   the largest rate), K1 rtol = atol = 1e-4 in fp32 with
    TF32 off on the plain side, K3 labels equal wherever the plain
    version's top-two margin is at least 1e-5.  K2's backward at the
    training shapes (batch 2 at 65 x 65 x 2048): ``aspp_grad_pack`` bit
@@ -73,8 +76,10 @@ Phases; any failure exits non-zero and prints no result:
    loss within 1e-3, ASPP-weight and prototype gradients within 2e-2
    relative L2.  Finally ``push_final`` loads through ``load_model`` and
    serves one finite batch;
-6. one line per kernel with its times, bound and launches, the card's
-   name and power limit, the kernels line (every kernel with its status),
+6. one line per kernel with its times, bound and launches, for the two
+   kernels rebuilt on TMA + ``wgmma`` the earlier design's recorded times
+   beside the new ones, the card's name and power limit, the kernels
+   line (every kernel with its status),
    then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
@@ -173,6 +178,20 @@ N_CALIB = 8
 N_CHECK_PLAIN = 16
 N_EVAL = 8
 
+# The earlier designs of the two kernels since rebuilt on TMA + wgmma, as
+# measured on NVIDIA H100 80GB HBM3 at 700 W (wrapper ms and profiler device
+# ms at the shapes of this script's rows; the 54 1x1 convs of a quant8
+# batch for int8_mm's path): printed beside the new times on a line of
+# their own (the ``kernels`` line holds only what this run measured), no
+# second implementation.
+EARLIER_DESIGN = {
+    "aspp": dict(design="wmma 128 x 64 tile, cp.async gather", ms=4.18,
+                 device_ms=4.10, training_shape_device_ms=0.77),
+    "int8_mm": dict(design="mma.sync 128 x 128 tile, cp.async", ms=0.046,
+                    device_ms=0.024, path_ms_per_batch=11.6,
+                    path_device_ms_per_batch=9.39),
+}
+
 BWD = "scaleprotoseg_tpu/ops/pallas_aspp.py:319 fused_aspp_trainable bwd"
 SOURCES = {"aspp": "aspp", "aspp_grad_pack": "aspp_bwd",
            "aspp_grad_weight": "aspp_bwd", "proto": "proto",
@@ -260,24 +279,45 @@ def build_phase() -> None:
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
-def check_aspp(gen, dev) -> dict:
-    c, f = 2048, 64
-    x = torch.rand((B, FH, FW, c), generator=gen, device=dev) \
+def aspp_case(gen, dev, h: int, w: int, c: int = 2048):
+    """Seeded K2 inputs at (B, h, w, c) -> 4 x 64, the kernel held against
+    the plain form (2 bf16 ulps) and against its own second run (the same
+    bits).  Returns (x, ws, bs, packed, got, max_abs_err)."""
+    f, rates = 64, RATES
+    x = torch.rand((B, h, w, c), generator=gen, device=dev) \
         .to(torch.bfloat16)
     std = math.sqrt(2.0 / (9 * c))
     ws = [torch.randn((3, 3, c, f), generator=gen, device=dev) * std
-          for _ in RATES]
-    bs = [torch.randn((f,), generator=gen, device=dev) * 0.1 for _ in RATES]
+          for _ in rates]
+    bs = [torch.randn((f,), generator=gen, device=dev) * 0.1 for _ in rates]
     # packed once, as the model packs its weights once
     packed = pack_weights(ws, bs)
-    got = kernels.fused_aspp(x, ws, bs, RATES, packed).float()
-    want = aspp_plain(x, ws, bs, RATES).float()
+    got = kernels.fused_aspp(x, ws, bs, rates, packed)
+    want = aspp_plain(x, ws, bs, rates).float()
     mag = torch.maximum(want.abs(), want.abs().max() * 2.0 ** -10)
-    ulps = ((got - want).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
-            ).max().item()
-    err = (got - want).abs().max().item()
+    ulps = ((got.float() - want).abs()
+            / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max().item()
     if not ulps <= 2:
-        raise AssertionError(f"aspp: {ulps} bf16 ulps from the plain form")
+        raise AssertionError(f"aspp {h}x{w}x{c}: {ulps} bf16 ulps from the "
+                             "plain form")
+    if not torch.equal(got, kernels.fused_aspp(x, ws, bs, rates, packed)):
+        raise AssertionError(f"aspp {h}x{w}x{c}: a second run gave other bits")
+    return x, ws, bs, packed, got, (got.float() - want).abs().max().item()
+
+
+def check_aspp(gen, dev) -> dict:
+    """K2's forward at the serving shape (the row), at the training shape
+    and at a ragged one (H, W no multiples of the kernel's 32 x 8 patch,
+    H below the largest rate)."""
+    c, f = 2048, 64
+    for h, w, cc in ((TH, TW, c), (21, 37, 512)):
+        x, ws, bs, packed, _, err = aspp_case(gen, dev, h, w, cc)
+        fn = lambda: kernels.fused_aspp(x, ws, bs, RATES, packed)  # noqa: E731
+        log(f"aspp {B}x{h}x{w}x{cc}: within 2 bf16 ulps of the plain form "
+            f"(max_abs_err {err:.3g}), same bits twice; kernel "
+            f"{time_ms(fn):.4f} ms, device "
+            f"{device_kernel_ms(fn, 'aspp_kernel')}")
+    x, ws, bs, packed, got, err = aspp_case(gen, dev, FH, FW)
     xc = x.permute(0, 3, 1, 2)                       # channels_last view
     w_oihw = [w.permute(3, 2, 0, 1).to(torch.bfloat16) for w in ws]
     b_bf = [b.to(torch.bfloat16) for b in bs]
@@ -288,8 +328,7 @@ def check_aspp(gen, dev) -> dict:
 
     # work the function must do: only taps that land inside the image
     flops = valid_tap_flops(FH, FW, c, f)
-    moved = nbytes(x, got.to(torch.bfloat16)) + len(RATES) * (
-        9 * c * f * 2 + f * 4)
+    moved = nbytes(x, got) + len(RATES) * (9 * c * f * 2 + f * 4)
     b_ms, b_by = bound(moved, flops, PEAK_BF16_FLOPS)
     return dict(
         name="aspp", max_abs_err=err,
@@ -1372,6 +1411,13 @@ def main() -> None:
             f"{r['bound_ms']:.4f} ({r['bound_by']}) launches "
             f"{by_path[r['name']]} max_abs_err {r['max_abs_err']:.3g} "
             f"on {smi}")
+    for name, old in EARLIER_DESIGN.items():
+        r = results[name]
+        log(f"{name}: earlier design on NVIDIA H100 80GB HBM3, 700 W "
+            f"{json.dumps(old)}; now kernel_ms {r['ms']:.4f} device_ms "
+            f"{r['device_ms']}"
+            + (f" path_ms_per_batch {r['path_ms_per_batch']['ms']:.3f}"
+               if "path_ms_per_batch" in r else ""))
 
     line = {"kernels": [dict(
         name=r["name"], status="ported", route="cuda",
@@ -1380,7 +1426,8 @@ def main() -> None:
         launches_by_path=by_path[r["name"]],
         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-        library_ms=r["library_ms"]) for r in results.values()] + [dict(
+        library_ms=r["library_ms"])
+        for r in results.values()] + [dict(
             name=k["name"], status="still to port", route=None, source=None,
             replaces=k["replaces"], launches=0, max_abs_err=None, ms=None,
             plain_ms=None, bound_ms=None, bound_by=None, library_ms=None)

@@ -4,201 +4,321 @@
 // Replaces scaleprotoseg_tpu/ops/pallas_aspp.py::fused_aspp.
 //
 // Bound: operations.  At the flagship shape (2 x 129 x 257 x 2048 -> 4 x 64)
-// the work is ~0.63 TFLOP against ~0.3 GB of traffic, far above the card's
-// ~295 flop/byte ridge, so the tensor cores are the limit.
+// the work is ~0.56 TFLOP against ~0.17 GB of traffic, far above the card's
+// ~295 flop/byte ridge.  What limits a kernel in practice is the staging
+// traffic: every (rate, tap) reads its own shifted copy of the input, and
+// with F = 64 a staged input byte serves only 64 multiply-adds, so the L2 ->
+// shared-memory stream (tap by tap ~9 GB of input per call, ~6 GB as staged
+// here, plus ~3 GB of weight tiles), not the tensor cores, sets the pace.
 //
-// Design: an implicit GEMM per (rate, 64-channel output slice).  A block
-// owns BM = 128 consecutive output pixels (flattened y * W + x) by BN = 64
-// output channels, and walks K = (C / 64) channel chunks x 9 taps, channel
-// chunk outermost so that the 9 shifted reads of one chunk hit L2 together.
-// Each step stages a (128 x 64) bf16 input tile, gathered row by row at the
-// tap's (dy, dx) shift with cp.async and zero-filled where the tap falls
-// outside the image (no host-side padding of the input), and a (64 x 64)
-// weight tile, in a 3-stage ring.  Eight warps each own a 32 x 32 piece of
-// the output tile on nvcuda::wmma bf16 16x16x16 -> fp32 fragments.  The
-// epilogue stages the fp32 tile in shared memory, adds the bias and writes
-// bf16 into channels [rate * F + n0, rate * F + n0 + 64) of the NHWC output.
+// Design: an implicit GEMM fed by TMA and multiplied with wgmma.
+//  - A block owns one work item: (batch, 32 x 8 output patch, rate, 64
+//    output channels), rate fastest, so the blocks running together share
+//    the patches' halos in L2.  Items differ in cost (taps and blocks are
+//    skipped at the border), and the hardware's block scheduler balances
+//    them better than a persistent grid walking them round-robin, which
+//    measured slower at both path shapes.  The patch is a box because the
+//    input of a tap is then a few 4-D TMA loads at the patch's coordinates
+//    shifted by (dy, dx) * rate: coordinates are signed, and what falls
+//    outside the image arrives as zeros, which is the conv's zero padding.
+//    256 pixels make one staged weight tile serve four m64 row blocks; 128
+//    pixels per block measured slower.  Rows and columns of a patch past
+//    the image are masked in the epilogue.
+//  - The three dy taps of one dx share their input.  A stage holds, for one
+//    64-channel chunk and one dx, the column strip of 32 + 2 * rate rows
+//    (in 8-row boxes of 8 KB) around the patch, and the taps dy = -1, 0, +1
+//    are three views of it, rate rows apart.  The patch is 8 columns wide
+//    for exactly this: a row of the strip is then 8 pixels x 128 bytes =
+//    1024 bytes, the period of the 128-byte swizzle, so any row offset
+//    keeps a valid wgmma descriptor (a shift along x would not: 6, 12 or 18
+//    pixels break the pattern).  For rates 6/12/18/24 the strips hold 48 +
+//    56 + 72 + 80 rows where tap-by-tap staging read 4 x 96: a third less
+//    input through L2, which is what bounds the kernel.  A rate whose strip
+//    does not fit (above MAX_STRIP_RATE) stages its taps one by one.
+//  - K runs over 64-channel chunks (outermost, so the shifted reads of a
+//    chunk meet in L2), then dx.  A tap whose window lies wholly outside
+//    the image is all zeros and is skipped by producer and consumers alike,
+//    and so is every m64 block of a tap that does (see live_blocks).
+//    A stage is the strip (up to 88 KB) and the weight tiles of its taps (3
+//    x 8 KB, K-major), all with the 128-byte swizzle, in a 2-stage ring
+//    guarded by full/empty mbarriers.
+//  - One producer warp starts the loads; two consumer warpgroups each own
+//    16 patch rows (128 pixels): per tap 4 k16 slices x 2 wgmma m64n64k16
+//    with fp32 accumulators in registers.  No __syncthreads in the K loop.
+//    wgmma adds into its fp32 accumulator with truncation, a bias that
+//    grows with the 18432-deep sum, so the accumulators start from zero in
+//    every stage and are then added, rounded to nearest, into a second set
+//    of fp32 registers on the CUDA cores, while the other stage loads.
+//    Measured and dropped: a 4-stage ring of 32-channel stages (64-byte
+//    rows: the TMA unit moved them a quarter slower) and clusters of two
+//    blocks sharing each weight tile by multicast (the lockstep of the pair
+//    cost more than the halved weight traffic gained).
+//  - Epilogue: bias added in fp32, one rounding to bf16, a quad transpose so
+//    that each lane stores 16 bytes into channels [rate * F + n0, + 64) of
+//    the NHWC output.  No split K and no atomics: the same bits every run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 64;
-constexpr int BK = 64;
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;
-constexpr int LDA = BK + 8;   // bf16 elements; 144-byte rows dodge bank conflicts
-constexpr int LDB = BN + 8;
-constexpr int LDC = BN + 4;   // fp32 epilogue tile
-constexpr int A_STAGE = BM * LDA;
-constexpr int B_STAGE = BK * LDB;
-constexpr int SMEM_BYTES = STAGES * (A_STAGE + B_STAGE) * 2;
-static_assert(BM * LDC * 4 <= SMEM_BYTES, "epilogue tile must fit");
-static_assert(THREADS == 256 && BM == 128 && BN == 64 && BK == 64,
-              "thread mapping below assumes these");
+using namespace hopper;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = valid ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(gmem), "r"(n));
+constexpr int PH = 32;            // patch rows
+constexpr int PW = 8;             // patch columns: a strip row is 1024 bytes
+constexpr int BN = 64;            // output channels per item
+constexpr int BK = 64;            // input channels per stage (128 bytes)
+constexpr int STAGES = 2;
+constexpr int CONSUMER_WGS = 2;
+constexpr int THREADS = 128 * (CONSUMER_WGS + 1);
+constexpr int BOX_ROWS = 8;                         // rows per TMA box
+constexpr int BOX_BYTES = BOX_ROWS * PW * BK * 2;   // 8 KB
+constexpr int MAX_BOXES = 11;                       // strip rows / 8
+constexpr int MAX_STRIP_RATE = (MAX_BOXES * BOX_ROWS - PH) / 2;
+constexpr int A_BYTES = MAX_BOXES * BOX_BYTES;
+constexpr int B_BYTES = BN * BK * 2;                // one tap's weight tile
+constexpr int STAGE_BYTES = A_BYTES + 3 * B_BYTES;
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+constexpr int ROW_BYTES = PW * BK * 2;
+static_assert(ROW_BYTES == 1024 && (PH / CONSUMER_WGS) * PW == 128 &&
+              PH % BOX_ROWS == 0 && STAGE_BYTES % 1024 == 0,
+              "a strip row spans one swizzle period; a consumer warpgroup "
+              "owns two m64 blocks of whole patch rows");
+static_assert(SMEM_BYTES <= 232448, "one block's shared memory");
+
+struct Item {
+  int b, y0, x0, ri, n0;
+};
+
+__device__ __forceinline__ Item decode_item(int item, int n_tiles, int R,
+                                            int npx, int npy) {
+  Item it;
+  const int per_patch = R * n_tiles;
+  int p = item / per_patch;
+  const int q = item - p * per_patch;
+  it.ri = q / n_tiles;
+  it.n0 = (q - it.ri * n_tiles) * BN;
+  it.x0 = (p % npx) * PW;
+  p /= npx;
+  it.y0 = (p % npy) * PH;
+  it.b = p / npy;
+  return it;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// Bit t is set when tap t's shifted patch touches the image.
+__device__ __forceinline__ int tap_mask(const Item& it, int rate, int H,
+                                        int W) {
+  int mask = 0;
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int y = it.y0 + (tap / 3 - 1) * rate;
+    const int x = it.x0 + (tap % 3 - 1) * rate;
+    if (y + PH > 0 && y < H && x + PW > 0 && x < W) mask |= 1 << tap;
+  }
+  return mask;
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+// Bit 4 * dyi + j is set when the patch's m64 block j (rows 8j .. 8j + 7),
+// shifted by (dyi - 1) * rate, has a row inside the image: a block that
+// lies outside reads only zeros, so its wgmma and, where no live block
+// needs them, the boxes under it are left out.  At 129 rows the last of
+// five 32-row patches holds one image row, and every halo at the border is
+// empty: a quarter of the strips' bytes would be zero fill, which costs the
+// TMA unit time though it reads nothing.
+__device__ __forceinline__ int live_blocks(const Item& it, int rate, int H) {
+  int live = 0;
+#pragma unroll
+  for (int dyi = 0; dyi < 3; ++dyi)
+#pragma unroll
+    for (int j = 0; j < PH / BOX_ROWS; ++j) {
+      const int y = it.y0 + j * BOX_ROWS + (dyi - 1) * rate;
+      if (y + BOX_ROWS > 0 && y < H) live |= 1 << (4 * dyi + j);
+    }
+  return live;
 }
 
-__global__ void __launch_bounds__(THREADS)
-aspp_kernel(const __nv_bfloat16* __restrict__ x,     // (B, H, W, C)
-            const __nv_bfloat16* __restrict__ w,     // (R, 9, C, F)
-            const float* __restrict__ bias,          // (R, F)
-            __nv_bfloat16* __restrict__ out,         // (B, H, W, R * F)
-            int H, int W, int C, int F, int R,
-            int r0, int r1, int r2, int r3) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + STAGES * A_STAGE;
-
-  const int n_tiles = F / BN;
-  const int ri = blockIdx.x / n_tiles;
-  const int n0 = (blockIdx.x - ri * n_tiles) * BN;
-  const int rate = ri == 0 ? r0 : ri == 1 ? r1 : ri == 2 ? r2 : r3;
-  const int m0 = blockIdx.y * BM;
-  const int b = blockIdx.z;
-  const int HW = H * W;
-  const int tid = threadIdx.x;
-
-  // Loader mapping: thread -> 16-byte column `col` of rows tid/8 + 32 j.
-  const int col = tid & 7;
-  const int row = tid >> 3;
-  int py[4], px[4];
-  bool pv[4];
+// The stages of an item, in the order producer and consumers both walk:
+// f(kc, dxi, first_row, boxes, taps, strip) with `taps` the dy bits (bit
+// dyi: tap 3 * dyi + dxi) that read this stage, `first_row` the image row
+// of its first strip row and `boxes` the bits of the 8-row boxes to load;
+// in a strip tap dyi reads from strip row dyi * rate on, else from row 0.
+template <typename F>
+__device__ __forceinline__ void for_each_stage(const Item& it, int rate,
+                                               int mask, int live, int chunks,
+                                               F&& f) {
+  const bool strip = rate <= MAX_STRIP_RATE;
+  int strip_boxes = 0;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    int m = m0 + row + 32 * j;
-    pv[j] = m < HW;
-    py[j] = pv[j] ? m / W : 0;
-    px[j] = pv[j] ? m - py[j] * W : 0;
-  }
-  const __nv_bfloat16* xb = x + (size_t)b * HW * C;
-  const int KT = (C / BK) * 9;
-
-  auto load_stage = [&](int stage, int it) {
-    const int kc = it / 9;
-    const int tap = it - kc * 9;
-    const int dy = (tap / 3 - 1) * rate;
-    const int dx = (tap % 3 - 1) * rate;
-    const int c0 = kc * BK + col * 8;
-    __nv_bfloat16* a = As + stage * A_STAGE;
+  for (int dyi = 0; dyi < 3; ++dyi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int sy = py[j] + dy;
-      const int sx = px[j] + dx;
-      const bool v = pv[j] && sy >= 0 && sy < H && sx >= 0 && sx < W;
-      const __nv_bfloat16* src =
-          v ? xb + ((size_t)sy * W + sx) * C + c0 : x;
-      cp_async16(a + (row + 32 * j) * LDA + col * 8, src, v);
-    }
-    __nv_bfloat16* bt = Bs + stage * B_STAGE;
-    const __nv_bfloat16* wt =
-        w + ((size_t)(ri * 9 + tap) * C + kc * BK) * F + n0 + col * 8;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int k = row + 32 * j;
-      cp_async16(bt + k * LDB + col * 8, wt + (size_t)k * F, true);
-    }
-  };
-
-  const int warp = tid >> 5;
-  const int wm = warp & 3;   // 4 warps along M, 32 rows each
-  const int wn = warp >> 2;  // 2 warps along N, 32 columns each
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  for (int it = 0; it < KT; ++it) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nxt = it + STAGES - 1;
-    if (nxt < KT) load_stage(nxt % STAGES, nxt);
-    cp_async_commit();
-
-    const __nv_bfloat16* a = As + (it % STAGES) * A_STAGE;
-    const __nv_bfloat16* bt = Bs + (it % STAGES) * B_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], a + (wm * 32 + i * 16) * LDA + kk * 16,
-                               LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], bt + kk * 16 * LDB + wn * 32 + j * 16,
-                               LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    for (int j = 0; j < PH / BOX_ROWS; ++j)
+      if ((live >> (4 * dyi + j)) & 1) {
+        const int row = dyi * rate + j * BOX_ROWS;
+        strip_boxes |= 1 << (row / BOX_ROWS);
+        strip_boxes |= 1 << ((row + BOX_ROWS - 1) / BOX_ROWS);
+      }
+  for (int kc = 0; kc < chunks; ++kc) {
+    for (int dxi = 0; dxi < 3; ++dxi) {
+      const int taps = ((mask >> dxi) & 1) | (((mask >> (dxi + 3)) & 1) << 1) |
+                       (((mask >> (dxi + 6)) & 1) << 2);
+      for (int part = 0; part < (strip ? 1 : 3); ++part) {
+        const int mine = strip ? taps : taps & (1 << part);
+        if (mine == 0) continue;
+        f(kc, dxi, it.y0 + (strip ? -rate : (part - 1) * rate),
+          strip ? strip_boxes : (live >> (4 * part)) & 15, mine, strip);
+      }
     }
   }
-  cp_async_wait<0>();
+}
+
+struct Rates {
+  int r[4];
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+aspp_kernel(const __grid_constant__ CUtensorMap x_map,   // (B, H, W, C)
+            const __grid_constant__ CUtensorMap w_map,   // (R * 9 * F, C)
+            const float* __restrict__ bias,              // (R, F)
+            __nv_bfloat16* __restrict__ out,             // (B, H, W, R * F)
+            int H, int W, int C, int F, int R, Rates rates, int npx,
+            int npy) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CONSUMER_WGS * 4);
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
 
-  float* Cs = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  const int chunks = C / BK;
+  const Item it = decode_item(blockIdx.x, F / BN, R, npx, npy);
+  const int rate = rates.r[it.ri];
+  const int mask = tap_mask(it, rate, H, W);
+  const int live = live_blocks(it, rate, H);
 
-  const float* bb = bias + ri * F + n0 + col * 8;
-  float bv[8];
+  if (wg == CONSUMER_WGS) {
+    // ---------------- producer ----------------
+    reg_dealloc<40>();
+    if (threadIdx.x == CONSUMER_WGS * 128) {
+      int stage = 0;
+      uint32_t phase = 1;   // the ring starts empty: the first waits pass
+      for_each_stage(it, rate, mask, live, chunks,
+                     [&](int kc, int dxi, int first_row, int boxes, int taps,
+                         bool) {
+        mbar_wait(empty + stage, phase);
+        uint8_t* a = smem + stage * STAGE_BYTES;
+        mbar_arrive_expect_tx(
+            full + stage, __popc(boxes) * BOX_BYTES + __popc(taps) * B_BYTES);
+        const int x = it.x0 + (dxi - 1) * rate;
+        for (int k = 0; k < MAX_BOXES; ++k)
+          if ((boxes >> k) & 1)
+            tma_load_4d(a + k * BOX_BYTES, &x_map, full + stage, kc * BK, x,
+                        first_row + k * BOX_ROWS, it.b);
 #pragma unroll
-  for (int e = 0; e < 8; ++e) bv[e] = bb[e];
-  const int out_c = R * F;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int r = row + 32 * j;
-    const int m = m0 + r;
-    if (m >= HW) continue;
-    const float* c = Cs + r * LDC + col * 8;
-    uint4 pack;
-    uint32_t* words = reinterpret_cast<uint32_t*>(&pack);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      __nv_bfloat162 h2 = __floats2bfloat162_rn(c[2 * e] + bv[2 * e],
-                                                c[2 * e + 1] + bv[2 * e + 1]);
-      words[e] = *reinterpret_cast<uint32_t*>(&h2);
+        for (int dyi = 0; dyi < 3; ++dyi)
+          if ((taps >> dyi) & 1)
+            tma_load_2d(a + A_BYTES + dyi * B_BYTES, &w_map, full + stage,
+                        kc * BK, (it.ri * 9 + 3 * dyi + dxi) * F + it.n0);
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      });
     }
-    *reinterpret_cast<uint4*>(out + ((size_t)b * HW + m) * out_c + ri * F +
-                              n0 + col * 8) = pack;
+  } else {
+    // ---------------- consumers ----------------
+    reg_alloc<232>();
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int out_c = R * F;
+    int stage = 0;
+    uint32_t phase = 0;
+
+    float acc[2][32], sum[2][32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sum[0][i] = sum[1][i] = 0.0f;
+    for_each_stage(it, rate, mask, live, chunks,
+                   [&](int, int, int, int, int taps, bool strip) {
+      mbar_wait(full + stage, phase);
+      const uint8_t* a = smem + stage * STAGE_BYTES;
+      int used[2] = {0, 0};   // a block's first wgmma overwrites its acc
+      wgmma_fence();
+#pragma unroll
+      for (int dyi = 0; dyi < 3; ++dyi) {
+        if (!((taps >> dyi) & 1)) continue;
+        const int row = (strip ? dyi * rate : 0) + wg * (PH / CONSUMER_WGS);
+        const uint64_t da = wgmma_desc(a + row * ROW_BYTES);
+        const uint64_t db = wgmma_desc(a + A_BYTES + dyi * B_BYTES);
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb) {
+          if (!((live >> (4 * dyi + 2 * wg + mb)) & 1)) continue;
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma_m64n64k16_bf16(acc[mb],
+                                 da + mb * (64 * BK * 2 >> 4) + 2 * kk,
+                                 db + 2 * kk, used[mb] | (kk > 0));
+          used[mb] = 1;
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(empty + stage);
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb)
+        if (used[mb]) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) sum[mb][i] += acc[mb][i];
+        }
+      if (++stage == STAGES) { stage = 0; phase ^= 1; }
+    });
+
+    // epilogue: bias, bf16, 16-byte stores
+    float bv[16];
+    const float* bb = bias + it.ri * F + it.n0 + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      bv[2 * i] = bb[8 * i];
+      bv[2 * i + 1] = bb[8 * i + 1];
+    }
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int lp = wg * 128 + mb * 64 + warp * 16 + g + 8 * h;
+        const int y = it.y0 + lp / PW;
+        const int x = it.x0 + lp % PW;
+        const bool valid = y < H && x < W;
+        __nv_bfloat16* row = out +
+            (((size_t)it.b * H + y) * W + x) * out_c + it.ri * F + it.n0;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          uint32_t w[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int i = 4 * q + j;
+            __nv_bfloat162 v = __floats2bfloat162_rn(
+                sum[mb][4 * i + 2 * h] + bv[2 * i],
+                sum[mb][4 * i + 2 * h + 1] + bv[2 * i + 1]);
+            w[j] = *reinterpret_cast<uint32_t*>(&v);
+          }
+          quad_transpose(w);
+          if (valid)
+            *reinterpret_cast<uint4*>(row + (4 * q + t) * 8) =
+                make_uint4(w[0], w[1], w[2], w[3]);
+        }
+      }
+    }
   }
 }
 
@@ -208,9 +328,10 @@ extern "C" const char* error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
 
-// x (B, H, W, C) bf16, w (R, 9, C, F) bf16, bias (R, F) fp32,
-// out (B, H, W, R * F) bf16; all contiguous and 16-byte aligned.
-// Requires C % 64 == 0, F % 64 == 0, 1 <= R <= 4.
+// x (B, H, W, C) bf16, w (R, 9, F, C) bf16 (tap t = 3 * ky + kx, input
+// channels contiguous), bias (R, F) fp32, out (B, H, W, R * F) bf16; all
+// contiguous and 16-byte aligned.  Requires C % 64 == 0, F % 64 == 0,
+// 1 <= R <= 4.
 extern "C" int aspp_forward(const void* x, const void* w, const void* bias,
                             void* out, int B, int H, int W, int C, int F,
                             int R, int r0, int r1, int r2, int r3,
@@ -218,14 +339,28 @@ extern "C" int aspp_forward(const void* x, const void* w, const void* bias,
   if (C % BK != 0 || F % BN != 0 || R < 1 || R > 4 || B < 1 || H < 1 ||
       W < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap x_map, w_map;
+  const uint64_t x_dims[4] = {(uint64_t)C, (uint64_t)W, (uint64_t)H,
+                              (uint64_t)B};
+  const uint32_t x_box[4] = {BK, PW, BOX_ROWS, 1};
+  const uint64_t w_dims[2] = {(uint64_t)C, (uint64_t)R * 9 * F};
+  const uint32_t w_box[2] = {BK, BN};
+  if (!encode_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 4, x, x_dims,
+                  x_box) ||
+      !encode_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, w, w_dims,
+                  w_box))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
       aspp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(R * (F / BN), (H * W + BM - 1) / BM, B);
-  aspp_kernel<<<grid, THREADS, SMEM_BYTES,
+  const int npx = (W + PW - 1) / PW;
+  const int npy = (H + PH - 1) / PH;
+  const long items = (long)B * npy * npx * R * (F / BN);
+  if (items > 0x7fffffffL) return static_cast<int>(cudaErrorInvalidValue);
+  Rates rates = {{r0, r1, r2, r3}};
+  aspp_kernel<<<(int)items, THREADS, SMEM_BYTES,
                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), H, W, C, F, R, r0, r1, r2, r3);
+      x_map, w_map, static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(out), H, W, C, F, R, rates, npx, npy);
   return static_cast<int>(cudaGetLastError());
 }

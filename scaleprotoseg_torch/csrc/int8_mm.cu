@@ -2,17 +2,18 @@
 //
 // Replaces benchmarks/bench_int8_mosaic.py::pallas_mm (K4, pallas_call :48):
 // a tiled (M, K) @ (K, N) product, int8 x int8 -> int32 or bf16 x bf16 ->
-// fp32, and, through the same tile, the int8 convolutions that XLA's s8
-// conv lowering runs for scaleprotoseg_tpu/ops/quant.py
+// fp32, and, through the mma.sync tile below, the int8 convolutions that
+// XLA's s8 conv lowering runs for scaleprotoseg_tpu/ops/quant.py
 // (static_int8_conv / dynamic_int8_conv) on layer4/5 of the ResNet.
 //
-// Kernels (one tile body, mm_tile<T, TAPS>):
+// Kernels:
 //   int8_gemm_kernel     A (M, K) int8 @ Bt (N, K)^T int8 -> int32, or the
-//                        dequantized bf16(float(acc) * (sx * sw[n])) or fp32;
-//   int8_conv3x3_kernel  the same tile over nine taps: the implicit-GEMM
-//                        dilated 3x3 conv (int8_conv3x3);
-//   bf16_gemm_kernel     A (M, K) bf16 @ Bt (N, K)^T bf16 -> fp32 (pallas_mm's
-//                        other arm);
+//                        dequantized bf16(float(acc) * (sx * sw[n])) or fp32:
+//                        TMA-fed wgmma, see "int8 GEMM" below;
+//   int8_conv3x3_kernel  the mma.sync tile mm_tile<T, TAPS> over nine taps:
+//                        the implicit-GEMM dilated 3x3 conv (int8_conv3x3);
+//   bf16_gemm_kernel     the same tile, A (M, K) bf16 @ Bt (N, K)^T bf16 ->
+//                        fp32 (pallas_mm's other arm);
 //   quantize_kernel    bf16/fp32 NHWC -> int8, static (x * (1 / max(s,
 //                      1e-12))) or dynamic (x / s), rintf (half to even),
 //                      clipped to +-127;
@@ -20,25 +21,50 @@
 //                      passes (per-block maxima, then one block), no atomics.
 //
 // Bound: the layer4/5 convs are operations-bound (~5.4 T int8 operations
-// per 2 x 1024 x 2048 batch against a few GB of traffic); K4 at its own
-// benchmark shape (8192 x 512 x 512) and the quantize passes are bytes-bound.
+// per 2 x 1024 x 2048 batch against a few GB of traffic), except the 1x1
+// products with K = 256 or 512 into 1024 or 2048 channels, whose bf16
+// output makes them bytes-bound; K4 at its own benchmark shape (8192 x 512 x
+// 512) and the quantize passes are bytes-bound.
 //
-// Design: a block owns BM = 128 output rows (pixels) by BN = 128 output
-// channels and walks K in 64-byte chunks (64 int8 or 32 bf16 values), tap
-// innermost for the conv so the nine shifted reads of one chunk meet in L2.
-// Each step stages a 128 x 64-byte A tile and a 128 x 64-byte B tile with
-// cp.async in a 4-stage ring; A rows are gathered at the tap's (dy, dx)
-// shift straight from the unpadded NHWC map and zero-filled outside the
-// image or past M (src-size 0), so no padded copy exists.  Both operands
-// are K-contiguous in shared memory (rows padded to 80 bytes: conflict-free
-// ldmatrix), which is the row.col layout of mma.sync.  Eight warps each own
-// a 64 x 32 piece: per 32-byte K slice 4 ldmatrix.x4 for A, 2 for B and 16
-// mma.sync (m16n8k32 s8 -> s32, or m16n8k16 bf16 -> f32: the two have the
-// same fragment layout in bytes).  The epilogue writes from the fragments.
+// int8 GEMM (int8_gemm_kernel).  Both operands are K-contiguous, the only
+// form wgmma takes for 8-bit types, so two 2-D tensor maps feed it: a block
+// owns a 128 x 256 output tile (int8 runs at twice bf16's rate and needs
+// about twice the operations per staged byte: 171 per byte here against 128
+// for a 128 x 128 tile) and walks K in 128-byte chunks; a stage is a 128 x
+// 128 A box and a 256 x 128 B box (48 KB, 128-byte swizzle) in a 4-stage
+// ring guarded by full/empty mbarriers.  Rows past M and columns past N
+// arrive as zeros from TMA and are masked in the epilogue.  One producer
+// warp starts the loads; two consumer warpgroups each own 64 rows: per
+// stage four wgmma m64n256k32 s8 -> s32 with the 128 accumulators in
+// registers, a stage released one step late so a batch is always in
+// flight.  The grid is persistent (one block per SM, N tiles fastest so an
+// A row block is reused from L2): while the consumers write a tile the
+// producer already fills the ring for the next one, which is what the
+// K = 256 and 512 shapes (2-4 chunks) live on.  The epilogue works from the
+// registers: the scale product (staged in shared memory once per tile), one
+// rounding, then a shuffle inside each quad so that every lane stores 16
+// bytes (bf16: eight columns of one n8 block; int32/fp32: four) and every
+// 32-byte sector is written whole.
+//
+// mma.sync tile (mm_tile): a block owns BM = 128 output rows (pixels) by BN
+// = 128 output channels and walks K in 64-byte chunks (64 int8 or 32 bf16
+// values), tap innermost for the conv so the nine shifted reads of one
+// chunk meet in L2.  Each step stages a 128 x 64-byte A tile and a 128 x
+// 64-byte B tile with cp.async in a 4-stage ring; A rows are gathered at
+// the tap's (dy, dx) shift straight from the unpadded NHWC map and
+// zero-filled outside the image or past M (src-size 0), so no padded copy
+// exists.  Both operands are K-contiguous in shared memory (rows padded to
+// 80 bytes: conflict-free ldmatrix), which is the row.col layout of
+// mma.sync.  Eight warps each own a 64 x 32 piece: per 32-byte K slice 4
+// ldmatrix.x4 for A, 2 for B and 16 mma.sync (m16n8k32 s8 -> s32, or
+// m16n8k16 bf16 -> f32: the two have the same fragment layout in bytes).
+// The epilogue writes from the fragments.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -273,16 +299,230 @@ __device__ __forceinline__ void mm_tile(
       const float *__restrict__ sw, int M, int Kb, int N, int H, int W,     \
       int dil, int mode
 
-__global__ void __launch_bounds__(THREADS) int8_gemm_kernel(MM_ARGS) {
-  mm_tile<int8_t, 1>(a, bt, out, sx, sw, M, Kb, N, H, W, dil, mode);
-}
-
 __global__ void __launch_bounds__(THREADS) int8_conv3x3_kernel(MM_ARGS) {
   mm_tile<int8_t, 9>(a, bt, out, sx, sw, M, Kb, N, H, W, dil, mode);
 }
 
 __global__ void __launch_bounds__(THREADS) bf16_gemm_kernel(MM_ARGS) {
   mm_tile<__nv_bfloat16, 1>(a, bt, out, sx, sw, M, Kb, N, H, W, dil, mode);
+}
+
+// ---------------------------------------------------------------------------
+// int8 GEMM: TMA-fed wgmma, persistent 128 x 256 tiles
+// ---------------------------------------------------------------------------
+constexpr int TM = 128;
+constexpr int TN = 256;
+constexpr int TKB = 128;           // K bytes per stage
+constexpr int G_STAGES = 4;
+constexpr int G_CONSUMER_WGS = 2;
+constexpr int G_THREADS = 128 * (G_CONSUMER_WGS + 1);
+constexpr int G_A_BYTES = TM * TKB;
+constexpr int G_B_BYTES = TN * TKB;
+constexpr int G_STAGE_BYTES = G_A_BYTES + G_B_BYTES;
+constexpr int G_SCALE_BYTES = 2 * TN * 4;   // a tile's scales, two tiles deep
+constexpr int G_SMEM_BYTES =
+    G_STAGES * G_STAGE_BYTES + G_SCALE_BYTES + 1024 + 2 * G_STAGES * 8;
+
+template <int MODE>
+__global__ void __launch_bounds__(G_THREADS, 1)
+int8_gemm_kernel(const __grid_constant__ CUtensorMap a_map,   // (M, K)
+                 const __grid_constant__ CUtensorMap b_map,   // (N, K)
+                 void* __restrict__ out, const float* __restrict__ sx,
+                 const float* __restrict__ sw, int M, int K, int N,
+                 int tiles_n, int n_tiles) {
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* scales = reinterpret_cast<float*>(smem + G_STAGES * G_STAGE_BYTES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + G_STAGES * G_STAGE_BYTES + G_SCALE_BYTES);
+  uint64_t* empty = full + G_STAGES;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < G_STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, G_CONSUMER_WGS * 4);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  const int chunks = (K + TKB - 1) / TKB;
+
+  if (wg == G_CONSUMER_WGS) {
+    // ---------------- producer ----------------
+    reg_dealloc<40>();
+    if (threadIdx.x == G_CONSUMER_WGS * 128) {
+      int stage = 0;
+      uint32_t phase = 1;   // the ring starts empty: the first waits pass
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int m0 = (tile / tiles_n) * TM;
+        const int n0 = (tile % tiles_n) * TN;
+        for (int kc = 0; kc < chunks; ++kc) {
+          mbar_wait(empty + stage, phase);
+          uint8_t* a = smem + stage * G_STAGE_BYTES;
+          mbar_arrive_expect_tx(full + stage, G_STAGE_BYTES);
+          tma_load_2d(a, &a_map, full + stage, kc * TKB, m0);
+          tma_load_2d(a + G_A_BYTES, &b_map, full + stage, kc * TKB, n0);
+          if (++stage == G_STAGES) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+  } else {
+    // ---------------- consumers ----------------
+    reg_alloc<232>();
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const float s_x = MODE == RAW ? 0.0f : sx[0];
+    int stage = 0;
+    uint32_t phase = 0;
+    int parity = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int m0 = (tile / tiles_n) * TM;
+      const int n0 = (tile % tiles_n) * TN;
+
+      // the tile's 256 scales, the scale product first as the reference,
+      // staged once by the 256 consumer threads: loading them from global
+      // memory inside the epilogue left its latency exposed on every tile.
+      // Two buffers and one barrier per tile: a thread that passes the
+      // barrier of tile i + 1 has finished reading the buffer of tile i.
+      const float* sc = scales + parity * TN;
+      if (MODE != RAW) {
+        const int n = n0 + threadIdx.x;
+        scales[parity * TN + threadIdx.x] = n < N ? s_x * sw[n] : 0.0f;
+        asm volatile("bar.sync 1, 256;\n" ::: "memory");
+        parity ^= 1;
+      }
+
+      int32_t acc[128];
+      int prev = -1;
+      for (int kc = 0; kc < chunks; ++kc) {
+        mbar_wait(full + stage, phase);
+        const uint8_t* base = smem + stage * G_STAGE_BYTES;
+        const uint64_t da = wgmma_desc(base + wg * (64 * TKB));
+        const uint64_t db = wgmma_desc(base + G_A_BYTES);
+        wgmma_fence();
+        if (K - kc * TKB >= TKB) {
+#pragma unroll
+          for (int kk = 0; kk < TKB / 32; ++kk)
+            wgmma_m64n256k32_s8(acc, da + 2 * kk, db + 2 * kk,
+                                (kc > 0 || kk > 0) ? 1 : 0);
+        } else {
+          // K % 128 == 64: the last chunk's upper half is TMA's zero fill
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk)
+            wgmma_m64n256k32_s8(acc, da + 2 * kk, db + 2 * kk,
+                                (kc > 0 || kk > 0) ? 1 : 0);
+        }
+        wgmma_commit();
+        if (prev >= 0) {
+          wgmma_wait<1>();             // the previous stage's batch is done
+          if (lane == 0) mbar_arrive(empty + prev);
+        }
+        prev = stage;
+        if (++stage == G_STAGES) { stage = 0; phase ^= 1; }
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(empty + prev);
+
+      // epilogue from the registers: rows g and g + 8 of this warp's m16
+      const int row0 = m0 + wg * 64 + warp * 16 + g;
+      if constexpr (MODE == DEQUANT_BF16) {
+#pragma unroll
+        for (int q = 0; q < TN / 32; ++q) {
+          float2 s[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            s[j] = *reinterpret_cast<const float2*>(
+                sc + 8 * (4 * q + j) + 2 * t);
+          const int c = n0 + (4 * q + t) * 8;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t w[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int i = 4 * q + j;
+              __nv_bfloat162 v = __floats2bfloat162_rn(
+                  static_cast<float>(acc[4 * i + 2 * h]) * s[j].x,
+                  static_cast<float>(acc[4 * i + 2 * h + 1]) * s[j].y);
+              w[j] = *reinterpret_cast<uint32_t*>(&v);
+            }
+            quad_transpose(w);
+            const int m = row0 + 8 * h;
+            if (m < M && c < N)
+              *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out) +
+                                        (size_t)m * N + c) =
+                  make_uint4(w[0], w[1], w[2], w[3]);
+          }
+        }
+      } else {
+        // 4-byte outputs: lanes t and t ^ 1 swap halves of two n8 blocks,
+        // the even lane keeps four columns of block i, the odd of i + 1
+        const bool odd = t & 1;
+#pragma unroll
+        for (int i = 0; i < TN / 8; i += 2) {
+          float s[2][2];
+          if (MODE != RAW) {
+#pragma unroll
+            for (int jb = 0; jb < 2; ++jb) {
+              const float2 v = *reinterpret_cast<const float2*>(
+                  sc + 8 * (i + jb) + 2 * t);
+              s[jb][0] = v.x;
+              s[jb][1] = v.y;
+            }
+          }
+          const int c = n0 + (odd ? 8 * (i + 1) + 2 * (t - 1) : 8 * i + 2 * t);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            uint32_t v[2][2];
+#pragma unroll
+            for (int jb = 0; jb < 2; ++jb)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int32_t a32 = acc[4 * (i + jb) + 2 * h + e];
+                v[jb][e] = MODE == RAW
+                    ? static_cast<uint32_t>(a32)
+                    : __float_as_uint(static_cast<float>(a32) * s[jb][e]);
+              }
+            const uint32_t r0 = __shfl_xor_sync(
+                0xffffffffu, odd ? v[0][0] : v[1][0], 1);
+            const uint32_t r1 = __shfl_xor_sync(
+                0xffffffffu, odd ? v[0][1] : v[1][1], 1);
+            const uint4 o = odd ? make_uint4(r0, r1, v[1][0], v[1][1])
+                                : make_uint4(v[0][0], v[0][1], r0, r1);
+            const int m = row0 + 8 * h;
+            if (m < M && c < N)
+              *reinterpret_cast<uint4*>(static_cast<uint32_t*>(out) +
+                                        (size_t)m * N + c) = o;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int MODE>
+int launch_gemm(const CUtensorMap& a_map, const CUtensorMap& b_map, void* out,
+                const float* sx, const float* sw, int M, int K, int N,
+                cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      int8_gemm_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G_SMEM_BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles_n = (N + TN - 1) / TN;
+  const long tiles = (long)((M + TM - 1) / TM) * tiles_n;
+  int sms = 0;
+  e = hopper::sm_count(&sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int grid = tiles < sms ? (int)tiles : sms;
+  int8_gemm_kernel<MODE><<<grid, G_THREADS, G_SMEM_BYTES, stream>>>(
+      a_map, b_map, out, sx, sw, M, K, N, tiles_n, (int)tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -404,12 +644,29 @@ extern "C" const char* error_string(int status) {
 
 // a (M, K) int8, bt (N, K) int8 (the weight, K-contiguous), all contiguous.
 // mode 0: out (M, N) int32 = a @ bt^T; mode 1: bf16 and mode 2: fp32
-// float(acc) * (sx[0] * sw[n]).  Requires K % 64 == 0, N % 128 == 0.
+// float(acc) * (sx[0] * sw[n]).  Requires K % 64 == 0, N % 128 == 0 and
+// 16-byte aligned operands (TMA).
 extern "C" int int8_mm(const void* a, const void* bt, void* out,
                        const float* sx, const float* sw, int M, int K, int N,
                        int mode, void* stream) {
-  return launch_mm(int8_gemm_kernel, a, bt, out, sx, sw, M, K, N, M, 1, 0,
-                   mode, stream);
+  if (M < 1 || K % 64 != 0 || N % 128 != 0 || mode < 0 || mode > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap a_map, b_map;
+  const uint64_t a_dims[2] = {(uint64_t)K, (uint64_t)M};
+  const uint64_t b_dims[2] = {(uint64_t)K, (uint64_t)N};
+  const uint32_t a_box[2] = {TKB, TM};
+  const uint32_t b_box[2] = {TKB, TN};
+  if (!hopper::encode_map(&a_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 2, a,
+                          a_dims, a_box) ||
+      !hopper::encode_map(&b_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 2, bt,
+                          b_dims, b_box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mode == RAW)
+    return launch_gemm<RAW>(a_map, b_map, out, sx, sw, M, K, N, s);
+  if (mode == DEQUANT_BF16)
+    return launch_gemm<DEQUANT_BF16>(a_map, b_map, out, sx, sw, M, K, N, s);
+  return launch_gemm<DEQUANT_F32>(a_map, b_map, out, sx, sw, M, K, N, s);
 }
 
 // a (M, K) bf16, bt (N, K) bf16 -> out (M, N) fp32 = a @ bt^T.

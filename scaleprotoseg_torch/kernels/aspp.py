@@ -6,11 +6,13 @@ map, fp32 accumulation, bias added, bf16 output with rate r in channels
 ``[r*F, (r+1)*F)``.
 
 Bound on the H100: operations.  The flagship's 2 x 129 x 257 x 2048 input
-needs ~0.63 TFLOP of bf16 tensor-core work against ~0.3 GB of traffic.
-The kernel is an implicit GEMM on ``wmma`` bf16 fragments that reads each
-tap's shifted input tile straight from the unpadded map (zero-filled at
-the border), so the TPU kernel's host-side pad and its ``pltpu.roll``
-column realignment have no counterpart here.
+needs ~0.56 TFLOP of bf16 tensor-core work against ~0.17 GB of traffic.
+The kernel is an implicit GEMM fed by TMA and multiplied with ``wgmma``:
+a work item is a 32 x 8 output patch of one rate, its input comes as TMA
+boxes from the unpadded map, zero-filled by the hardware at the border
+(so the TPU kernel's host-side pad and its ``pltpu.roll`` column
+realignment have no counterpart here), and the three dy taps of a dx are
+views of one staged column strip.
 
 ``fused_aspp`` launches the kernel for a CUDA tensor and runs
 ``aspp_plain`` for a CPU tensor; ``aspp_plain`` is the shifted-matmul form
@@ -92,11 +94,13 @@ def pack_weights(weights: Sequence[torch.Tensor],
                  biases: Sequence[torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-rate (3, 3, C, F) weights and (F,) biases -> the kernel's
-    (R, 9, C, F) bf16 weight stack and (R*F,) float32 bias.  A model packs
-    once per set of weights and hands the result to every call."""
+    (R, 9, F, C) bf16 weight stack (tap 3 * ky + kx; input channels
+    contiguous, the K-major operand ``wgmma`` reads) and (R*F,) float32
+    bias.  A model packs once per set of weights and hands the result to
+    every call."""
     f = weights[0].shape[-1]
     wstack = torch.stack([wt.to(torch.bfloat16) for wt in weights]) \
-        .reshape(len(weights), 9, -1, f).contiguous()
+        .reshape(len(weights), 9, -1, f).transpose(2, 3).contiguous()
     bias = torch.cat([bb.float().reshape(f) for bb in biases]).contiguous()
     return wstack, bias
 

@@ -2,12 +2,13 @@
 
 ``int8_mm`` replaces ``benchmarks/bench_int8_mosaic.py::pallas_mm``: the
 tiled product ``a @ b`` with ``b`` passed transposed, ``bt = b^T`` (N, K),
-the K-contiguous layout of ``mma.sync``'s col operand; a weight is
-transposed once, when it is quantized.  int8 x int8 -> int32, or with
-``sx``/``sw`` the dequantized ``float(acc) * (sx * sw[n])`` in bf16 or
-fp32; bf16 x bf16 -> fp32 is the other arm.  ``int8_conv3x3`` is the same
-tile as an implicit GEMM over the nine taps of a dilated 3x3 conv, the
-counterpart of XLA's s8 conv in ``scaleprotoseg_tpu/ops/quant.py``.
+the K-contiguous layout that ``wgmma`` (the int8 arm: TMA-fed, persistent
+128 x 256 tiles) and ``mma.sync``'s col operand (the bf16 arm and the
+conv) both read; a weight is transposed once, when it is quantized.
+int8 x int8 -> int32, or with ``sx``/``sw`` the dequantized ``float(acc) *
+(sx * sw[n])`` in bf16 or fp32; bf16 x bf16 -> fp32 is the other arm.
+``int8_conv3x3`` is the ``mma.sync`` tile as an implicit GEMM over the
+nine taps of a dilated 3x3 conv, the counterpart of XLA's s8 conv in ``scaleprotoseg_tpu/ops/quant.py``.
 ``quantize_int8`` (static: ``x * (1 / max(s, 1e-12))``; dynamic:
 ``x / s``) and ``int8_absmax`` (the dynamic scale ``max(max|x|, 1e-12) /
 127``, kept on the device) feed them.

@@ -1,12 +1,15 @@
 """Each CUDA kernel of the port against its plain PyTorch version, and the
-serving engine's device timing, on the card.  Skips where there is no GPU; imports nothing of JAX, so on the
-machine with the card it runs without the JAX package's conftest:
+serving engine's device timing, on the card.  Skips where there is no GPU;
+imports nothing of JAX, so on the machine with the card it runs without
+the JAX package's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py
 
-Tolerances as in ``chip_smoke.py``: K2 within 2 bf16 ulps of the fp32
-accumulated plain form, K1 rtol = atol = 1e-4 without TF32, K3 labels
+K2's forward and ``int8_mm``'s int8 arm are TMA + ``wgmma`` kernels: they
+build and run on ``sm_90a`` (H100/H200) only.  Tolerances as in
+``chip_smoke.py``: K2 within 2 bf16 ulps of the fp32 accumulated plain
+form and the same bits on a second run, K1 rtol = atol = 1e-4 without TF32, K3 labels
 equal where the top-two margin is at least 1e-5; the int8 products and
 the quantize bit for bit, their bf16 epilogue within 1 bf16 ulp, the
 bf16 arm of ``int8_mm`` within rtol = 1e-4, atol = 1e-3 of the float32
@@ -84,6 +87,32 @@ def test_aspp_kernel_matches_plain(dev, gen, hw, c, f):
     assert kernels.fused_aspp.launches == before + 1
     want = aspp_plain(x, ws, bs).float().cpu().numpy()
     assert _bf16_ulps(got, want) <= 2
+
+
+@pytest.mark.parametrize("b,hw,c,f,rates", [
+    (1, (3, 5), 512, 64, (6, 12, 18, 24)),     # smaller than a 32 x 8 patch
+    (2, (33, 16), 512, 64, (6, 12, 18)),       # one row past a patch edge
+    (1, (32, 9), 512, 64, (2, 3)),             # one column past a patch edge
+    (2, (9, 40), 512, 128, (30,)),             # taps staged one by one; F = 128
+    (1, (33, 31), 1024, 128, (1, 28, 29)),     # the largest strip, and past it
+    (2, (65, 65), 2048, 64, (6, 12, 18, 24)),  # the training shape
+])
+def test_aspp_kernel_ragged_shapes_and_same_bits(dev, gen, b, hw, c, f, rates):
+    """The TMA + wgmma forward where patches hang over the image's edge
+    and whole taps fall outside it: within 2 bf16 ulps of the plain form
+    and the same bits on a second run."""
+    x = torch.from_numpy(gen.random((b, *hw, c), np.float32)).to(
+        dev, torch.bfloat16)
+    ws = [torch.from_numpy(gen.standard_normal((3, 3, c, f)).astype(
+        np.float32) * 0.02).to(dev) for _ in rates]
+    bs = [torch.from_numpy(gen.standard_normal(f).astype(np.float32)).to(dev)
+          for _ in rates]
+    got = kernels.fused_aspp(x, ws, bs, rates)
+    torch.cuda.synchronize()
+    want = aspp_plain(x, ws, bs, rates).float().cpu().numpy()
+    assert got.shape == (b, *hw, len(rates) * f)
+    assert _bf16_ulps(got.float().cpu().numpy(), want) <= 2
+    assert torch.equal(got, kernels.fused_aspp(x, ws, bs, rates))
 
 
 @pytest.mark.parametrize("hw,rates", [((65, 65), (6, 12, 18, 24)),
@@ -280,6 +309,22 @@ def test_int8_mm_matches_plain(dev, gen, m, k, n):
     got_bf = kernels.int8_mm(a, bt, sx, sw, torch.bfloat16).float()
     assert _bf16_ulps(got_bf.cpu().numpy(), want.cpu().numpy()) <= 1
     assert torch.equal(got_bf, want.to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("k,n", [(64, 128), (64, 2048), (2048, 128),
+                                 (2048, 2048), (192, 384)])
+@pytest.mark.parametrize("m", [1, 127, 129, 66306])
+def test_int8_mm_edges_are_bit_exact(dev, gen, m, k, n):
+    """Row counts around the 128-row tile and the path's 66306, one K step
+    (K = 64: half a 128-byte chunk) and many, N of half a 256-column tile
+    and of eight: all three modes bit for bit against the plain version."""
+    a, bt = _int8(gen, (m, k), dev), _int8(gen, (n, k), dev)
+    sx = torch.tensor(3e-3, device=dev)
+    sw = torch.from_numpy(gen.random(n, np.float32) * 1e-3 + 1e-5).to(dev)
+    for scales in ((), (sx, sw, torch.float32), (sx, sw, torch.bfloat16)):
+        got = kernels.int8_mm(a, bt, *scales)
+        torch.cuda.synchronize()
+        assert torch.equal(got, int8_mm_plain(a, bt, *scales))
 
 
 def test_int8_mm_bf16_arm_matches_plain(dev, gen):

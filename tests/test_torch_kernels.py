@@ -14,6 +14,8 @@ JAX package's own tests run them.  Tolerances:
 version on the card.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,7 @@ from scaleprotoseg_tpu.ops.resize import (_bilinear_matrix,
                                           resize_bilinear_matrix)
 from scaleprotoseg_tpu.spec import ProtoSpec
 from scaleprotoseg_torch import kernels
+from scaleprotoseg_torch.kernels import _build
 from scaleprotoseg_torch.kernels import aspp as taspp
 from scaleprotoseg_torch.kernels import upsample as tup
 from scaleprotoseg_torch.kernels.proto import pack_head, proto_plain
@@ -212,6 +215,97 @@ def test_aspp_module_packs_its_weights_once(rng, monkeypatch):
         second = module(x)
     assert len(packs) == 2
     assert not torch.equal(first, second)
+
+
+@pytest.mark.parametrize("c,f,n_rates", [(128, 64, 3), (64, 128, 4),
+                                         (512, 64, 1)])
+def test_pack_weights_is_k_major_and_round_trips(rng, c, f, n_rates):
+    """The kernel's weight stack is (R, 9, F, C), input channels contiguous
+    (the K-major operand ``wgmma`` reads), tap 3 * ky + kx; transposed back
+    it is the per-rate (3, 3, C, F) weights rounded to bf16, and the bias
+    is the per-rate biases in rate order."""
+    _, weights, biases = _aspp_problem(rng, c, f, n_rates=n_rates)
+    tw = [torch.from_numpy(w) for w in weights]
+    wstack, bias = taspp.pack_weights(tw, [torch.from_numpy(b)
+                                           for b in biases])
+    assert wstack.shape == (n_rates, 9, f, c) and wstack.dtype == torch.bfloat16
+    assert wstack.is_contiguous() and bias.dtype == torch.float32
+    for ri, w in enumerate(tw):
+        back = wstack[ri].transpose(1, 2).reshape(3, 3, c, f)
+        assert torch.equal(back, w.to(torch.bfloat16))
+        assert torch.equal(wstack[ri, 5, 7], w[1, 2, :, 7].to(torch.bfloat16))
+    np.testing.assert_array_equal(bias.numpy(), np.concatenate(biases))
+
+
+def _aspp_source_constant(name):
+    """``constexpr int <name> = <value>;`` of ``csrc/aspp.cu``."""
+    src = (_build.CSRC / "aspp.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _aspp_item(item, n_tiles, n_rates, npx, npy, ph, pw, bn):
+    """``csrc/aspp.cu::decode_item``: block index -> (batch, y0, x0, rate
+    index, n0), rate and output-channel tile fastest."""
+    p, q = divmod(item, n_rates * n_tiles)
+    ri, tile = divmod(q, n_tiles)
+    p, px = divmod(p, npx)
+    bi, py = divmod(p, npy)
+    return bi, py * ph, px * pw, ri, tile * bn
+
+
+@pytest.mark.parametrize("b,h,w,f,n_rates", [
+    (2, 129, 257, 64, 4),       # serving and evaluation
+    (2, 65, 65, 64, 4),         # training and validation
+    (1, 21, 37, 64, 4),         # no multiple of the patch
+    (1, 3, 5, 128, 1),          # smaller than a patch, two channel tiles
+    (2, 33, 16, 64, 3),         # one row past a patch edge
+    (1, 32, 9, 192, 2),         # one column past a patch edge
+    (3, 32, 8, 64, 1),          # exactly one patch an image
+    (1, 1, 1, 64, 2),           # one pixel
+    (2, 31, 7, 128, 4),         # one short of a patch both ways
+    (1, 64, 17, 256, 3),        # two patch rows, four channel tiles
+])
+def test_aspp_tile_plan_covers_every_output_once(b, h, w, f, n_rates):
+    """The kernel's grid (its launcher's item count, each block decoded as
+    ``decode_item`` does, with the patch and tile sizes read from the
+    source), clipped to the image as the epilogue clips it, writes every
+    (batch, y, x, rate, channel) exactly once."""
+    ph, pw, bn = (_aspp_source_constant(n) for n in ("PH", "PW", "BN"))
+    npy, npx, n_tiles = -(-h // ph), -(-w // pw), f // bn
+    items = [_aspp_item(i, n_tiles, n_rates, npx, npy, ph, pw, bn)
+             for i in range(b * npy * npx * n_rates * n_tiles)]
+    seen = np.zeros((b, h, w, n_rates, f), np.int32)
+    for bi, y0, x0, ri, n0 in items:
+        seen[bi, y0:y0 + ph, x0:x0 + pw, ri, n0:n0 + bn] += 1
+    assert (seen == 1).all()
+    # rate and channel tile run fastest: a patch's items are neighbours
+    assert items[0][:3] == items[n_rates * n_tiles - 1][:3]
+
+
+def test_library_hash_covers_shared_headers(tmp_path, monkeypatch):
+    """A library is named by its source, every ``csrc/*.cuh`` and the
+    flags: an edited shared header must not reuse a stale build."""
+    assert (_build.CSRC / "hopper.cuh").exists()
+    assert str(_build.CSRC) in _build.NVCC_FLAGS
+    assert "-v" in _build.NVCC_FLAGS
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// kernel\n")
+    (csrc / "other.cu").write_text("// another kernel\n")
+    (csrc / "shared.cuh").write_text("// header\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    first = _build.library_path("k")
+    assert first == _build.library_path("k")
+    (csrc / "other.cu").write_text("// another kernel, edited\n")
+    assert _build.library_path("k") == first
+    (csrc / "shared.cuh").write_text("// header, edited\n")
+    second = _build.library_path("k")
+    assert second != first
+    (csrc / "k.cu").write_text("// kernel, edited\n")
+    third = _build.library_path("k")
+    assert third not in (first, second)
+    (csrc / "new.cuh").write_text("// a second header\n")
+    assert _build.library_path("k") != third
 
 
 # ---------------------------------------------------------------------------
