@@ -18,10 +18,13 @@ Phases; any failure exits non-zero and prints no result:
    TF32 off on the plain side, K3 labels equal wherever the plain
    version's top-two margin is at least 1e-5.  K2's backward at the
    training shapes (batch 2 at 65 x 65 x 2048): ``aspp_grad_pack`` bit
-   for bit against the plain pack, ``aspp_grad_weight`` within rtol =
-   atol = 1e-3 of the fp32 plain product (TF32 off) and the same bits on
-   a second run, and the whole ``aspp_trainable`` backward against
-   autograd through the plain form (dx within 2 bf16 ulps, dW and db
+   for bit against the plain pack, ``aspp_grad_weight`` (called per
+   image with the rates, as the backward calls it) within rtol = atol =
+   1e-3 of the fp32 plain product (TF32 off) and the same bits on a
+   second run, timed beside one bf16 x bf16 -> fp32 GEMM of the same
+   product and cuDNN's weight gradient, and the whole
+   ``aspp_trainable`` backward against autograd through the plain form
+   (dx within 2 bf16 ulps, dW and db
    within 1e-3 of their scale).  The int8 kernels of the quant8 path:
    ``int8_mm`` (K4) at ``pallas_mm``'s own 8192 x 512 x 512 and at the
    eight 1x1 conv shapes of layer4/5 (66306 pixels), its int32 arm bit
@@ -30,8 +33,10 @@ Phases; any failure exits non-zero and prints no result:
    ``(acc.float() * (sx * sw)).bfloat16()``, its bf16 arm within rtol =
    1e-4, atol = 1e-3 of the float32 product (TF32 off); ``int8_conv3x3``
    at layer4's and layer5's dilated 3x3 shapes, the int32 accumulator bit
-   for bit against a float64 conv of the int8 values; ``quantize_int8``
-   (static and dynamic) and ``int8_absmax`` bit for bit.  Times are
+   for bit against a float64 conv of the int8 values and the same bits on
+   a second call, with the launch-weighted times of a quant8 batch's 26
+   3x3 convs; ``quantize_int8`` (static and dynamic) and
+   ``int8_absmax`` bit for bit.  Times are
    CUDA-event medians of 10 runs after warmup, beside the plain version,
    one PyTorch library call computing the same function (a yardstick the
    port never calls: cuDNN, ``torch._int_mm``, ``torch.matmul``) and the
@@ -76,7 +81,7 @@ Phases; any failure exits non-zero and prints no result:
    loss within 1e-3, ASPP-weight and prototype gradients within 2e-2
    relative L2.  Finally ``push_final`` loads through ``load_model`` and
    serves one finite batch;
-6. one line per kernel with its times, bound and launches, for the two
+6. one line per kernel with its times, bound and launches, for the four
    kernels rebuilt on TMA + ``wgmma`` the earlier design's recorded times
    beside the new ones, the card's name and power limit, the kernels
    line (every kernel with its status),
@@ -178,18 +183,23 @@ N_CALIB = 8
 N_CHECK_PLAIN = 16
 N_EVAL = 8
 
-# The earlier designs of the two kernels since rebuilt on TMA + wgmma, as
+# The earlier designs of the four kernels since rebuilt on TMA + wgmma, as
 # measured on NVIDIA H100 80GB HBM3 at 700 W (wrapper ms and profiler device
 # ms at the shapes of this script's rows; the 54 1x1 convs of a quant8
-# batch for int8_mm's path): printed beside the new times on a line of
-# their own (the ``kernels`` line holds only what this run measured), no
-# second implementation.
+# batch for int8_mm's path, layer4 beside layer5 for int8_conv3x3): printed
+# beside the new times on a line of their own (the ``kernels`` line holds
+# only what this run measured), no second implementation.
 EARLIER_DESIGN = {
     "aspp": dict(design="wmma 128 x 64 tile, cp.async gather", ms=4.18,
                  device_ms=4.10, training_shape_device_ms=0.77),
     "int8_mm": dict(design="mma.sync 128 x 128 tile, cp.async", ms=0.046,
                     device_ms=0.024, path_ms_per_batch=11.6,
                     path_device_ms_per_batch=9.39),
+    "int8_conv3x3": dict(design="mma.sync 128 x 128 tile, cp.async tap "
+                         "gather", ms=0.605, device_ms=0.554,
+                         layer4_ms=0.193, layer4_device_ms=0.155),
+    "aspp_grad_weight": dict(design="wmma 128 x 64 tile, cp.async ring",
+                             ms=0.684, device_ms=0.618),
 }
 
 BWD = "scaleprotoseg_tpu/ops/pallas_aspp.py:319 fused_aspp_trainable bwd"
@@ -468,12 +478,17 @@ def check_aspp_backward(gen, dev) -> list:
     packed_g = kernels.aspp_grad_pack(g, RATES, f)
     if not torch.equal(packed_g, grad_pack_plain(g, RATES, f)):
         raise AssertionError("aspp_grad_pack differs from the plain pack")
-    dw = kernels.aspp_grad_weight(x2d, packed_g)
+    # as the backward calls it: the zero rows of G skipped, one partial
+    # per image
+    dw = kernels.aspp_grad_weight(x, packed_g, RATES)
     dw_plain = grad_weight_plain(x2d, packed_g)
     torch.testing.assert_close(dw, dw_plain, rtol=1e-3, atol=1e-3)
-    if not torch.equal(dw, kernels.aspp_grad_weight(x2d, packed_g)):
+    if not torch.equal(dw, kernels.aspp_grad_weight(x, packed_g, RATES)):
         raise AssertionError("aspp_grad_weight is not deterministic")
     dw_err = (dw - dw_plain).abs().max().item()
+    log(f"aspp_grad_weight: max_abs_err {dw_err:.3g} against the fp32 "
+        f"product, {dw_err / dw_plain.abs().max().item():.3g} of dW's "
+        f"scale; same bits twice")
 
     # the whole backward: the Function against autograd through the plain
     # form on x upcast (36 tap gradients added in fp32, rounded once) and
@@ -529,6 +544,18 @@ def check_aspp_backward(gen, dev) -> list:
     log(f"aspp backward ms: Function (dx, dW, db) "
         f"{time_ms(fn_bwd):.4f}; cuDNN dilated convs + cat, whole backward "
         f"{time_ms(cudnn_backward(True)):.4f}")
+    xt = x2d.t()
+    try:    # one bf16 x bf16 -> fp32 GEMM of the same product, all taps
+        gemm = lambda: torch.mm(xt, packed_g,  # noqa: E731
+                                out_dtype=torch.float32)
+        gemm()
+        what = "torch.mm(x^T, G, out_dtype=float32)"
+    except TypeError:
+        gemm = lambda: torch.matmul(xt, packed_g)  # noqa: E731
+        what = "torch.matmul(x^T, G) (bf16 output: no out_dtype here)"
+    log(f"aspp_grad_weight yardsticks ms: one GEMM {what} "
+        f"{time_ms(gemm):.4f}, cuDNN's weight gradient "
+        f"{time_ms(cudnn_backward(False)):.4f}")
 
     n = B * TH * TW
     kc = packed_g.shape[1]
@@ -548,9 +575,9 @@ def check_aspp_backward(gen, dev) -> list:
              library_ms=None, bound_ms=pack_ms, bound_by=pack_by),
         dict(name="aspp_grad_weight", max_abs_err=dw_err,
              device_ms=device_kernel_ms(
-                 lambda: kernels.aspp_grad_weight(x2d, packed_g),
+                 lambda: kernels.aspp_grad_weight(x, packed_g, RATES),
                  ("aspp_grad_weight_kernel", "split_sum_kernel")),
-             ms=time_ms(lambda: kernels.aspp_grad_weight(x2d, packed_g)),
+             ms=time_ms(lambda: kernels.aspp_grad_weight(x, packed_g, RATES)),
              plain_ms=time_ms(lambda: grad_weight_plain(x2d, packed_g)),
              library_ms=time_ms(cudnn_backward(False)), bound_ms=w_ms,
              bound_by=w_by)]
@@ -653,16 +680,22 @@ def check_int8_mm(gen, dev) -> dict:
 
 def check_int8_conv3x3(gen, dev) -> dict:
     """The dilated 3x3 int8 convs of layer4 (256 ch, d=2) and layer5 (512
-    ch, d=4) at the serving grid; the row reports layer5's."""
+    ch, d=4) at the serving grid, bit for bit and the same bits twice; the
+    row reports layer5's, the log layer4's and the launch-weighted sum of a
+    quant8 batch (23 layer4 + 3 layer5 convs)."""
     row = None
+    total = dict.fromkeys(("ms", "device_ms", "library_ms", "bound_ms"), 0.0)
     for layer in ("layer4", "layer5"):
-        _, _, c, _, dil = N_BLOCKS[layer]
+        n_conv, _, c, _, dil = N_BLOCKS[layer]
         x, wt = _int8(gen, (B, FH, FW, c), dev), _int8(gen, (9, c, c), dev)
         sx, sw = _scales(gen, c, dev)
         acc = kernels.int8_conv3x3(x, wt, dil)
         if not torch.equal(acc, int8_conv3x3_plain(x, wt, dil)):
             raise AssertionError(f"int8_conv3x3 accumulator differs at "
                                  f"{layer}")
+        if not torch.equal(acc, kernels.int8_conv3x3(x, wt, dil)):
+            raise AssertionError(f"int8_conv3x3 gave other bits on a second "
+                                 f"call at {layer}")
         deq = kernels.int8_conv3x3(x, wt, dil, sx, sw, torch.bfloat16)
         if not _bf16_within_one_ulp(deq, acc.float() * (sx * sw)):
             raise AssertionError(f"int8_conv3x3 epilogue > 1 bf16 ulp at "
@@ -685,14 +718,20 @@ def check_int8_conv3x3(gen, dev) -> dict:
             library_ms=time_ms(lambda: F.conv2d(xc, wc, padding=dil,
                                                 dilation=dil)),
             bound_ms=b_ms, bound_by=b_by)
-        log(f"int8_conv3x3 {layer} {B}x{FH}x{FW}x{c} d={dil}: kernel "
-            f"{r['ms']:.4f} ms ({ops / r['ms'] / 1e9:.1f} TOP/s on the taps "
-            f"inside the image), device {r['device_ms']}, plain "
-            f"{r['plain_ms']:.4f}, bf16 cuDNN conv {r['library_ms']:.4f}, "
-            f"bound {b_ms:.4f} ({b_by})")
+        for key in total:
+            total[key] += r[key] * n_conv
+        log(f"int8_conv3x3 {layer} {B}x{FH}x{FW}x{c} d={dil} "
+            f"(x{n_conv} per batch): kernel {r['ms']:.4f} ms "
+            f"({ops / r['ms'] / 1e9:.1f} TOP/s on the taps inside the image), "
+            f"device {r['device_ms']}, plain {r['plain_ms']:.4f}, bf16 cuDNN "
+            f"conv {r['library_ms']:.4f}, bound {b_ms:.4f} ({b_by}); same "
+            f"bits twice")
         del x, wt, deq, xc, wc
         row = r
-    return row
+    log(f"int8_conv3x3 path 3x3 convs per batch: kernel {total['ms']:.3f} "
+        f"ms, device {total['device_ms']:.3f}, bf16 cuDNN conv "
+        f"{total['library_ms']:.3f}, bound {total['bound_ms']:.3f}")
+    return dict(row, path_ms_per_batch=total)
 
 
 def check_quantize(gen, dev) -> list:
@@ -1416,7 +1455,8 @@ def main() -> None:
         log(f"{name}: earlier design on NVIDIA H100 80GB HBM3, 700 W "
             f"{json.dumps(old)}; now kernel_ms {r['ms']:.4f} device_ms "
             f"{r['device_ms']}"
-            + (f" path_ms_per_batch {r['path_ms_per_batch']['ms']:.3f}"
+            + (" path_ms_per_batch " + json.dumps(
+                {k: round(v, 4) for k, v in r["path_ms_per_batch"].items()})
                if "path_ms_per_batch" in r else ""))
 
     line = {"kernels": [dict(

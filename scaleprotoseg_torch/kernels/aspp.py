@@ -22,7 +22,9 @@ Training goes through ``aspp_trainable``, the counterpart of the JAX
 package's ``fused_aspp_trainable``: the forward above (the shifted-matmul
 form below ``KERNEL_MIN_C`` input channels) and the tap-packed backward
 of ``csrc/aspp_bwd.cu``: ``aspp_grad_pack`` builds the shifted-gradient
-family G once, ``aspp_grad_weight`` reduces dW = x^T G in fp32, dx = G
+family G once, ``aspp_grad_weight`` reduces dW = x^T G in fp32 (TMA-fed
+``wgmma`` on both operands as they lie, skipping the rows where a tile of
+G is zero, one fp32 partial per 4352 pixels of an image at most), dx = G
 W_all^T is one bf16 ``torch.matmul`` (a plain large product, as XLA's in
 the JAX package) and db a sum.  Each wrapper runs its plain version for
 a CPU tensor and launches its kernel, or raises, for a CUDA one.
@@ -31,7 +33,6 @@ a CPU tensor and launches its kernel, or raises, for a CUDA one.
 from __future__ import annotations
 
 import ctypes
-import math
 from functools import lru_cache
 from typing import Optional, Sequence, Tuple
 
@@ -44,10 +45,9 @@ from scaleprotoseg_torch.kernels._build import check, library
 # package's ``_KERNEL_MIN_C`` crossover, kept as the dispatch rule).
 KERNEL_MIN_C = 512
 _TILE = 64  # the kernel's channel chunk and output-channel tile
-# aspp_grad_weight: 128-channel x 64-column output tiles; the pixels are
-# split into chunks of this many (a multiple of its 64-pixel stage), so
-# the training shape's 8450 pixels run as 2 x 576 blocks
-_DW_TILE_C, _DW_TILE_K, _DW_CHUNK = 128, 64, 4352
+# csrc/aspp_bwd.cu's CHUNK: the weight gradient keeps one partial per this
+# many pixels of an image, at most
+_DW_CHUNK = 4352
 
 
 def shifted_sum(x: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -178,7 +178,7 @@ def _bwd_launchers():
         [ctypes.c_void_p]
     pack.restype = ctypes.c_int
     weight = lib.aspp_grad_weight
-    weight.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + \
+    weight.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + \
         [ctypes.c_void_p]
     weight.restype = ctypes.c_int
     return pack, weight
@@ -215,39 +215,47 @@ aspp_grad_pack.launches = 0
 
 def grad_weight_plain(x: torch.Tensor, packed_g: torch.Tensor
                       ) -> torch.Tensor:
-    """``aspp_grad_weight``'s function in plain PyTorch: x (N, C) and G
-    (N, K) -> x^T G (C, K) in float32 (exact products of the bf16
-    operands; on the card the caller turns TF32 off)."""
-    return x.float().t() @ packed_g.float()
+    """``aspp_grad_weight``'s function in plain PyTorch: x (N, C) or (B,
+    H, W, C) and G (N, K) -> x^T G (C, K) in float32 (exact products of
+    the bf16 operands; on the card the caller turns TF32 off)."""
+    return x.reshape(-1, x.shape[-1]).float().t() @ packed_g.float()
 
 
-def aspp_grad_weight(x: torch.Tensor, packed_g: torch.Tensor
-                     ) -> torch.Tensor:
-    """dW_all = x^T G (C, K) float32 for x (N, C) and G (N, K).  The
-    kernel takes contiguous bf16 operands and needs C % 128 == 0 and
-    K % 64 == 0; its pixel split is reduced in a fixed order."""
+def aspp_grad_weight(x: torch.Tensor, packed_g: torch.Tensor,
+                     rates: Sequence[int]) -> torch.Tensor:
+    """dW_all = x^T G (C, K) float32 for x (B, H, W, C) and G =
+    ``aspp_grad_pack(g, rates, f)`` (B*H*W, K = R*9*F).  The kernel skips
+    the image rows in which a tile of G's columns is all zeros; it takes
+    contiguous bf16 operands with C and K multiples of 8 (its tiles' edges
+    are masked); its partials, one per ``_DW_CHUNK`` pixels of an image at
+    most, are added in a fixed order."""
     if x.device.type == "cpu":
         return grad_weight_plain(x, packed_g)
     if x.device.type != "cuda":
         raise ValueError(f"aspp_grad_weight: unsupported device {x.device}")
-    n, c = x.shape
+    b, h, w, c = x.shape
     k = packed_g.shape[1]
+    n_rates = len(rates)
     if x.dtype != torch.bfloat16 or packed_g.dtype != torch.bfloat16 or \
             not x.is_contiguous() or not packed_g.is_contiguous():
         raise ValueError("aspp_grad_weight: x and G must be contiguous bf16")
-    if packed_g.shape[0] != n or c % _DW_TILE_C or k % _DW_TILE_K:
-        raise ValueError(f"aspp_grad_weight: needs x (N, C) and G (N, K) "
-                         f"with C % {_DW_TILE_C} == 0 and K % {_DW_TILE_K} "
-                         f"== 0, got {tuple(x.shape)} {tuple(packed_g.shape)}")
-    splits = math.ceil(n / _DW_CHUNK)
+    if packed_g.shape[0] != b * h * w or c % 8 or k % 8 or \
+            not 1 <= n_rates <= 4 or k % (9 * n_rates):
+        raise ValueError(f"aspp_grad_weight: needs x (B, H, W, C) and G (N, "
+                         f"K = R * 9 * F) with C and K multiples of 8, got "
+                         f"{tuple(x.shape)} {tuple(packed_g.shape)} for "
+                         f"rates {rates}")
+    f = k // (9 * n_rates)
+    r = list(rates) + [0] * (4 - n_rates)
+    parts = b * -(-h * w // _DW_CHUNK)
     out = torch.empty((c, k), dtype=torch.float32, device=x.device)
-    work = torch.empty((splits, c, k), dtype=torch.float32,
-                       device=x.device) if splits > 1 else None
+    work = torch.empty((parts, c, k), dtype=torch.float32,
+                       device=x.device) if parts > 1 else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = _bwd_launchers()[1](
         x.data_ptr(), packed_g.data_ptr(), out.data_ptr(),
-        work.data_ptr() if work is not None else None, n, c, k, _DW_CHUNK,
-        splits, stream)
+        work.data_ptr() if work is not None else None, b, h, w, c, k, f,
+        n_rates, *r, stream)
     check(library("aspp_bwd"), status, "aspp_grad_weight")
     aspp_grad_weight.launches += 1
     return out
@@ -295,7 +303,7 @@ class _TrainableASPP(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = (packed_g @ stack_weights_t(weights, cdt)) \
                 .reshape(b, h, w, c)
-        dw_all = aspp_grad_weight(x.reshape(b * h * w, c), packed_g) \
+        dw_all = aspp_grad_weight(x.contiguous(), packed_g, rates) \
             .reshape(c, n_rates, 3, 3, f)
         dws = [dw_all[:, ri].permute(1, 2, 0, 3).to(weights[ri].dtype)
                for ri in range(n_rates)]

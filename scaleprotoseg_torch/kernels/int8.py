@@ -2,13 +2,16 @@
 
 ``int8_mm`` replaces ``benchmarks/bench_int8_mosaic.py::pallas_mm``: the
 tiled product ``a @ b`` with ``b`` passed transposed, ``bt = b^T`` (N, K),
-the K-contiguous layout that ``wgmma`` (the int8 arm: TMA-fed, persistent
-128 x 256 tiles) and ``mma.sync``'s col operand (the bf16 arm and the
-conv) both read; a weight is transposed once, when it is quantized.
+the K-contiguous layout that ``wgmma`` reads for 8-bit types (the int8
+arm: TMA-fed, persistent 128 x 256 tiles; the bf16 arm is an
+``mma.sync`` tile); a weight is transposed once, when it is quantized.
 int8 x int8 -> int32, or with ``sx``/``sw`` the dequantized ``float(acc) *
 (sx * sw[n])`` in bf16 or fp32; bf16 x bf16 -> fp32 is the other arm.
-``int8_conv3x3`` is the ``mma.sync`` tile as an implicit GEMM over the
-nine taps of a dilated 3x3 conv, the counterpart of XLA's s8 conv in ``scaleprotoseg_tpu/ops/quant.py``.
+``int8_conv3x3`` is the dilated 3x3 conv as an implicit GEMM, the
+counterpart of XLA's s8 conv in ``scaleprotoseg_tpu/ops/quant.py``: K2's
+design with s8 operands (TMA boxes of a 32 x 8 output patch's column
+strips, the three dy taps of a dx read from one strip, ``wgmma``
+m64n128k32 on a persistent grid).
 ``quantize_int8`` (static: ``x * (1 / max(s, 1e-12))``; dynamic:
 ``x / s``) and ``int8_absmax`` (the dynamic scale ``max(max|x|, 1e-12) /
 127``, kept on the device) feed them.
@@ -33,8 +36,8 @@ import torch.nn.functional as F
 
 from scaleprotoseg_torch.kernels._build import check, library
 
-_TILE_N = 128       # the kernel's output-channel tile
-_TILE_KB = 64       # the kernel's K chunk, in bytes
+_TILE_N = 128       # N a multiple of the conv's output-channel tile
+_TILE_KB = 64       # K (C for the conv) a multiple of half a 128-byte chunk
 _MODES = {None: 0, torch.bfloat16: 1, torch.float32: 2}
 
 

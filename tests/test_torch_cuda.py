@@ -127,19 +127,49 @@ def test_aspp_grad_pack_is_bit_exact(dev, gen, hw, rates):
     assert torch.equal(got, grad_pack_plain(g, rates, 64))
 
 
-@pytest.mark.parametrize("n,c,k", [(8450, 2048, 2304), (100, 256, 128),
-                                   (4352, 128, 64)])
-def test_aspp_grad_weight_matches_plain(dev, gen, n, c, k):
-    """fp32 sums of exact bf16 products: within 1e-3 of the plain fp32
-    product (TF32 off), and the same bits on a second run."""
-    x = torch.from_numpy(gen.random((n, c), np.float32)).to(
+@pytest.mark.parametrize("b,hw,rates,f,c", [
+    (1, (130, 65), (6, 12, 18, 24), 64, 2048),  # the training pixels, one image
+    (1, (129, 257), (6, 12, 18, 24), 64, 256),  # a serving-size image: 8 partials
+    (1, (5, 9), (2,), 16, 256),             # fewer pixels than a stage
+    (1, (7, 13), (1,), 8, 200),             # K = 72 and C no multiple of a tile
+    (2, (40, 25), (1, 3), 24, 200),         # K = 432: tiles span taps
+])
+def test_aspp_grad_weight_matches_plain(dev, gen, b, hw, rates, f, c):
+    """fp32 sums of exact bf16 products over G = ``aspp_grad_pack``'s
+    output: within 1e-3 of the plain fp32 product (TF32 off) at every
+    image size (the partials cap how far a truncating sum runs), and the
+    same bits on a second run."""
+    x = torch.from_numpy(gen.random((b, *hw, c), np.float32)).to(
         dev, torch.bfloat16)
-    pg = torch.from_numpy(gen.standard_normal((n, k)).astype(
-        np.float32)).to(dev, torch.bfloat16)
-    got = kernels.aspp_grad_weight(x, pg)
+    g = torch.from_numpy(gen.standard_normal(
+        (b, *hw, len(rates) * f)).astype(np.float32)).to(dev, torch.bfloat16)
+    pg = grad_pack_plain(g, rates, f)
+    got = kernels.aspp_grad_weight(x, pg, rates)
     want = grad_weight_plain(x, pg)
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
-    assert torch.equal(got, kernels.aspp_grad_weight(x, pg))
+    assert torch.equal(got, kernels.aspp_grad_weight(x, pg, rates))
+
+
+@pytest.mark.parametrize("b,hw,rates,f", [
+    (2, (65, 65), (6, 12, 18, 24), 64),   # the training shape
+    (1, (7, 30), (1, 2, 3, 9), 64),       # rate 9 leaves whole tiles empty
+    (3, (33, 17), (2, 20), 64),           # three images, most rows empty
+    (1, (9, 11), (1, 3), 32),             # a 192-wide tile spans two di
+])
+def test_aspp_grad_weight_skips_zero_rows_exactly(dev, gen, b, hw, rates, f):
+    """With the rates, each k tile walks only the image rows where its
+    columns of the packed G can be nonzero: the product is the plain one
+    (1e-3) and the same bits twice, over one partial per image."""
+    c = 256
+    x = torch.from_numpy(gen.random((b, *hw, c), np.float32)).to(
+        dev, torch.bfloat16)
+    g = torch.from_numpy(gen.standard_normal(
+        (b, *hw, len(rates) * f)).astype(np.float32)).to(dev, torch.bfloat16)
+    pg = grad_pack_plain(g, rates, f)
+    got = kernels.aspp_grad_weight(x, pg, rates)
+    torch.testing.assert_close(got, grad_weight_plain(x, pg), rtol=1e-3,
+                               atol=1e-3)
+    assert torch.equal(got, kernels.aspp_grad_weight(x, pg, rates))
 
 
 @pytest.mark.parametrize("c", [2048, 256], ids=["kernel_fwd", "shifted_fwd"])
@@ -338,13 +368,20 @@ def test_int8_mm_bf16_arm_matches_plain(dev, gen):
                                atol=1e-3)
 
 
-@pytest.mark.parametrize("shape,dil", [((2, 17, 33, 256, 256), 2),
-                                       ((1, 9, 130, 512, 512), 4),
-                                       ((2, 3, 5, 64, 128), 4)])
+@pytest.mark.parametrize("shape,dil", [
+    ((2, 17, 33, 256, 256), 2),
+    ((1, 9, 130, 512, 512), 4),
+    ((2, 3, 5, 64, 128), 4),        # smaller than the dilation; C = 64
+    ((1, 33, 17, 256, 256), 2),     # H = 1 mod 32, W = 1 mod 8, as 129 x 257
+    ((2, 65, 9, 512, 512), 4),      # the same edges at layer5's width
+    ((1, 40, 44, 192, 256), 20),    # taps staged one by one; C % 128 = 64
+])
 def test_int8_conv3x3_matches_plain(dev, gen, shape, dil):
     """The nine-tap accumulator bit for bit against a float64 conv of the
-    int8 values, including maps smaller than the dilation (every shifted
-    tap partly outside), and the dequantized bf16 form."""
+    int8 values, and the same bits on a second call; maps whose last patch
+    holds one row and one column, maps smaller than the dilation (every
+    shifted tap partly outside); the dequantized bf16 and fp32 forms bit
+    for bit too."""
     b, h, w, c, n = shape
     x, wt = _int8(gen, (b, h, w, c), dev), _int8(gen, (9, n, c), dev)
     before = kernels.int8_conv3x3.launches
@@ -352,11 +389,13 @@ def test_int8_conv3x3_matches_plain(dev, gen, shape, dil):
     torch.cuda.synchronize()
     assert kernels.int8_conv3x3.launches == before + 1
     assert torch.equal(got, int8_conv3x3_plain(x, wt, dil))
+    assert torch.equal(got, kernels.int8_conv3x3(x, wt, dil))
     sx = torch.tensor(2e-3, device=dev)
     sw = torch.from_numpy(gen.random(n, np.float32) * 1e-3 + 1e-5).to(dev)
-    assert torch.equal(
-        kernels.int8_conv3x3(x, wt, dil, sx, sw, torch.bfloat16),
-        int8_conv3x3_plain(x, wt, dil, sx, sw, torch.bfloat16))
+    for dtype in (torch.bfloat16, torch.float32):
+        assert torch.equal(
+            kernels.int8_conv3x3(x, wt, dil, sx, sw, dtype),
+            int8_conv3x3_plain(x, wt, dil, sx, sw, dtype))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

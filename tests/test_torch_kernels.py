@@ -237,9 +237,9 @@ def test_pack_weights_is_k_major_and_round_trips(rng, c, f, n_rates):
     np.testing.assert_array_equal(bias.numpy(), np.concatenate(biases))
 
 
-def _aspp_source_constant(name):
-    """``constexpr int <name> = <value>;`` of ``csrc/aspp.cu``."""
-    src = (_build.CSRC / "aspp.cu").read_text()
+def _source_constant(name, source="aspp"):
+    """``constexpr int <name> = <value>;`` of ``csrc/<source>.cu``."""
+    src = (_build.CSRC / f"{source}.cu").read_text()
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
@@ -270,7 +270,7 @@ def test_aspp_tile_plan_covers_every_output_once(b, h, w, f, n_rates):
     ``decode_item`` does, with the patch and tile sizes read from the
     source), clipped to the image as the epilogue clips it, writes every
     (batch, y, x, rate, channel) exactly once."""
-    ph, pw, bn = (_aspp_source_constant(n) for n in ("PH", "PW", "BN"))
+    ph, pw, bn = (_source_constant(n) for n in ("PH", "PW", "BN"))
     npy, npx, n_tiles = -(-h // ph), -(-w // pw), f // bn
     items = [_aspp_item(i, n_tiles, n_rates, npx, npy, ph, pw, bn)
              for i in range(b * npy * npx * n_rates * n_tiles)]
@@ -280,6 +280,83 @@ def test_aspp_tile_plan_covers_every_output_once(b, h, w, f, n_rates):
     assert (seen == 1).all()
     # rate and channel tile run fastest: a patch's items are neighbours
     assert items[0][:3] == items[n_rates * n_tiles - 1][:3]
+
+
+@pytest.mark.parametrize("b,h,w,n", [
+    (2, 129, 257, 256),         # layer4 at the serving grid
+    (2, 129, 257, 512),         # layer5
+    (2, 3, 5, 128),             # smaller than a patch
+    (1, 33, 17, 256),           # one row and one column past a patch
+    (1, 40, 44, 384),           # three channel tiles
+])
+def test_int8_conv3x3_grid_covers_every_output_once(b, h, w, n):
+    """``csrc/int8_mm.cu``'s conv: its launcher's item count, each item
+    decoded as ``decode_patch`` does (channel tile fastest) with the patch
+    and tile read from the source, clipped to the image as the epilogue
+    clips it, writes every (batch, y, x, channel) exactly once; and the
+    wrapper's channel limit is the kernel's tile."""
+    ph, pw, cn = (_source_constant(k, "int8_mm") for k in ("PH", "PW", "CN"))
+    assert kernels.int8._TILE_N == cn
+    npy, npx, n_tiles = -(-h // ph), -(-w // pw), n // cn
+    seen = np.zeros((b, h, w, n), np.int32)
+    for item in range(b * npy * npx * n_tiles):
+        p, tile = divmod(item, n_tiles)
+        p, px = divmod(p, npx)
+        bi, py = divmod(p, npy)
+        seen[bi, py * ph:(py + 1) * ph, px * pw:(px + 1) * pw,
+             tile * cn:(tile + 1) * cn] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("b,hw,rates,f", [
+    (2, (65, 65), (6, 12, 18, 24), 64),   # the training shape
+    (1, (7, 30), (1, 2, 3, 9), 64),       # rate 9 empties whole tiles
+    (3, (33, 17), (2, 20), 64),
+    (1, (9, 11), (1, 3), 32),             # a tile spans two di
+    (2, (5, 70), (4,), 16),               # one tile holds every tap
+    (1, (70, 65), (6, 12, 18, 24), 16),   # two partials of the image
+])
+def test_grad_weight_row_skipping_is_exact(rng, b, hw, rates, f):
+    """The weight gradient's k tiles (width, stage depth and partial size
+    read from ``csrc/aspp_bwd.cu``): the nonzero rows of each tile of the
+    packed G are one row range per image, and walking only that range, in
+    whole stages from its first row, one partial per CHUNK pixels of it
+    (the last stage reads on into rows where the tile is zero, or past
+    the image), sums to x^T G exactly with every pixel in one partial; at
+    the training shape ~15% of the rows are left out.  The wrapper's
+    partial size is the kernel's, and an image needs no more partials
+    than the wrapper makes room for."""
+    bn, bp, chunk = (_source_constant(k, "aspp_bwd")
+                     for k in ("BN", "BP", "CHUNK"))
+    assert taspp._DW_CHUNK == chunk and chunk % bp == 0
+    h, w = hw
+    x = rng.random((b, h * w, 8))
+    g = torch.from_numpy(rng.standard_normal((b, h, w, len(rates) * f)))
+    pg = taspp.grad_pack_plain(g, rates, f).numpy().reshape(b, h * w, -1)
+    k_cols = pg.shape[-1]
+    want = np.einsum("bqc,bqk->ck", x, pg)
+    got = np.zeros_like(want)
+    walked = 0
+    for k0 in range(0, k_cols, bn):
+        cols = slice(k0, k0 + bn)
+        live = pg[:, :, cols].reshape(b, h, -1).any(-1)     # (b, h)
+        assert (live == live[0]).all()
+        rows = np.flatnonzero(live[0])
+        lo, hi = (rows[0], rows[-1] + 1) if rows.size else (0, 0)
+        assert (rows == np.arange(lo, hi)).all()
+        for bi in range(b):
+            seen = np.zeros(h * w + bp, np.int32)
+            for s in range(-(-h * w // chunk)):
+                p0 = lo * w + s * chunk
+                for p in range(p0, min(hi * w, p0 + chunk), bp):
+                    assert p + bp <= p0 + chunk   # past the image: zeros
+                    seen[p:p + bp] += 1
+                    got[:, cols] += x[bi, p:p + bp].T @ pg[bi, p:p + bp, cols]
+            assert seen.max(initial=0) <= 1 and seen[lo * w:hi * w].all()
+            walked += (hi - lo) * w * min(bn, k_cols - k0)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-9)
+    if hw == (65, 65):
+        assert 0.13 < 1 - walked / (b * h * w * k_cols) < 0.17
 
 
 def test_library_hash_covers_shared_headers(tmp_path, monkeypatch):

@@ -1,13 +1,19 @@
-"""Time design variants of the two TMA + ``wgmma`` kernels on the card.
+"""Time design variants of the TMA + ``wgmma`` kernels on the card.
 
-    python tools/kernel_variants.py
+    python tools/kernel_variants.py [aspp] [int8_mm] [int8_conv3x3]
+                                    [aspp_grad_weight]
+
+(all four without arguments).
 
 A variant is the kernel's source with a few exact text substitutions (a
 smaller block, a persistent or a plain grid, taps staged one by one,
-another tile order, fewer stages, a load left out), compiled beside the shipped one and timed in
-turns with it at the main path's shapes: K2's forward at the serving and
-the training shape, ``int8_mm`` with its bf16 epilogue at the 1x1 conv
-shapes of a quant8 batch.  It answers "did this design step pay" with the
+another tile order or width, fewer stages, a load left out), compiled
+beside the shipped one and timed in turns with it at the main path's
+shapes: K2's forward at the serving and the training shape, ``int8_mm``
+with its bf16 epilogue at the 1x1 conv shapes of a quant8 batch,
+``int8_conv3x3`` with its bf16 epilogue at layer4's and layer5's 3x3
+shapes, ``aspp_grad_weight`` at the training shape (with its error
+against the fp32 product).  It answers "did this design step pay" with the
 card's numbers.  It is a development script: nothing of the port calls it
 and no test holds the kernels' sources to it.  A substitution whose anchor
 no longer occurs in the source raises when the script runs, so a variant
@@ -117,7 +123,122 @@ INT8_VARIANTS: Dict[str, Subs] = {
     "3_stages": [("constexpr int G_STAGES = 4;", "constexpr int G_STAGES = 3;")],
 }
 
-KERNELS = {"aspp": ASPP_VARIANTS, "int8_mm": INT8_VARIANTS}
+_CONV_RELEASE = """        wgmma_commit();
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(empty + stage);
+        if (++stage == C_STAGES)"""
+
+CONV_VARIANTS: Dict[str, Subs] = {
+    "shipped": [],
+    # one item per block: no overlap of an item's epilogue with the next
+    # item's loads
+    "one_item_per_block": [
+        ("  const int grid = items < sms ? (int)items : sms;\n"
+         "  int8_conv3x3_kernel", "  const int grid = (int)items;\n"
+         "  int8_conv3x3_kernel")],
+    # every m64 block and box of a tap that touches the image is processed
+    "no_block_skipping": [
+        ("      if (y + BOX_ROWS > 0 && y < H) live |= 1 << (4 * dyi + j);",
+         "      live |= 1 << (4 * dyi + j);")],
+    # every tap staged on its own (same patch, same ring)
+    "taps_one_by_one": [("const bool strip = dil <= MAX_STRIP_DIL;",
+                         "const bool strip = false;")],
+    # a stage held until the next one is issued, as the GEMM's ring does
+    "release_one_late": [
+        (_CONV_RELEASE, """        wgmma_commit();
+        if (prev >= 0) {
+          wgmma_wait<1>();
+          if (lane == 0) mbar_arrive(empty + prev);
+        }
+        prev = stage;
+        if (++stage == C_STAGES)"""),
+        ("      for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0;\n",
+         "      for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0;\n"
+         "      int prev = -1;\n"),
+        ("        if (++stage == C_STAGES) { stage = 0; phase ^= 1; }\n      });\n",
+         "        if (++stage == C_STAGES) { stage = 0; phase ^= 1; }\n      });\n"
+         "      wgmma_wait<0>();\n"
+         "      if (prev >= 0 && lane == 0) mbar_arrive(empty + prev);\n")],
+}
+
+# each stage's sums start from zero and are added into the accumulators in
+# round-to-nearest on the CUDA cores, the stage released when its batch is
+# done
+_DW_PROMOTE = [
+    ("    float acc[BN / 2];\n", "    float acc[BN / 2], sums[BN / 2];\n"),
+    ("""        wgmma_bf16_mn(acc, da + kk * (16 * 128 >> 4),
+                      db + kk * (16 * 128 >> 4), 1);
+      wgmma_commit();
+      if (prev >= 0) {
+        wgmma_wait<1>();             // the previous stage's batch is done
+        if (lane == 0) mbar_arrive(empty + prev);
+      }
+      prev = stage;
+""", """        wgmma_bf16_mn(sums, da + kk * (16 * 128 >> 4),
+                      db + kk * (16 * 128 >> 4), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(empty + stage);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += sums[i];
+""")]
+
+
+
+def _wgmma_bf16_mn(n: int) -> str:
+    """``hopper.cuh``'s ``wgmma_bf16_mn`` (m64n192k16, both operands
+    MN-major) at width n, for the variants with other k tiles: the header
+    holds only the width the kernel ships with."""
+    regs = n // 2
+    outs = ", ".join(f"%{i}" for i in range(regs))
+    binds = ", ".join(f'"+f"(d[{i}])' for i in range(regs))
+    return f"""namespace hopper {{
+__device__ __forceinline__ void wgmma_bf16_mn(float (&d)[{regs}],
+    uint64_t desc_a, uint64_t desc_b, int scale_d) {{
+  asm volatile(
+      "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{regs + 2}, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
+      "{{{outs}}}, %{regs}, %{regs + 1}, p, 1, 1, 1, 1;\\n}}\\n"
+      : {binds}
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}}
+}}  // namespace hopper
+"""
+
+
+def _dw_width(n: int) -> Subs:
+    """k tiles n wide, with the ``wgmma`` of that width."""
+    return [("constexpr int BN = 192;", f"constexpr int BN = {n};"),
+            ('#include "hopper.cuh"\n',
+             '#include "hopper.cuh"\n' + _wgmma_bf16_mn(n))]
+
+
+DW_VARIANTS: Dict[str, Subs] = {
+    "shipped": [],
+    # K2's remedy for wgmma's truncating sum
+    "promotion": _DW_PROMOTE,
+    "n128": _dw_width(128),
+    "n128_promotion": _dw_width(128) + _DW_PROMOTE,
+    # (48 KB stages: four fit)
+    "n256": _dw_width(256) + [("constexpr int STAGES = 5;",
+                               "constexpr int STAGES = 4;")],
+    # every pixel of every k tile (every tile then as long: natural order)
+    "no_row_skipping": [
+        ("  return lo < hi ? make_int2(lo, hi) : make_int2(0, 0);",
+         "  return make_int2(0, H);")],
+    # the k tiles in their natural order, not longest first
+    "natural_order": [("i > 0 && rows[i - 1] < r.y - r.x;",
+                       "i > 0 && false;")],
+    "4_stages": [("constexpr int STAGES = 5;", "constexpr int STAGES = 4;")],
+    "3_stages": [("constexpr int STAGES = 5;", "constexpr int STAGES = 3;")],
+}
+
+# kernel -> (source, its variants, its __global__ function)
+KERNELS = {"aspp": ("aspp", ASPP_VARIANTS, "aspp_kernel"),
+           "int8_mm": ("int8_mm", INT8_VARIANTS, "int8_gemm_kernel"),
+           "int8_conv3x3": ("int8_mm", CONV_VARIANTS, "int8_conv3x3_kernel"),
+           "aspp_grad_weight": ("aspp_bwd", DW_VARIANTS,
+                                "aspp_grad_weight_kernel")}
 RATES = (6, 12, 18, 24)
 ASPP_SHAPES = ((2, 129, 257, 2048, 64), (2, 65, 65, 2048, 64))
 PIXELS = 2 * 129 * 257
@@ -125,13 +246,16 @@ PIXELS = 2 * 129 * 257
 INT8_SHAPES = ((512, 256, 1), (512, 1024, 1), (256, 1024, 23),
                (1024, 256, 22), (1024, 512, 1), (1024, 2048, 1),
                (512, 2048, 3), (2048, 512, 2))
+# (channels, dilation, convs per quant8 batch) of layer4/5's 3x3 convs
+CONV_SHAPES = ((256, 2, 23), (512, 4, 3))
 
 
 def variant_source(kernel: str, name: str) -> str:
     """``csrc/<kernel>.cu`` with the variant's substitutions applied; each
     anchor must occur exactly as written."""
-    src = (_build.CSRC / f"{kernel}.cu").read_text()
-    for old, new in KERNELS[kernel][name]:
+    source, variants, _ = KERNELS[kernel]
+    src = (_build.CSRC / f"{source}.cu").read_text()
+    for old, new in variants[name]:
         if old not in src:
             raise ValueError(f"{kernel} variant {name}: anchor not in the "
                              f"source: {old[:60]!r}")
@@ -139,11 +263,24 @@ def variant_source(kernel: str, name: str) -> str:
     return src
 
 
+def _ptxas_summary(log: str, function: str) -> str:
+    """ptxas's stack frame and registers for each instantiation of the
+    ``__global__`` function in an nvcc build log."""
+    lines = log.splitlines()
+    found = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and function in line:
+            found.append("; ".join(
+                l.split(":", 1)[-1].strip() for l in lines[i + 1:i + 4]
+                if "stack frame" in l or "Used" in l))
+    return " | ".join(found) or "no ptxas report"
+
+
 def _build_variants(kernel: str, symbol: str, argtypes) -> dict:
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, name in enumerate(KERNELS[kernel]):
+    for i, name in enumerate(KERNELS[kernel][1]):
         cu = out_dir / f"{kernel}_{i}.cu"
         cu.write_text(variant_source(kernel, name))
         so = cu.with_suffix(".so")
@@ -155,6 +292,8 @@ def _build_variants(kernel: str, symbol: str, argtypes) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"{kernel} variant {name}:\n{log}")
+        print(f"{kernel} variant {name} build: "
+              f"{_ptxas_summary(log, KERNELS[kernel][2])}", flush=True)
         fn = getattr(ctypes.CDLL(str(so)), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -266,18 +405,130 @@ def time_int8(dev, gen) -> None:
           + ", ".join(f"{k} {v:.3f}" for k, v in total.items()), flush=True)
 
 
+def time_conv(dev, gen) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fns = _build_variants("int8_conv3x3", "int8_conv3x3",
+                          [ptr] * 5 + [i32] * 7 + [ptr])
+    stream = torch.cuda.current_stream().cuda_stream
+    b, h, w = 2, 129, 257
+    total = dict.fromkeys(list(fns) + ["bf16 cuDNN conv"], 0.0)
+    for c, dil, per_batch in CONV_SHAPES:
+        x = torch.randint(-127, 128, (b, h, w, c), generator=gen, device=dev,
+                          dtype=torch.int8)
+        wt = torch.randint(-127, 128, (9, c, c), generator=gen, device=dev,
+                           dtype=torch.int8)
+        sx = torch.tensor([2e-3], device=dev)
+        sw = torch.rand((c,), generator=gen, device=dev) * 1e-3 + 1e-5
+        outs = {}
+        for turn in range(2):
+            for name, fn in fns.items():
+                out = torch.zeros((b, h, w, c), dtype=torch.bfloat16,
+                                  device=dev)
+
+                def call():
+                    return fn(x.data_ptr(), wt.data_ptr(), out.data_ptr(),
+                              sx.data_ptr(), sw.data_ptr(), b, h, w, c, c,
+                              dil, 1, stream)
+
+                status = call()
+                torch.cuda.synchronize()
+                outs[name] = out
+                ms = _median_ms(call)
+                total[name] += ms * per_batch / 2
+                _report(f"int8_conv3x3 {b}x{h}x{w}x{c} d={dil} (x{per_batch}) "
+                        f"turn {turn}", name, status,
+                        _max_diff(out, outs["shipped"]), ms)
+        xc = torch.randn((b, c, h, w), generator=gen, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wc = (torch.randn((c, c, 3, 3), generator=gen, device=dev) * 0.02) \
+            .to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        lib = _median_ms(lambda: torch.nn.functional.conv2d(
+            xc, wc, padding=dil, dilation=dil))
+        total["bf16 cuDNN conv"] += lib * per_batch
+        print(f"int8_conv3x3 {b}x{h}x{w}x{c} d={dil}: bf16 cuDNN conv "
+              f"{lib:.4f} ms", flush=True)
+    print("int8_conv3x3, the 26 3x3 convs of a batch, ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in total.items()), flush=True)
+
+
+def time_grad_weight(dev, gen) -> None:
+    from scaleprotoseg_torch.kernels.aspp import (grad_pack_plain,
+                                                  grad_weight_plain)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fns = _build_variants("aspp_grad_weight", "aspp_grad_weight",
+                          [ptr] * 4 + [i32] * 11 + [ptr])
+    stream = torch.cuda.current_stream().cuda_stream
+    b, h, w, c, f = 2, 65, 65, 2048, 64
+    x = torch.rand((b, h, w, c), generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn((b, h, w, len(RATES) * f), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    pg = grad_pack_plain(g, RATES, f)
+    k = pg.shape[1]
+    want = grad_weight_plain(x, pg)
+    scale = want.abs().max().item()
+    work = torch.empty((b, c, k), dtype=torch.float32, device=dev)
+    outs = {}
+    for turn in range(2):
+        for name, fn in fns.items():
+            out = torch.zeros((c, k), dtype=torch.float32, device=dev)
+
+            def call():
+                return fn(x.data_ptr(), pg.data_ptr(), out.data_ptr(),
+                          work.data_ptr(), b, h, w, c, k, f, len(RATES),
+                          *RATES, stream)
+
+            status = call()
+            torch.cuda.synchronize()
+            outs[name] = out
+            err = (out - want).abs()
+            tol = (err - 1e-3 * want.abs()).max().item()
+            _report(f"aspp_grad_weight {b}x{h}x{w}x{c} K={k} turn {turn}",
+                    name, status, _max_diff(out, outs["shipped"]),
+                    _median_ms(call))
+            print(f"    error against the fp32 product: max "
+                  f"{err.max().item():.3g} ({err.max().item() / scale:.3g} of "
+                  f"dW's scale {scale:.4g}); max |err| - 1e-3 |want| "
+                  f"{tol:.3g} (within rtol = atol = 1e-3 when <= 1e-3)",
+                  flush=True)
+    x2, pg2 = x.reshape(-1, c), pg
+    mm = _median_ms(lambda: torch.mm(x2.t(), pg2, out_dtype=torch.float32)) \
+        if _has_out_dtype(x2, pg2) else None
+    bf = _median_ms(lambda: torch.matmul(x2.t(), pg2))
+    print(f"aspp_grad_weight yardsticks: one bf16 x bf16 -> fp32 GEMM "
+          f"{'not available' if mm is None else f'{mm:.4f} ms'}, "
+          f"torch.matmul (bf16 out) {bf:.4f} ms", flush=True)
+
+
+def _has_out_dtype(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether this PyTorch's ``torch.mm`` takes ``out_dtype``."""
+    try:
+        torch.mm(a[:8, :8].t(), b[:8, :8], out_dtype=torch.float32)
+        return True
+    except TypeError:
+        return False
+
+
+TIMERS = {"aspp": time_aspp, "int8_mm": time_int8,
+          "int8_conv3x3": time_conv, "aspp_grad_weight": time_grad_weight}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: CUDA is not available")
+    names = sys.argv[1:] or list(TIMERS)
+    unknown = set(names) - set(TIMERS)
+    if unknown:
+        raise SystemExit(f"kernel_variants: unknown kernels {sorted(unknown)}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
-    time_aspp(dev, gen)
-    time_int8(dev, gen)
+    for name in names:
+        TIMERS[name](dev, gen)
     print(smi, flush=True)
 
 
