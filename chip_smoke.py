@@ -14,8 +14,9 @@ Phases; any failure exits non-zero and prints no result:
    the fp32-accumulated plain form and the same bits on a second run,
    also at the training shape (2 x 65 x 65 x 2048) and at a ragged one
    (2 x 21 x 37 x 512: no multiple of the kernel's patch, smaller than
-   the largest rate), K1 rtol = atol = 1e-4 in fp32 with
-   TF32 off on the plain side, K3 labels equal wherever the plain
+   the largest rate), K1 rtol = atol = 1e-4 in fp32 with TF32 off on
+   the plain side (and against a float64 head: at pushed prototypes, and
+   its distances on a sparse probe), K3 labels equal wherever the plain
    version's top-two margin is at least 1e-5.  K2's backward at the
    training shapes (batch 2 at 65 x 65 x 2048): ``aspp_grad_pack`` bit
    for bit against the plain pack, ``aspp_grad_weight`` (called per
@@ -81,9 +82,9 @@ Phases; any failure exits non-zero and prints no result:
    loss within 1e-3, ASPP-weight and prototype gradients within 2e-2
    relative L2.  Finally ``push_final`` loads through ``load_model`` and
    serves one finite batch;
-6. one line per kernel with its times, bound and launches, for the four
-   kernels rebuilt on TMA + ``wgmma`` the earlier design's recorded times
-   beside the new ones, the card's name and power limit, the kernels
+6. one line per kernel with its times, bound and launches, for the six
+   kernels since redesigned the earlier design's recorded times beside
+   the new ones, the card's name and power limit, the kernels
    line (every kernel with its status),
    then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -122,7 +123,8 @@ from scaleprotoseg_torch.kernels.int8 import (absmax_plain,
                                               int8_conv3x3_plain,
                                               int8_mm_plain,
                                               quantize_int8_plain)
-from scaleprotoseg_torch.kernels.proto import pack_head, proto_plain
+from scaleprotoseg_torch.kernels.proto import (distance_error, pack_head,
+                                               proto_float64, proto_plain)
 from scaleprotoseg_torch.kernels.upsample import upsample_argmax_plain
 from scaleprotoseg_torch.model_loading import (calibrate_quant_scales,
                                                load_model, quant_sites)
@@ -166,6 +168,23 @@ deeplabv2_resnet101_features_multiscale.deeplab_n_features = 64
 deeplabv2_resnet101_features_multiscale.scales = []
 """
 
+# K1 against the float64 head (``proto_float64``).  At pushed prototypes
+# (every prototype a pixel's features, d = 0 there) the activation's slope,
+# -1e4, magnifies the fp32 rounding of |x|^2 - 2 x.p + |p|^2 in the kernel
+# and the plain head alike: the largest logit error allowed there, as a
+# share of the largest float64 logit (the head's exp sets the scale).  On the
+# sparse probe (features and prototypes non-zero on four coordinates a
+# scale, so that the cross term's error is the distance's) the largest
+# distance error, in units of fp32 rounding (``distance_error``).  Both
+# set from readings on an H100 (``tools/kernel_variants.py proto`` and this
+# script): at pushed prototypes the kernel 0.0097-0.011, the fp32 plain
+# head 0.0068-0.0075, a kernel with two bf16 pieces a prototype the same
+# as three (a pushed prototype is bf16: its lo piece is zero); on the
+# probe the kernel 1.45-1.51, the fp32 plain head 1.41-1.51, two pieces
+# 29.6.
+PROTO_PUSHED_RTOL = 2e-2
+PROTO_DISTANCE_ERR = 3.0
+
 # every pallas_call site of the repo is ported; a site still to port
 # would be listed here with its name and "replaces"
 STILL_TO_PORT = []
@@ -183,7 +202,7 @@ N_CALIB = 8
 N_CHECK_PLAIN = 16
 N_EVAL = 8
 
-# The earlier designs of the four kernels since rebuilt on TMA + wgmma, as
+# The earlier designs of the kernels since rebuilt, as
 # measured on NVIDIA H100 80GB HBM3 at 700 W (wrapper ms and profiler device
 # ms at the shapes of this script's rows; the 54 1x1 convs of a quant8
 # batch for int8_mm's path, layer4 beside layer5 for int8_conv3x3): printed
@@ -200,6 +219,10 @@ EARLIER_DESIGN = {
                          layer4_ms=0.193, layer4_device_ms=0.155),
     "aspp_grad_weight": dict(design="wmma 128 x 64 tile, cp.async ring",
                              ms=0.684, device_ms=0.618),
+    "proto": dict(design="one thread per pixel, fp32 FMA, bank staged "
+                  "64 rows at a time", ms=0.205, device_ms=0.172),
+    "upsample": dict(design="one thread per output pixel, gathered loads",
+                     ms=0.167, device_ms=0.134),
 }
 
 BWD = "scaleprotoseg_tpu/ops/pallas_aspp.py:319 fused_aspp_trainable bwd"
@@ -369,6 +392,7 @@ def check_proto(gen, dev) -> dict:
     want = proto_plain(feats, protos, None, spec, **kw)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     err = (got - want).abs().max().item()
+    check_proto_rounding(gen, dev, feats, spec, kw)
 
     # yardstick: the TPU kernel's block-diagonal matmul chain, in torch
     pd = torch.zeros((256, a), device=dev)
@@ -389,11 +413,23 @@ def check_proto(gen, dev) -> dict:
         act = torch.log((d + 1.0) / (d + EPSILON))
         return torch.exp(act @ gw_dense) @ glw
 
+    # The cross term x_s.p, fp32-accurate, is three bf16 products on the
+    # tensor cores (the fp32 prototype split into hi + mid + lo pieces):
+    # counted as three bf16 passes at the bf16 peak.  The rest (|x_s|^2,
+    # the distance and log, the group projection, exp and the last layer)
+    # runs on the fp32 pipes.  Bytes: each input read once, the logits
+    # written once.
     n = B * FH * FW
-    flops = n * (2 * 256 + a * (2 * 64 + 6) + a * g * 2 + c * g
-                 + c * g * c * 2)
-    moved = nbytes(feats, protos, gw, glw, got)
-    b_ms, b_by = bound(moved, flops, PEAK_FP32_FLOPS)
+    cross = n * a * 2 * 64
+    rest = n * (2 * 256 + a * 6 + a * g * 2 + c * g + c * g * c * 2)
+    t_ops = (3 * cross / PEAK_BF16_FLOPS + rest / PEAK_FP32_FLOPS) * 1e3
+    t_bytes = nbytes(feats, protos, gw, glw, got) / PEAK_BYTES_PER_S * 1e3
+    b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+        (t_ops, "operations")
+    log(f"proto bound: bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms "
+        f"(cross term as 3 bf16 passes {3 * cross / 1e9:.2f} GFLOP, fp32 "
+        f"rest {rest / 1e9:.3f} GFLOP); the cross term on the fp32 pipes "
+        f"alone {(cross + rest) / PEAK_FP32_FLOPS * 1e3:.4f} ms")
     return dict(
         name="proto", max_abs_err=err,
         device_ms=device_kernel_ms(lambda: kernels.fused_proto_logits(
@@ -403,6 +439,50 @@ def check_proto(gen, dev) -> dict:
         plain_ms=time_ms(lambda: proto_plain(feats, protos, None, spec,
                                              **kw)),
         library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+
+
+def check_proto_rounding(gen, dev, feats, spec, kw) -> None:
+    """K1 and the fp32 plain head against the float64 head: at pushed
+    prototypes (the group head of ``check_proto``), and the distance error
+    on the sparse probe under an identity plain head (the logits are the
+    activations)."""
+    n = feats.shape[0] * feats.shape[1] * feats.shape[2]
+    pushed = torch.empty((spec.num_prototypes, 64), device=dev)
+    at = torch.randint(0, n, (spec.num_prototypes,), generator=gen,
+                       device=dev)
+    flat = feats.reshape(n, -1)
+    for s, (lo, hi) in enumerate(spec.scale_bounds):
+        pushed[lo:hi] = flat[at[lo:hi], s * 64:(s + 1) * 64].float()
+    want = proto_float64(feats, pushed, None, spec, **kw)
+    scale = want.abs().max().item()
+    got = kernels.fused_proto_logits(feats, pushed, None, spec, **kw)
+    err = (got - want).abs().max().item() / scale
+    plain = (proto_plain(feats, pushed, None, spec, **kw) - want).abs() \
+        .max().item() / scale
+    log(f"proto at pushed prototypes, max |err| against the float64 head "
+        f"over its largest logit ({scale:.4g}): kernel {err:.3g}, fp32 plain "
+        f"head {plain:.3g} (limit {PROTO_PUSHED_RTOL:g})")
+    if not err <= PROTO_PUSHED_RTOL:
+        raise AssertionError(f"proto: {err:.3g} from the float64 head at "
+                             "pushed prototypes")
+
+    probe = ProtoSpec.equal_allocation(228, 64, num_classes=228)
+    x = torch.zeros(feats.shape[:3] + (4, 64), device=dev)
+    x[..., :4] = 0.5 + 0.5 * torch.rand(x[..., :4].shape, generator=gen,
+                                        device=dev)
+    x = x.flatten(-2).to(torch.bfloat16)
+    p = torch.zeros((228, 64), device=dev)
+    p[:, :4] = 0.5 + 0.5 * torch.rand((228, 4), generator=gen, device=dev)
+    eye = torch.eye(228, device=dev)
+    got = distance_error(kernels.fused_proto_logits(x, p, eye, probe), x, p,
+                         probe)
+    plain = distance_error(proto_plain(x, p, eye, probe), x, p, probe)
+    log(f"proto distance error on the sparse probe (units of fp32 "
+        f"rounding): kernel {got:.3g}, fp32 plain head {plain:.3g} (limit "
+        f"{PROTO_DISTANCE_ERR:g})")
+    if not got <= PROTO_DISTANCE_ERR:
+        raise AssertionError(f"proto: distance error {got:.3g} on the "
+                             "sparse probe")
 
 
 def check_upsample(gen, dev) -> dict:

@@ -5,12 +5,15 @@ low-resolution class logits (B, h, w, C) interpolated with
 align_corners=False to (height, width), W first then H as the TPU kernel
 does, and argmaxed over classes with the first maximum winning.
 
-Bound on the H100: a few microseconds either way (~9 MB moved, ~0.35
-GFLOP); the point is never to write the full-resolution fp32 logits
-(~318 MB at the flagship).  One thread per output pixel reads its two row
-and two column taps from tables built here from the nonzeros of
-``_bilinear_matrix``, so the weights are bit-equal to the matrix form,
-and writes the label as uint8 (int32 above 255 classes).
+Bound on the H100: operations (~0.35 GFLOP of fp32 at the flagship against
+~9 MB moved); the point is never to write the full-resolution fp32 logits
+(~318 MB).  A block owns a band of output rows by a span of output columns
+(``plan``), stages the source rows and columns their taps reach in shared
+memory, forms each source row's W interpolation once per output column and
+class, and keeps a running first maximum per output pixel.
+The taps come from tables built here from the nonzeros of
+``_bilinear_matrix``, so the weights are bit-equal to the matrix form; the
+labels leave as uint8 (int32 above 255 classes), 16 bytes at a time.
 
 ``fused_upsample_argmax`` launches the kernel for a CUDA tensor and runs
 ``upsample_argmax_plain`` for a CPU tensor.
@@ -27,6 +30,10 @@ import torch
 
 from scaleprotoseg_torch.kernels._build import check, library
 from scaleprotoseg_torch.ops.resize import _bilinear_matrix
+
+_BAND = 16                 # output rows per block (``BH`` in the source)
+_SPANS = (256, 128, 64, 32)  # output columns per block, widest first
+_SMEM_BUDGET = 96 * 1024   # staged bytes a block may take (two per SM)
 
 
 def label_dtype(num_classes: int) -> torch.dtype:
@@ -71,10 +78,37 @@ def upsample_argmax_plain(logits: torch.Tensor, height: int,
     return t3.argmax(dim=-1).to(label_dtype(c))
 
 
+def _reach(idx: np.ndarray, size: int) -> int:
+    """The most source indices one block of ``size`` consecutive outputs
+    reaches: taps are non-decreasing, so a block reads from the first
+    output's low tap to the last output's high tap."""
+    starts = np.arange(0, len(idx), size)
+    ends = np.minimum(starts + size, len(idx)) - 1
+    return int((idx[ends, 1] - idx[starts, 0]).max()) + 1
+
+
+@lru_cache(maxsize=256)
+def plan(h: int, w: int, height: int, width: int,
+         num_classes: int) -> Tuple[int, int, int]:
+    """(output columns per block, the most source rows a band reaches, the
+    most source columns a span reaches): the widest span whose staged
+    window fits the shared-memory budget."""
+    rows = _reach(interp_taps(height, h)[0], _BAND)
+    x_idx = interp_taps(width, w)[0]
+    for span in _SPANS:
+        cols = _reach(x_idx, span)
+        staged = rows * ((cols * num_classes + 6) // 4 * 4) * 4
+        if staged <= _SMEM_BUDGET:
+            return span, rows, cols
+    raise ValueError(f"fused_upsample_argmax: {num_classes} classes from "
+                     f"{h} x {w} to {height} x {width} need more shared "
+                     "memory than a block has")
+
+
 @lru_cache(maxsize=None)
 def _launcher():
     fn = library("upsample").upsample_argmax_forward
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -93,7 +127,11 @@ def fused_upsample_argmax(logits: torch.Tensor, height: int,
             or logits.dim() != 4:
         raise ValueError("fused_upsample_argmax: logits must be contiguous "
                          "fp32 (B, h, w, C)")
+    if logits.data_ptr() % 16:
+        raise ValueError("fused_upsample_argmax: logits must be 16-byte "
+                         "aligned")
     b, h, w, c = logits.shape
+    span, max_rows, max_cols = plan(h, w, height, width, c)
     yi, yw = _device_taps(height, h, logits.device)
     xi, xw = _device_taps(width, w, logits.device)
     dtype = label_dtype(c)
@@ -102,7 +140,7 @@ def fused_upsample_argmax(logits: torch.Tensor, height: int,
     status = _launcher()(logits.data_ptr(), yi.data_ptr(), yw.data_ptr(),
                          xi.data_ptr(), xw.data_ptr(), out.data_ptr(),
                          int(dtype == torch.int32), b, h, w, c, height,
-                         width, stream)
+                         width, span, max_rows, max_cols, stream)
     check(library("upsample"), status, "upsample_argmax_forward")
     fused_upsample_argmax.launches += 1
     return out

@@ -9,7 +9,10 @@ the JAX package's conftest:
 K2's forward and ``int8_mm``'s int8 arm are TMA + ``wgmma`` kernels: they
 build and run on ``sm_90a`` (H100/H200) only.  Tolerances as in
 ``chip_smoke.py``: K2 within 2 bf16 ulps of the fp32 accumulated plain
-form and the same bits on a second run, K1 rtol = atol = 1e-4 without TF32, K3 labels
+form and the same bits on a second run, K1 rtol = atol = 1e-4 without
+TF32 (and against the float64 head: at pushed prototypes within
+``PROTO_PUSHED_RTOL`` of the largest logit, its distances on a sparse
+probe within ``PROTO_DISTANCE_ERR`` units of fp32 rounding), K3 labels
 equal where the top-two margin is at least 1e-5; the int8 products and
 the quantize bit for bit, their bf16 epilogue within 1 bf16 ulp, the
 bf16 arm of ``int8_mm`` within rtol = 1e-4, atol = 1e-3 of the float32
@@ -28,13 +31,20 @@ from scaleprotoseg_torch.kernels.int8 import (absmax_plain,
                                               int8_conv3x3_plain,
                                               int8_mm_plain,
                                               quantize_int8_plain)
-from scaleprotoseg_torch.kernels.proto import proto_plain
+from scaleprotoseg_torch.kernels.proto import (distance_error,
+                                               proto_float64, proto_plain)
 from scaleprotoseg_torch.kernels.upsample import upsample_argmax_plain
 from scaleprotoseg_torch.ops.resize import resize_bilinear_matrix
 from scaleprotoseg_torch.serving.engine import ServingEngine
 from scaleprotoseg_torch.spec import ProtoSpec
 
 pytestmark = pytest.mark.cuda
+
+# K1 against the float64 head, as chip_smoke.py holds it: the largest
+# logit error at pushed prototypes over the largest float64 logit, the
+# largest distance error on the sparse probe (units of fp32 rounding)
+PROTO_PUSHED_RTOL = 2e-2
+PROTO_DISTANCE_ERR = 3.0
 
 
 @pytest.fixture
@@ -239,19 +249,23 @@ def test_aspp_forward_follows_optimizer_updates(dev, gen):
 
 
 @pytest.mark.parametrize("grouped", [False, True], ids=["plain", "group"])
-@pytest.mark.parametrize("bank", ["cityscapes", "ade20k"])
+@pytest.mark.parametrize("bank", ["cityscapes", "ade20k", "coco_stuff"])
 def test_proto_kernel_matches_plain(dev, gen, grouped, bank):
-    """Cityscapes' 228 prototypes with two pruned and class 4 emptied, and
-    ADE20K's 1800 over 150 classes: 450 rows per scale, so the kernel
-    stages each scale's bank in several chunks."""
+    """Cityscapes' 228 prototypes with two pruned and class 4 emptied,
+    ADE20K's 1800 over 150 classes and COCO-Stuff's 2054 (2052 active)
+    over 171: banks of 4 to 36 chunks, heads that run in several passes
+    over class or output-column windows."""
     g = 3 if grouped else 0
     if bank == "cityscapes":
         spec = ProtoSpec.equal_allocation(228, 64, num_classes=19,
                                           num_groups=g)
         spec = _without(spec, [3, 100] + [
             p for p, c in enumerate(spec.class_ids) if c == 4])
-    else:
+    elif bank == "ade20k":
         spec = ProtoSpec.equal_allocation(1800, 64, num_classes=150,
+                                          num_groups=g)
+    else:
+        spec = ProtoSpec.equal_allocation(2054, 64, num_classes=171,
                                           num_groups=g)
     c = spec.num_classes
     feats = torch.from_numpy(gen.random((2, 13, 17, 256), np.float32)).to(
@@ -276,6 +290,59 @@ def test_proto_kernel_matches_plain(dev, gen, grouped, bank):
                                rtol=1e-4, atol=1e-4)
 
 
+def _bank(name, groups):
+    if name == "cityscapes":
+        return ProtoSpec.equal_allocation(228, 64, num_classes=19,
+                                          num_groups=groups)
+    return ProtoSpec.equal_allocation(2054, 64, num_classes=171,
+                                      num_groups=groups)
+
+
+@pytest.mark.parametrize("bank", ["cityscapes", "coco_stuff"])
+def test_proto_kernel_at_pushed_prototypes(dev, gen, bank):
+    """Every prototype a pixel's features (d = 0 there, where the
+    activation's slope is -1e4): the group head's logits against the
+    float64 head."""
+    spec = _bank(bank, 3)
+    c, g = spec.num_classes, 3
+    feats = torch.from_numpy(gen.random((2, 13, 17, 256), np.float32)).to(
+        dev, torch.bfloat16)
+    flat = feats.reshape(-1, 256).float()
+    at = gen.integers(0, flat.shape[0], spec.num_prototypes)
+    protos = torch.stack([flat[i, s * 64:(s + 1) * 64] for s, (lo, hi) in
+                          enumerate(spec.scale_bounds) for i in at[lo:hi]])
+    mask = (spec.class_proto_index >= 0).astype(np.float32)
+    gw = gen.random((c, g, spec.max_protos_per_class)) * mask[:, None, :]
+    kw = dict(group_projection=torch.from_numpy(
+        (gw / gw.sum(-1, keepdims=True)).astype(np.float32)).to(dev),
+        last_layer_group=torch.from_numpy(gen.standard_normal(
+            (c * g, c)).astype(np.float32) * 0.1).to(dev))
+    got = kernels.fused_proto_logits(feats, protos, None, spec, **kw)
+    want = proto_float64(feats, protos, None, spec, **kw)
+    err = (got - want).abs().max() / want.abs().max()
+    assert err.item() <= PROTO_PUSHED_RTOL
+
+
+@pytest.mark.parametrize("bank", ["cityscapes", "coco_stuff"])
+def test_proto_kernel_distance_error(dev, gen, bank):
+    """The sparse probe (features and prototypes non-zero on four
+    coordinates a scale) under an identity plain head, whose logits are
+    the activations: the distances behind them within
+    ``PROTO_DISTANCE_ERR`` units of fp32 rounding of the float64 ones."""
+    a = _bank(bank, 0).num_active_prototypes
+    spec = ProtoSpec.equal_allocation(a, 64, num_classes=a)
+    x = np.zeros((2, 13, 17, 4, 64), np.float32)
+    x[..., :4] = 0.5 + 0.5 * gen.random((2, 13, 17, 4, 4))
+    feats = torch.from_numpy(x.reshape(2, 13, 17, 256)).to(dev,
+                                                            torch.bfloat16)
+    p = np.zeros((a, 64), np.float32)
+    p[:, :4] = 0.5 + 0.5 * gen.random((a, 4))
+    protos = torch.from_numpy(p).to(dev)
+    act = kernels.fused_proto_logits(feats, protos,
+                                     torch.eye(a, device=dev), spec)
+    assert distance_error(act, feats, protos, spec) <= PROTO_DISTANCE_ERR
+
+
 def test_proto_kernel_takes_bf16_features(dev, gen):
     spec = ProtoSpec.equal_allocation(228, 64, num_classes=19, num_groups=0)
     feats = torch.zeros((1, 3, 5, 256), device=dev)
@@ -294,6 +361,34 @@ def test_upsample_kernel_matches_plain(dev, gen):
     decided = ((top2[..., 0] - top2[..., 1]) >= 1e-5).cpu().numpy()
     assert got.dtype == np.uint8 and decided.mean() > 0.9
     np.testing.assert_array_equal(got[decided], want[decided])
+
+
+@pytest.mark.parametrize("shape,out_hw", [
+    ((2, 65, 65, 19), (513, 513)),     # an eval crop: rows start unaligned
+    ((1, 9, 11, 2), (70, 83)),         # two classes; ragged bands, spans
+    ((2, 33, 41, 171), (257, 330)),    # COCO-Stuff's classes
+    ((1, 5, 300, 7), (37, 2400)),      # spans of one band side by side
+])
+def test_upsample_kernel_shapes(dev, gen, shape, out_hw):
+    lg = torch.from_numpy(gen.standard_normal(shape).astype(
+        np.float32)).to(dev)
+    got = kernels.fused_upsample_argmax(lg, *out_hw).cpu().numpy()
+    want = upsample_argmax_plain(lg, *out_hw).cpu().numpy()
+    top2 = torch.topk(resize_bilinear_matrix(lg, *out_hw), 2, dim=-1)[0]
+    decided = ((top2[..., 0] - top2[..., 1]) >= 1e-5).cpu().numpy()
+    assert got.dtype == np.uint8 and decided.mean() > 0.9
+    np.testing.assert_array_equal(got[decided], want[decided])
+
+
+def test_upsample_kernel_int32_labels(dev, gen):
+    lg = torch.from_numpy(gen.standard_normal((1, 6, 7, 300)).astype(
+        np.float32)).to(dev)
+    got = kernels.fused_upsample_argmax(lg, 45, 53)
+    want = upsample_argmax_plain(lg, 45, 53)
+    assert got.dtype == torch.int32
+    top2 = torch.topk(resize_bilinear_matrix(lg, 45, 53), 2, dim=-1)[0]
+    decided = (top2[..., 0] - top2[..., 1]) >= 1e-5
+    assert torch.equal(got[decided], want[decided])
 
 
 def test_engine_times_the_device(dev):

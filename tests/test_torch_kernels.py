@@ -31,6 +31,7 @@ from scaleprotoseg_tpu.spec import ProtoSpec
 from scaleprotoseg_torch import kernels
 from scaleprotoseg_torch.kernels import _build
 from scaleprotoseg_torch.kernels import aspp as taspp
+from scaleprotoseg_torch.kernels import proto as tproto
 from scaleprotoseg_torch.kernels import upsample as tup
 from scaleprotoseg_torch.kernels.proto import pack_head, proto_plain
 from scaleprotoseg_torch.models import deeplab as tdeeplab
@@ -138,6 +139,171 @@ def test_pack_head_carries_the_head(rng, grouped, case):
     got = _logits_from_packed(feats, head, tspec)
     want = proto_plain(feats, protos, last, tspec, **tw)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _kernel_bank(case, grouped):
+    """Banks at the kernel's depth 64: the flagship's, the flagship's with
+    prototypes pruned from every scale (uneven scale sizes, class 4
+    empty), and COCO-Stuff's 2054 over 171 classes, whose group head needs
+    nine passes over class windows and whose bank (36 chunks, ~860 KB
+    split) streams through shared memory (the plain head: three passes
+    over output-column windows)."""
+    g = 3 if grouped else 0
+    if case == "large_bank":
+        return ProtoSpec.equal_allocation(2054, 64, num_classes=171,
+                                          num_groups=g)
+    spec = ProtoSpec.equal_allocation(228, 64, num_classes=19, num_groups=g)
+    if case == "pruned_bank":
+        spec = spec.prune([3, 60, 61, 130] + [
+            p for p, c in enumerate(spec.class_ids) if c == 4])
+    return spec
+
+
+def _emulate_proto_kernel(feats, head, spec, pieces=3):
+    """``csrc/proto.cu``'s arithmetic on the CPU, read from the packed head
+    alone: per step the cross term as the bf16 pieces' products (exact
+    products, lo first; ``pieces`` = 2 leaves lo out) summed and rounded
+    to fp32, the reference
+    formula for d and the activation, then the head tables walked as the
+    kernel walks them (group: each half of a chunk's entries adds into
+    registers and flushes a class run into its G scores; plain: each half
+    of the pass's output columns), and each pass's logits written or
+    added."""
+    x = feats.reshape(-1, spec.feature_depth).float()
+    n, c, g = x.shape[0], spec.num_classes, head.groups
+    k = head.columns.shape[0]
+    split = head.bank.reshape(k, 3, 64, 64).double()
+    table = head.table
+    out = torch.full((n, c), float("nan"))     # every logit written once
+    scores = None
+    for a0, q, e0, e1, e2, flags, win0, wins in head.steps.tolist():
+        xs = x[:, a0 * 64:(a0 + 1) * 64]
+        if flags & tproto.OPEN:
+            scores = torch.zeros((n, 64))
+        cross = sum(xs.double() @ split[q, pc].t()
+                    for pc in reversed(range(pieces)))
+        xn = (xs * xs).sum(-1, keepdim=True)
+        d = torch.relu((xn - 2.0 * cross.float()) + head.chunk_pn[q])
+        act = torch.log((d + 1.0) / (d + 1e-4))
+        if g:
+            for lo, hi in ((e0, e1), (e1, e2)):
+                acc = torch.zeros((n, 4))
+                for e in range(lo, hi):
+                    meta = int(table[e, 4:5].view(torch.int32))
+                    acc += act[:, meta & 63, None] * table[e, :4]
+                    if meta & 64:
+                        base = meta >> 8
+                        scores[:, base:base + g] += acc[:, :g]
+                        acc.zero_()
+        else:
+            kb = (wins + 1) // 2
+            blk = table[e0]
+            w = torch.cat([blk[:e1, 0, :kb], blk[:e1, 1, :wins - kb]], 1)
+            scores[:, :wins] += act[:, :e1] @ w
+        if flags & tproto.CLOSE:
+            if g:
+                o = torch.exp(scores[:, :wins]) @ \
+                    head.glw_pad[win0:win0 + wins, :c]
+                out = o if flags & tproto.WRITE else out + o
+            else:
+                out[:, win0:win0 + wins] = scores[:, :wins]
+    return out.reshape(*feats.shape[:-1], c)
+
+
+@pytest.mark.parametrize("grouped", [False, True], ids=["plain", "group"])
+@pytest.mark.parametrize("case", ["flagship_bank", "pruned_bank",
+                                  "large_bank"])
+def test_pack_head_splits_the_bank_exactly(rng, grouped, case):
+    """K1's split bank: three bf16 pieces per prototype that sum back to
+    the fp32 prototype (within 2^-24 relative), |p|^2 beside each column,
+    and every prototype the head reads in exactly one column per pass."""
+    spec = _kernel_bank(case, grouped)
+    tspec = port_spec(spec)
+    _, protos, weights = _proto_problem(rng, grouped, spec, (1, 1))
+    tw = {k: torch.from_numpy(v) for k, v in weights.items()}
+    head = pack_head(torch.from_numpy(protos), tw.pop("last_layer", None),
+                     tspec, **tw)
+    assert head.bank.dtype == torch.bfloat16
+    k = head.columns.shape[0]
+    assert head.bank.shape == (k * 3 * 64, 64)
+    cols = head.columns.numpy()
+    valid = cols >= 0
+    summed = head.bank.double().reshape(k, 3, 64, 64).sum(1).numpy()
+    want = np.where(valid[..., None], protos[np.maximum(cols, 0)], 0.0)
+    np.testing.assert_allclose(summed, want, rtol=2.0 ** -24, atol=0)
+    np.testing.assert_allclose(
+        head.chunk_pn.numpy(),
+        np.where(valid, (protos.astype(np.float64) ** 2).sum(-1)[
+            np.maximum(cols, 0)], 0.0), rtol=1e-6)
+    steps = head.steps.numpy()
+    passes = np.cumsum(steps[:, 5] & tproto.OPEN > 0)
+    a = tspec.num_active_prototypes
+    reads = [p for p in range(a) if tspec.class_ids[p] >= 0 or not grouped]
+    for pi in np.unique(passes):
+        seen = np.concatenate([cols[q][cols[q] >= 0]
+                               for q in steps[passes == pi, 1]])
+        assert len(seen) == len(set(seen.tolist()))
+        if not grouped:
+            assert sorted(seen.tolist()) == reads
+    if grouped:
+        seen = np.concatenate([cols[q][cols[q] >= 0] for q in steps[:, 1]])
+        assert sorted(seen.tolist()) == reads
+
+
+@pytest.mark.parametrize("grouped", [False, True], ids=["plain", "group"])
+@pytest.mark.parametrize("case", ["flagship_bank", "pruned_bank",
+                                  "large_bank"])
+def test_split_cross_term_matches_pallas(rng, grouped, case):
+    """The split-bank cross term pushed through K1's formula and tables
+    (``_emulate_proto_kernel``) against the JAX package's Pallas kernel
+    in interpret mode, rtol = atol = 1e-4 (the card's tolerance)."""
+    spec = _kernel_bank(case, grouped)
+    tspec = port_spec(spec)
+    feats, protos, weights = _proto_problem(rng, grouped, spec, (3, 5))
+    feats = feats.astype(jnp.bfloat16).astype(np.float32)   # bf16 input
+    _, want = _proto_pair(feats, protos, spec, weights)
+    tw = {k: torch.from_numpy(v) for k, v in weights.items()}
+    head = pack_head(torch.from_numpy(protos), tw.pop("last_layer", None),
+                     tspec, **tw)
+    got = _emulate_proto_kernel(torch.from_numpy(feats), head, tspec)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("grouped", [False, True], ids=["plain", "group"])
+def test_proto_float64_matches_pallas(rng, grouped):
+    """The float64 head, the yardstick of K1's rounding, computes the
+    Pallas kernel's function (interpret mode)."""
+    spec = _kernel_bank("pruned_bank", grouped)
+    feats, protos, weights = _proto_problem(rng, grouped, spec, (3, 5))
+    _, want = _proto_pair(feats, protos, spec, weights)
+    tw = {k: torch.from_numpy(v) for k, v in weights.items()}
+    got = tproto.proto_float64(torch.from_numpy(feats),
+                               torch.from_numpy(protos),
+                               tw.pop("last_layer", None), port_spec(spec),
+                               **tw)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_distance_error_tells_two_bf16_pieces_from_three(rng):
+    """On the sparse probe (features and prototypes non-zero on four
+    coordinates a scale, under an identity plain head) the split cross
+    term with three pieces reads within fp32 rounding of the float64
+    distances, and one that leaves the lo piece out reads far off: the
+    probe that holds the kernel's precision on the card."""
+    a = 228
+    spec = port_spec(ProtoSpec.equal_allocation(a, 64, num_classes=a))
+    x = np.zeros((1, 24, 25, 4, 64), np.float32)
+    x[..., :4] = 0.5 + 0.5 * rng.random((1, 24, 25, 4, 4))
+    feats = torch.from_numpy(x.reshape(1, 24, 25, 256)).bfloat16().float()
+    p = np.zeros((a, 64), np.float32)
+    p[:, :4] = 0.5 + 0.5 * rng.random((a, 4))
+    protos = torch.from_numpy(p)
+    head = pack_head(protos, torch.eye(a), spec)
+    three, two = (tproto.distance_error(
+        _emulate_proto_kernel(feats, head, spec, pieces), feats, protos,
+        spec) for pieces in (3, 2))
+    assert three <= 2.0 and two >= 16.0, (three, two)
 
 
 # ---------------------------------------------------------------------------
@@ -431,3 +597,38 @@ def test_upsample_label_dtype_widens_past_255_classes(rng):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(
         got.numpy(), tup.upsample_argmax_plain(torch.from_numpy(lg), 8, 8))
+
+
+@pytest.mark.parametrize("hw,out_hw,c", [
+    ((129, 257), (1024, 2048), 19),    # the flagship
+    ((65, 65), (513, 513), 19),        # a 513 x 513 eval crop
+    ((65, 65), (513, 513), 171),       # COCO-Stuff's classes
+    ((17, 23), (131, 187), 2),         # odd sizes: ragged bands and spans
+])
+def test_upsample_band_plan_covers_every_output_once(hw, out_hw, c):
+    """``csrc/upsample.cu``'s blocks (band height read from the source,
+    span width from ``plan``): every output pixel belongs to one block;
+    the taps never step back, so the source rows and columns the pixels
+    of a block reach form one window from their least to their greatest
+    tap, and that window is no larger than the planned counts; the
+    planned window fits a block's shared memory."""
+    (h, w), (hh, ww) = hw, out_hw
+    band = _source_constant("BH", "upsample")
+    assert band == tup._BAND
+    span, max_rows, max_cols = tup.plan(h, w, hh, ww, c)
+    assert span % 32 == 0 and span <= _source_constant("THREADS_MAX",
+                                                       "upsample")
+    assert max_rows * ((max_cols * c + 6) // 4 * 4) * 4 <= 232448
+    yi, _ = tup.interp_taps(hh, h)
+    xi, _ = tup.interp_taps(ww, w)
+    for idx in (yi, xi):
+        assert (np.diff(idx, axis=0) >= 0).all()
+    seen = np.zeros((hh, ww), np.int32)
+    for y0 in range(0, hh, band):
+        rows = yi[y0:y0 + band]
+        assert rows.max() - rows.min() + 1 <= max_rows
+        for x0 in range(0, ww, span):
+            cols = xi[x0:x0 + span]
+            assert cols.max() - cols.min() + 1 <= max_cols
+            seen[y0:y0 + band, x0:x0 + span] += 1
+    assert (seen == 1).all()

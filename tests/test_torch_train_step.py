@@ -101,7 +101,7 @@ def _names(tree, spec):
                                      log=lambda _: None)
 
 
-@pytest.mark.parametrize("phase", [0, 1], ids=["warmup", "joint"])
+@pytest.mark.parametrize("phase", [0, 1, 2], ids=["warmup", "joint", "last"])
 def test_train_step_matches_jax(phase):
     model, spec, variables, tm = _pair()
     tspec = port_spec(spec)

@@ -1,9 +1,12 @@
-"""Time design variants of the TMA + ``wgmma`` kernels on the card.
+"""Time design variants of the port's redesigned kernels on the card.
 
     python tools/kernel_variants.py [aspp] [int8_mm] [int8_conv3x3]
-                                    [aspp_grad_weight]
+                                    [aspp_grad_weight] [proto] [upsample]
+                                    [--proto-baseline OLD/csrc/proto.cu]
 
-(all four without arguments).
+(all six without arguments).  ``--proto-baseline`` adds K1's
+one-thread-per-pixel design, from an older commit's source, to K1's
+turns, launched on the same inputs as its wrapper launched it.
 
 A variant is the kernel's source with a few exact text substitutions (a
 smaller block, a persistent or a plain grid, taps staged one by one,
@@ -13,9 +16,14 @@ shapes: K2's forward at the serving and the training shape, ``int8_mm``
 with its bf16 epilogue at the 1x1 conv shapes of a quant8 batch,
 ``int8_conv3x3`` with its bf16 epilogue at layer4's and layer5's 3x3
 shapes, ``aspp_grad_weight`` at the training shape (with its error
-against the fp32 product).  It answers "did this design step pay" with the
-card's numbers.  It is a development script: nothing of the port calls it
-and no test holds the kernels' sources to it.  A substitution whose anchor
+against the fp32 product), K1 (``proto``) at the flagship's serving shape
+and at COCO-Stuff's bank (with each variant's error against the fp32 and
+the float64 plain head, also at pushed prototypes, where d ~ 0, and its
+distance error under an identity head), K3 (``upsample``) at the
+flagship's serving shape and a 513 x 513 crop.  It answers "did this
+design step pay" with the card's numbers.  It is a development script:
+nothing of the port calls it and no test holds the kernels' sources to
+it.  A substitution whose anchor
 no longer occurs in the source raises when the script runs, so a variant
 cannot silently time the shipped kernel; after an edit near an anchor,
 bring the anchor up to date or drop the variant.
@@ -25,6 +33,7 @@ Variants marked ``timing_only`` compute something else than the kernel
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import math
 import statistics
@@ -234,11 +243,75 @@ DW_VARIANTS: Dict[str, Subs] = {
 }
 
 # kernel -> (source, its variants, its __global__ function)
+PROTO_VARIANTS: Dict[str, Subs] = {
+    "shipped": [],
+    # one consumer warpgroup: no second tile to run while one waits
+    "one_warpgroup": [("constexpr int CONSUMER_WGS = 2;",
+                       "constexpr int CONSUMER_WGS = 1;")],
+    # three consumer warpgroups and a producer warp (no register
+    # rebalancing), the bank streamed through two chunk slots and two
+    # feature slabs per warpgroup to make room in shared memory
+    "3_warpgroups": [
+        ("constexpr int CONSUMER_WGS = 2;", "constexpr int CONSUMER_WGS = 3;"),
+        ("constexpr int THREADS = 128 * (CONSUMER_WGS + 1);",
+         "constexpr int THREADS = 128 * CONSUMER_WGS + 32;"),
+        ("constexpr int X_SLOTS = 3;", "constexpr int X_SLOTS = 2;"),
+        ("constexpr int BANK_SLOTS = 4;", "constexpr int BANK_SLOTS = 2;"),
+        ("    reg_dealloc<40>();\n", ""),
+        ("  reg_alloc<232>();\n", "")],
+    # hi + mid only: a 16-bit prototype (error, not a candidate)
+    "2_pieces": [
+        ("for (int p = PIECES - 1; p >= 0; --p) {",
+         "for (int p = PIECES - 2; p >= 0; --p) {"),
+        ("p < PIECES - 1 || kk > 0", "p < PIECES - 2 || kk > 0")],
+    # what the IEEE division and logf cost (MUFU approximations instead)
+    "fast_log_div": [("  return logf(q);", "  return __logf(__fdividef(x, y));")],
+    # the library's division (with its slow-path check and call)
+    "fdiv_rn": [("  if (d < 1e30f) {\n    float rcp;",
+                 "  if (d < 0.f) {\n    float rcp;")],
+    # parts left out, to price them
+    "no_wgmma(timing_only)": [
+        ("for (int kk = 0; kk < D / 16; ++kk)\n          wgmma_m64n64k16_bf16(",
+         "for (int kk = 0; kk < 0; ++kk)\n          wgmma_m64n64k16_bf16(")],
+    "no_log_div(timing_only)": [
+        ("acc[4 * i + j] = log_activation(d, eps);", "acc[4 * i + j] = d;")],
+    "no_head_walk(timing_only)": [("int k = lo;", "int k = hi;")],
+    "no_logits(timing_only)": [
+        ("if (flags & CLOSE) {", "if ((flags & CLOSE) && flags < 0) {")],
+}
+
+UPSAMPLE_VARIANTS: Dict[str, Subs] = {
+    "shipped": [],
+    "band_8": [("constexpr int BH = 16;", "constexpr int BH = 8;")],
+    "band_32": [("constexpr int BH = 16;", "constexpr int BH = 32;")],
+    "classes_8_at_a_time": [("constexpr int CK = 4;", "constexpr int CK = 8;")],
+    "2_blocks_per_sm": [("constexpr int MIN_BLOCKS = 3;",
+                         "constexpr int MIN_BLOCKS = 2;")],
+    "4_blocks_per_sm": [("constexpr int MIN_BLOCKS = 3;",
+                         "constexpr int MIN_BLOCKS = 4;")],
+    # parts left out, to price them
+    "no_staging(timing_only)": [
+        ("for (int k = 0; k < nrows; ++k) {\n    const long e0",
+         "for (int k = 0; k < 0; ++k) {\n    const long e0")],
+    "no_argmax(timing_only)": [
+        ("    for (int c0 = 0; c0 < C; c0 += CK) {\n      if (c0 + CK <= C)",
+         "    for (int c0 = 0; c0 < 0; c0 += CK) {\n      if (c0 + CK <= C)")],
+    "no_label_stores(timing_only)": [
+        ("for (int i = tid; i < bh * per_row; i += BW) {",
+         "for (int i = tid; i < 0; i += BW) {"),
+        ("for (int i = tid; i < bh * 32; i += BW) {",
+         "for (int i = tid; i < 0; i += BW) {")],
+}
+UPSAMPLE_BANDS = {"band_8": 8, "band_32": 32}   # output rows per block
+
 KERNELS = {"aspp": ("aspp", ASPP_VARIANTS, "aspp_kernel"),
            "int8_mm": ("int8_mm", INT8_VARIANTS, "int8_gemm_kernel"),
            "int8_conv3x3": ("int8_mm", CONV_VARIANTS, "int8_conv3x3_kernel"),
            "aspp_grad_weight": ("aspp_bwd", DW_VARIANTS,
-                                "aspp_grad_weight_kernel")}
+                                "aspp_grad_weight_kernel"),
+           "proto": ("proto", PROTO_VARIANTS, "proto_kernel"),
+           "upsample": ("upsample", UPSAMPLE_VARIANTS,
+                        "upsample_argmax_kernel")}
 RATES = (6, 12, 18, 24)
 ASPP_SHAPES = ((2, 129, 257, 2048, 64), (2, 65, 65, 2048, 64))
 PIXELS = 2 * 129 * 257
@@ -499,6 +572,205 @@ def time_grad_weight(dev, gen) -> None:
           f"torch.matmul (bf16 out) {bf:.4f} ms", flush=True)
 
 
+def _proto_case(dev, gen, spec, pixels, kind):
+    """bf16 features, fp32 prototypes and a group head, or an identity
+    plain head where the spec has no groups.  ``kind``: ``random``;
+    ``pushed``, every prototype a copy of one pixel's features (d = 0
+    there, as after a push, where the activation's slope is -1e4);
+    ``sparse``, features and prototypes non-zero on four coordinates a
+    scale (|x_s|^2 exact in fp32: the distance's error is the cross
+    term's)."""
+    from scaleprotoseg_torch.kernels.proto import pack_head
+    c, g = spec.num_classes, spec.num_groups
+    feats = torch.rand((pixels, spec.feature_depth), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    if kind == "sparse":
+        feats = torch.zeros((pixels, spec.num_scales, 64), device=dev)
+        feats[..., :4] = 0.5 + 0.5 * torch.rand(
+            (pixels, spec.num_scales, 4), generator=gen, device=dev)
+        feats = feats.flatten(1).to(torch.bfloat16)
+        protos = torch.zeros((spec.num_prototypes, 64), device=dev)
+        protos[:, :4] = 0.5 + 0.5 * torch.rand(
+            (spec.num_prototypes, 4), generator=gen, device=dev)
+    elif kind == "pushed":
+        protos = torch.empty((spec.num_prototypes, 64), device=dev)
+        at = torch.randint(0, pixels, (spec.num_prototypes,), generator=gen,
+                           device=dev)
+        for s, (lo, hi) in enumerate(spec.scale_bounds):
+            protos[lo:hi] = feats[at[lo:hi], s * 64:(s + 1) * 64].float()
+    else:
+        protos = torch.rand((spec.num_prototypes, 64), generator=gen,
+                            device=dev)
+    if not g:    # an identity plain head: the logits are the activations
+        kw = dict(last_layer=torch.eye(spec.num_prototypes, device=dev))
+        return feats, protos, kw, pack_head(protos, kw["last_layer"], spec)
+    gw = torch.rand((c, g, spec.max_protos_per_class), generator=gen,
+                    device=dev) + 1e-3
+    gw = gw / gw.sum(-1, keepdim=True)
+    glw = torch.randn((c * g, c), generator=gen, device=dev) * \
+        math.sqrt(2.0 / (c * g))
+    kw = dict(last_layer=None, group_projection=gw, last_layer_group=glw)
+    return feats, protos, kw, pack_head(protos, spec=spec, **kw)
+
+
+def _proto_baseline(path: str):
+    """K1's one-thread-per-pixel design (``csrc/proto.cu`` of an older
+    commit, at ``path``), built, and a function that launches it on a
+    packed head as its wrapper did: (features, head, spec, out) ->
+    status."""
+    so = _build.BUILD_DIR / "variants" / "proto_baseline.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                           path], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"proto baseline {path}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    print(f"proto baseline build: "
+          f"{_ptxas_summary(proc.stdout + proc.stderr, 'proto_kernel')}",
+          flush=True)
+    fn = ctypes.CDLL(str(so)).proto_forward
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + \
+        [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(feats, head, spec, out):
+        from scaleprotoseg_torch.ops.prototype import EPSILON
+        a, c, g = spec.num_active_prototypes, spec.num_classes, head.groups
+        dev = feats.device
+        bounds = torch.tensor([lo for lo, _ in spec.scale_bounds] + [a],
+                              dtype=torch.int32, device=dev)
+        cls = torch.tensor(spec.class_ids[:a], dtype=torch.int32,
+                           device=dev)
+        fixed = 64 * (64 + 2 + (g or c))      # shared words: bank chunk
+        per_thread = c * g + c if g else c    # shared words: one pixel
+        threads = next(t for t in (128, 64, 32)
+                       if (fixed + per_thread * t) * 4 <= 232448)
+        return fn(feats.data_ptr(), head.protos.data_ptr(),
+                  head.pnorm.data_ptr(), bounds.data_ptr(), cls.data_ptr(),
+                  head.head_w.data_ptr(), head.glw.data_ptr(),
+                  out.data_ptr(), feats.shape[0], spec.num_scales, c, g,
+                  EPSILON, threads, torch.cuda.current_stream().cuda_stream)
+
+    return launch
+
+
+def time_proto(dev, gen, baseline=None) -> None:
+    """K1's variants (and, with ``baseline``, the design of an older
+    commit) in turns at the flagship's and COCO-Stuff's banks, random and
+    pushed, each with its error against the fp32 plain head and against
+    the float64 one; then each variant's distance error
+    (``distance_error``) under an identity plain head at the flagship's
+    bank, on the sparse probe and at pushed prototypes."""
+    from scaleprotoseg_torch.kernels.proto import (distance_error,
+                                                   proto_float64,
+                                                   proto_plain)
+    from scaleprotoseg_torch.ops.prototype import EPSILON
+    from scaleprotoseg_torch.spec import ProtoSpec
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fns = _build_variants("proto", "proto_forward",
+                          [ptr] * 7 + [i32] * 7 + [ctypes.c_float, ptr])
+    stream = torch.cuda.current_stream().cuda_stream
+    base = None if baseline is None else _proto_baseline(baseline)
+    flagship = ProtoSpec.equal_allocation(228, 64, 19, num_groups=3)
+    coco = ProtoSpec.equal_allocation(2054, 64, 171, num_groups=3)
+    identity = ProtoSpec.equal_allocation(228, 64, 228, num_groups=0)
+    cases = [("flagship", flagship, PIXELS, "random"),
+             ("flagship", flagship, PIXELS, "pushed"),
+             ("coco_stuff", coco, 2 * 65 * 65, "random"),
+             ("coco_stuff", coco, 2 * 65 * 65, "pushed"),
+             ("identity_head", identity, PIXELS, "sparse"),
+             ("identity_head", identity, PIXELS, "pushed")]
+    for label, spec, n, kind in cases:
+        feats, protos, kw, head = _proto_case(dev, gen, spec, n, kind)
+        c = spec.num_classes
+        x4 = feats[None, None]
+        want = proto_plain(x4, protos, **kw, spec=spec).reshape(n, c)
+        want64 = proto_float64(x4, protos, **kw, spec=spec).reshape(n, c)
+        what = f"proto {label} {n} px {kind}"
+        line = (f"{what} fp32 plain head: max |err| against float64 "
+                f"{(want - want64).abs().max().item():.3g} (float64 logits "
+                f"up to {want64.abs().max().item():.4g})")
+        if not head.groups:
+            line += (f", distance error "
+                     f"{distance_error(want, feats, protos, spec):.3g} "
+                     f"(units of 2^-24 (|x_s| + |p|)^2)")
+        print(line, flush=True)
+        calls = {}
+        for name, fn in fns.items():
+            calls[name] = (lambda fn=fn, out=None: fn(
+                feats.data_ptr(), head.bank.data_ptr(), head.steps.data_ptr(),
+                head.chunk_pn.data_ptr(), head.table.data_ptr(),
+                head.glw_pad.data_ptr(), out.data_ptr(), n, spec.num_scales,
+                head.steps.shape[0], head.columns.shape[0], c, head.groups,
+                head.glw_pad.shape[1], EPSILON, stream))
+        if base is not None:
+            calls["baseline"] = lambda out=None: base(feats, head, spec, out)
+        outs = {}
+        for turn in range(2 if kind == "random" else 1):
+            for name, call in calls.items():
+                out = torch.zeros((n, c), device=dev)
+                status = call(out=out)
+                torch.cuda.synchronize()
+                outs[name] = out
+                err = (out - want).abs()
+                tol = (err - 1e-4 * want.abs()).max().item()
+                same = "" if "timing_only" in name else \
+                    f"max |difference| from shipped " \
+                    f"{_max_diff(out, outs['shipped']):g}, "
+                line = (f"{what} turn {turn} {name}: status {status}, {same}"
+                        f"max |err| {err.max().item():.3g}, max |err| - "
+                        f"1e-4 |want| {tol:.3g} (within rtol = atol = 1e-4 "
+                        f"when <= 1e-4), max |err| against float64 "
+                        f"{(out - want64).abs().max().item():.3g}")
+                if head.groups:
+                    ms = _median_ms(lambda: call(out=out))
+                    line += f", median {ms:.4f} ms"
+                elif "timing_only" not in name:
+                    line += (f", distance error "
+                             f"{distance_error(out, feats, protos, spec):.3g}")
+                print(line, flush=True)
+
+
+def time_upsample(dev, gen) -> None:
+    from scaleprotoseg_torch.kernels import upsample as tup
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fns = _build_variants("upsample", "upsample_argmax_forward",
+                          [ptr] * 6 + [i32] * 10 + [ptr])
+    stream = torch.cuda.current_stream().cuda_stream
+    for b, h, w, c, hh, ww in ((2, 129, 257, 19, 1024, 2048),
+                               (2, 65, 65, 19, 513, 513)):
+        lg = torch.randn((b, h, w, c), generator=gen, device=dev)
+        yi, yw = (torch.as_tensor(t, device=dev)
+                  for t in tup.interp_taps(hh, h))
+        xi, xw = (torch.as_tensor(t, device=dev)
+                  for t in tup.interp_taps(ww, w))
+        outs = {}
+        for turn in range(2):
+            for name, fn in fns.items():
+                for span in (256, 128):
+                    band = UPSAMPLE_BANDS.get(name, tup._BAND)
+                    rows = tup._reach(yi.cpu().numpy(), band)
+                    cols = tup._reach(xi.cpu().numpy(), span)
+                    out = torch.zeros((b, hh, ww), dtype=torch.uint8,
+                                      device=dev)
+
+                    def call():
+                        return fn(lg.data_ptr(), yi.data_ptr(), yw.data_ptr(),
+                                  xi.data_ptr(), xw.data_ptr(),
+                                  out.data_ptr(), 0, b, h, w, c, hh, ww,
+                                  span, rows, cols, stream)
+
+                    status = call()
+                    torch.cuda.synchronize()
+                    key = f"{name} span {span}"
+                    outs[key] = out
+                    diff = (out != outs["shipped span 256"]).sum().item()
+                    print(f"upsample {b}x{h}x{w}x{c} -> {hh}x{ww} turn "
+                          f"{turn} {key}: status {status}, {diff} labels "
+                          f"differ from shipped, median "
+                          f"{_median_ms(call):.4f} ms", flush=True)
+
+
 def _has_out_dtype(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Whether this PyTorch's ``torch.mm`` takes ``out_dtype``."""
     try:
@@ -509,13 +781,22 @@ def _has_out_dtype(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 TIMERS = {"aspp": time_aspp, "int8_mm": time_int8,
-          "int8_conv3x3": time_conv, "aspp_grad_weight": time_grad_weight}
+          "int8_conv3x3": time_conv, "aspp_grad_weight": time_grad_weight,
+          "proto": time_proto, "upsample": time_upsample}
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: CUDA is not available")
-    names = sys.argv[1:] or list(TIMERS)
+    args = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    args.add_argument("kernels", nargs="*", metavar="KERNEL",
+                      help=f"any of {', '.join(TIMERS)} (default: all)")
+    args.add_argument("--proto-baseline", metavar="PROTO_CU",
+                      help="csrc/proto.cu of an older commit (the one-"
+                      "thread-per-pixel design), timed in turns with K1's "
+                      "variants")
+    args = args.parse_args()
+    names = args.kernels or list(TIMERS)
     unknown = set(names) - set(TIMERS)
     if unknown:
         raise SystemExit(f"kernel_variants: unknown kernels {sorted(unknown)}")
@@ -528,7 +809,10 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(0)
     for name in names:
-        TIMERS[name](dev, gen)
+        if name == "proto":
+            time_proto(dev, gen, args.proto_baseline)
+        else:
+            TIMERS[name](dev, gen)
     print(smi, flush=True)
 
 
