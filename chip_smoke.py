@@ -15,8 +15,9 @@ Phases; any failure exits non-zero and prints no result:
    also at the training shape (2 x 65 x 65 x 2048) and at a ragged one
    (2 x 21 x 37 x 512: no multiple of the kernel's patch, smaller than
    the largest rate), K1 rtol = atol = 1e-4 in fp32 with TF32 off on
-   the plain side (and against a float64 head: at pushed prototypes, and
-   its distances on a sparse probe), K3 labels equal wherever the plain
+   the plain side (also at a pruned bank; and against a float64 head: at
+   pushed prototypes, and its distances on a sparse probe), K3 labels
+   equal wherever the plain
    version's top-two margin is at least 1e-5.  K2's backward at the
    training shapes (batch 2 at 65 x 65 x 2048): ``aspp_grad_pack`` bit
    for bit against the plain pack, ``aspp_grad_weight`` (called per
@@ -78,10 +79,30 @@ Phases; any failure exits non-zero and prints no result:
    batch, both backward kernels once per micro-step; training img/s,
    median step ms (CUDA events) and the device's idle share past the
    first 3 steps.  Then one micro-step of the kernel path against the
-   plain path (same bf16 model and batch; plain K2 forward and backward):
-   loss within 1e-3, ASPP-weight and prototype gradients within 2e-2
-   relative L2.  Finally ``push_final`` loads through ``load_model`` and
-   serves one finite batch;
+   plain path (same bf16 model and batch; plain K2 forward and backward)
+   from the joint phase's last weights: loss within 1e-3, ASPP-weight and
+   prototype gradients within 2e-2 relative L2 (the same step from the
+   pushed ``push_final`` is printed beside it).  Between the joint phase
+   and ``push_final`` the trainer
+   pushes the prototypes (float32 forward over the 24 full-size train
+   images, duplicates pruned): the prototypes scanned, matched and pruned
+   are printed, and every kept prototype's distance at its winning pixel,
+   recomputed with the float32 plain forward, must be at most
+   1e-5 (1 + |p|^2).  ``push_final`` loads through ``load_model`` and
+   serves one finite batch.  Then the group phase from that
+   ``push_final``: ``finetune_wandb_group.main --gpu-recipe``, 10 warm-up
+   and 10 joint micro-steps of the group config (``joint_last``): every
+   loss finite, K2's forward on every micro-step and validation batch,
+   every group-projection row of ``final-group`` >= 0 and summing to 1
+   within 1e-5; one group micro-step of the kernel path against the plain
+   path (loss within 1e-3 of max(1, |loss|), group-projection gradients
+   within 2e-2 relative L2) and a profile of a joint one.  ``final-group`` is served
+   through ``serve.main`` in bf16 on 8 full-size images (K2, K1 and K3 on
+   every batch, labels against the plain path on >= 99% of pixels), and
+   K1 is held at the bank push left: on random features against its plain
+   version (rtol = atol = 1e-4), on the served features (pushed
+   prototypes, d ~ 0) against the float64 head within
+   ``PROTO_PUSHED_RTOL`` of its largest logit;
 6. one line per kernel with its times, bound and launches, for the six
    kernels since redesigned the earlier design's recorded times beside
    the new ones, the card's name and power limit, the kernels
@@ -151,6 +172,8 @@ N_IMAGES = 256                # ~5 s of serving per run at ~50 img/s
 SERVE_RUNS = 3
 N_TRAIN, N_VAL = 24, 4
 WARMUP_STEPS, JOINT_STEPS, VAL_EVERY = 20, 40, 20
+GROUP_WARMUP_STEPS, GROUP_JOINT_STEPS = 10, 10   # a validation at each end
+N_GROUP_SERVE = 8
 SERVING_KERNELS = ("aspp", "proto", "upsample")
 TRAINING_KERNELS = ("aspp", "aspp_grad_pack", "aspp_grad_weight")
 
@@ -393,6 +416,7 @@ def check_proto(gen, dev) -> dict:
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     err = (got - want).abs().max().item()
     check_proto_rounding(gen, dev, feats, spec, kw)
+    check_proto_pruned(feats, protos, spec, kw)
 
     # yardstick: the TPU kernel's block-diagonal matmul chain, in torch
     pd = torch.zeros((256, a), device=dev)
@@ -439,6 +463,29 @@ def check_proto(gen, dev) -> dict:
         plain_ms=time_ms(lambda: proto_plain(feats, protos, None, spec,
                                              **kw)),
         library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+
+
+def check_proto_pruned(feats, protos, spec, kw) -> None:
+    """K1 at a bank pruned as push's dedup prunes one: prototypes gone from
+    three scales and every prototype of class 4, so scales and classes
+    hold uneven counts and a class is empty; rtol = atol = 1e-4."""
+    drop = [3, 60, 61, 130] + [p for p, c in enumerate(spec.class_ids)
+                               if c == 4]
+    pruned = spec.prune(drop)
+    keep = torch.as_tensor(spec.keep_indices(drop), device=protos.device)
+    gw = torch.zeros((19, 3, pruned.max_protos_per_class),
+                     device=protos.device)
+    for c in pruned.nonempty_classes:
+        old = [j for j, p in enumerate(spec.class_proto_index[c])
+               if p >= 0 and p not in drop]
+        gw[c, :, :len(old)] = kw["group_projection"][c][:, old]
+    pkw = dict(group_projection=gw, last_layer_group=kw["last_layer_group"])
+    got = kernels.fused_proto_logits(feats, protos[keep], None, pruned, **pkw)
+    want = proto_plain(feats, protos[keep], None, pruned, **pkw)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    log(f"proto at a pruned bank ({pruned.num_prototypes} prototypes, scale "
+        f"sizes {[hi - lo for lo, hi in pruned.scale_bounds]}, class 4 "
+        f"empty): max |err| {(got - want).abs().max().item():.3g}")
 
 
 def check_proto_rounding(gen, dev, feats, spec, kw) -> None:
@@ -1312,7 +1359,7 @@ def training_phase(dev, smi: str) -> dict:
         data = write_city_root(os.path.join(tmp, "city"), seed=1)
         log(f"train: {N_TRAIN} + {N_VAL} Cityscapes-size images written in "
             f"{time.perf_counter() - t0:.1f} s")
-        gin = ["train.push_proto = False", "train.finetune_steps = 0",
+        gin = ["train.finetune_steps = 0",
                f"train.warmup_steps = {WARMUP_STEPS}",
                f"train.joint_steps = {JOINT_STEPS}",
                f"Trainer.val_check_interval = {VAL_EVERY}"]
@@ -1349,39 +1396,38 @@ def training_phase(dev, smi: str) -> dict:
                 f"idle share {perf['device_idle_share']} over "
                 f"{perf['steps_timed']} steps past the first 3; batch {B} "
                 f"at 513 x 513, full depth, bf16 recipe, on {smi}")
+        # push runs the float32 forward: no kernel launches outside the
+        # phases
         if sum(counts[k] for k in TRAINING_KERNELS) != sum(
                 sum(out["phases"][p].launches[k] for k in TRAINING_KERNELS)
                 for p in (0, 1)):
             raise AssertionError(f"launches outside the phases: {counts}")
+        push_stats = check_push(out, data, dev)
 
         # one micro-step of the kernel path against the plain path, from
-        # the trained weights and one batch
+        # the joint phase's last weights (before push) and one batch
         run = os.path.join(tmp, "city_train")
         _, bindings = cli_common.load_config(os.path.join(run, "config.gin"))
-        sd, _ = load_checkpoint(out["final"])
         batch = next(iter(cli_common.make_loaders(bindings, B, seed=5,
                                                   data_root=data)[0]))
-        res = {}
-        for fast in (False, True):
-            model, _ = train_wandb_multiscale.build_model(bindings, 0)
-            model.load_state_dict(sd, strict=True)
-            model.set_compute_dtype(torch.bfloat16)
-            model.features.base.aspp.fast = fast
-            res[fast] = micro_step_grads(model.to(dev), batch, dev)
-        step_profiles = profile_train_steps(model, bindings, batch, dev)
-        del model
-        (lk, ak, pk), (lp, ap, pp) = res[True], res[False]
-        rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
-        step_cmp = dict(loss_kernel=lk, loss_plain=lp,
-                        loss_abs_err=abs(lk - lp),
-                        aspp_grad_rel_l2=rel(ak, ap),
-                        proto_grad_rel_l2=rel(pk, pp))
+        ckpts = os.path.join(run, "checkpoints")
+        step_cmp, model = kernel_vs_plain_step(
+            bindings, os.path.join(ckpts, "nopush_last"), batch, dev)
         log("train: one micro-step, kernel path vs plain path: "
             + json.dumps(step_cmp))
         if not (step_cmp["loss_abs_err"] <= 1e-3
                 and step_cmp["aspp_grad_rel_l2"] <= 2e-2
                 and step_cmp["proto_grad_rel_l2"] <= 2e-2):
             raise AssertionError(f"kernel vs plain micro-step {step_cmp}")
+        step_profiles = profile_train_steps(model, bindings, batch, dev)
+        # the same at the pushed prototypes: the activation's slope at
+        # d ~ 0 (-1e4) magnifies the forward's bf16 differences; reported
+        pushed_cmp, model = kernel_vs_plain_step(bindings, out["final"],
+                                                 batch, dev)
+        log("train: the same micro-step at the pushed prototypes "
+            "(push_final; not gated): " + json.dumps(pushed_cmp))
+        del model
+        torch.cuda.empty_cache()
 
         # the trained model serves
         served, _ = load_model(run, out["final"] + ".pth",
@@ -1394,8 +1440,303 @@ def training_phase(dev, smi: str) -> dict:
                 not bool(torch.isfinite(logits).all()):
             raise AssertionError("push_final does not serve finite logits")
         log(f"train: push_final serves {tuple(logits.shape)} finite logits")
-        return dict(counts=counts, step_cmp=step_cmp, profiles=step_profiles,
-                    perf={p: out["phases"][p].perf for p in (0, 1)})
+        del served, logits, x
+        torch.cuda.empty_cache()
+        group = group_phase(tmp, data, out["final"], batch, dev, smi)
+        return dict(counts=counts, step_cmp=step_cmp, pushed_cmp=pushed_cmp,
+                    profiles=step_profiles,
+                    perf={p: out["phases"][p].perf for p in (0, 1)},
+                    push=push_stats, group=group)
+
+
+def kernel_vs_plain_step(bindings, stem: str, batch, dev):
+    """One micro-step from checkpoint ``stem`` with K2's forward and
+    backward against the plain path (same bf16 model and batch): losses
+    and the relative L2 of the ASPP-weight and prototype gradients; and
+    the kernel-path model."""
+    from scaleprotoseg_torch import train_wandb_multiscale
+    sd, meta = load_checkpoint(stem)
+    spec = ProtoSpec.from_meta(meta["spec"])
+    res = {}
+    for fast in (False, True):
+        model, _ = train_wandb_multiscale.build_model(bindings, 0, spec)
+        model.load_state_dict(sd, strict=True)
+        model.set_compute_dtype(torch.bfloat16)
+        model.features.base.aspp.fast = fast
+        res[fast] = micro_step_grads(model.to(dev), batch, dev)
+    (lk, ak, pk), (lp, ap, pp) = res[True], res[False]
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    return dict(loss_kernel=lk, loss_plain=lp, loss_abs_err=abs(lk - lp),
+                aspp_grad_rel_l2=rel(ak, ap),
+                proto_grad_rel_l2=rel(pk, pp)), model
+
+
+def check_push(out: dict, data: str, dev) -> dict:
+    """Prototype push of the training run: what it scanned, matched and
+    pruned, and the push property: every kept prototype's distance at its
+    winning pixel, recomputed with the float32 plain forward of the pushed
+    model (no K2, TF32 off), is at most 1e-5 (1 + |p|^2)."""
+    from scaleprotoseg_torch import cli_common
+    push = out["push"]
+    real = int((push.min_dists < 1e9).sum())
+    stats = dict(scanned_images=N_TRAIN,
+                 prototypes=int(push.winners.shape[0]),
+                 matched=int((push.winners >= 0).sum()),
+                 matched_class_pixel=real,
+                 pruned=int(push.winners.shape[0] - push.kept.shape[0]),
+                 winner_images=int(np.unique(push.winners).size))
+    log("push: " + json.dumps(stats))
+    run = os.path.dirname(os.path.dirname(out["final"]))
+    model, spec = load_model(run, out["final"] + ".pth", device=dev)
+    if spec != push.spec:
+        raise AssertionError("push_final's spec is not push's")
+    _, bindings = cli_common.load_config(os.path.join(run, "config.gin"))
+    loader = cli_common.make_push_loader(bindings, data_root=data)
+    p = model.prototypes().detach()
+    p_sq = (p * p).sum(-1)
+    worst = 0.0
+    kept_of = {int(i): j for j, i in enumerate(push.kept)}
+    offset = 0
+    with torch.no_grad():
+        for images, _ in loader:
+            for b in range(len(images)):
+                won = [int(i) for i in np.nonzero(push.winners == offset + b)[0]
+                       if int(i) in kept_of]
+                if not won:
+                    continue
+                _, d = model.push_forward(torch.from_numpy(
+                    images[b:b + 1]).to(dev))
+                d = d.reshape(-1, d.shape[-1])
+                js = torch.as_tensor([kept_of[i] for i in won], device=dev)
+                flat = torch.as_tensor(push.flat_idx[won], device=dev)
+                ratio = d[flat, js] / (1.0 + p_sq[js])
+                worst = max(worst, float(ratio.max()))
+            offset += len(images)
+    stats["max_distance_over_1_plus_p_sq"] = worst
+    log(f"push: largest distance at a winning pixel over (1 + |p|^2): "
+        f"{worst:.3g} (limit 1e-5) over {len(push.kept)} kept prototypes")
+    if not worst <= 1e-5:
+        raise AssertionError(f"push: a kept prototype sits {worst:.3g} from "
+                             "its winning pixel")
+    return stats
+
+
+def group_micro_step(model, batch, weights, dev) -> tuple:
+    """(loss, group-projection gradient) of one group micro-step of
+    ``model`` on ``batch``."""
+    from scaleprotoseg_torch.train.steps import compute_losses
+    model.zero_grad(set_to_none=True)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    for m in model.group_projection:
+        m.weight.requires_grad_(True)
+    x = torch.from_numpy(batch[0]).to(dev)
+    t = torch.from_numpy(batch[1]).to(dev)
+    loss, _ = compute_losses(model, model(x), t, weights)
+    loss.backward()
+    grad = torch.cat([m.weight.grad.flatten() for m in model.group_projection])
+    return loss.item(), grad
+
+
+def group_phase(tmp: str, data: str, start: str, batch, dev,
+                smi: str) -> dict:
+    """The group phase from the run's ``push_final`` through
+    ``finetune_wandb_group.main --gpu-recipe``, then ``final-group``
+    served through ``serve.main``."""
+    from scaleprotoseg_torch import cli_common, finetune_wandb_group
+    from scaleprotoseg_torch.train.optim import (PhaseOptimizer,
+                                                 phase_groups, poly_schedule)
+    from scaleprotoseg_torch.train.runner import module_hparams
+    from scaleprotoseg_torch.train.state import TrainState
+    from scaleprotoseg_torch.train.steps import make_train_step
+    argv = ["group_scaleproto_cityscapes", "city_group", "--gpu-recipe",
+            "--start-checkpoint", start, "--data-root", data,
+            "--results-root", tmp]
+    for line in (f"train.warmup_steps = {GROUP_WARMUP_STEPS}",
+                 f"train.joint_steps = {GROUP_JOINT_STEPS}"):
+        argv += ["--gin", line]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = finetune_wandb_group.main(argv)
+    counts = kernels.launch_counts()
+    log(f"group: main took {time.perf_counter() - t0:.1f} s; launches "
+        f"{counts}")
+    val_batches = math.ceil(N_VAL / B)
+    for phase, steps in ((0, GROUP_WARMUP_STEPS), (1, GROUP_JOINT_STEPS)):
+        res = out["phases"][phase]
+        want = steps + res.validations * val_batches
+        if res.steps_done != steps or len(res.losses) != steps or \
+                not all(math.isfinite(v) for v in res.losses):
+            raise AssertionError(f"group phase {phase}: {res.steps_done} "
+                                 f"steps, losses {res.losses}")
+        if res.launches["aspp"] != want:
+            raise AssertionError(f"group phase {phase}: K2 launched "
+                                 f"{res.launches['aspp']} times, want {want}")
+        perf = res.perf
+        log(f"group phase {phase}: {steps} micro-steps, {res.validations} "
+            f"validations; launches {res.launches}; losses first "
+            f"{res.losses[0]:.4f} last {res.losses[-1]:.4f}, all finite; "
+            f"{perf['img_per_s']} img/s, median step "
+            f"{perf['step_ms_median']} ms, device idle share "
+            f"{perf['device_idle_share']}; on {smi}")
+    if counts["aspp"] < 1:
+        raise AssertionError("group phase: K2 never launched")
+    sd, meta = load_checkpoint(out["final"])
+    spec = ProtoSpec.from_meta(meta["spec"])
+    rows = [v for k, v in sd.items() if k.startswith("group_projection.")]
+    row_err = max(float((w.sum(-1) - 1.0).abs().max()) for w in rows)
+    row_min = min(float(w.min()) for w in rows)
+    if not (row_min >= 0 and row_err <= 1e-5):
+        raise AssertionError(f"group rows off the simplex: min {row_min}, "
+                             f"|sum - 1| {row_err}")
+    log(f"group: final-group has {spec.num_prototypes} prototypes, "
+        f"{sum(len(w) for w in rows)} group rows over {len(rows)} classes, "
+        f"all >= 0, |sum - 1| <= {row_err:.3g}")
+
+    # one group micro-step, kernel path against plain path
+    run = os.path.join(tmp, "city_group")
+    _, bindings = cli_common.load_config(os.path.join(run, "config.gin"))
+    hp = module_hparams(bindings, "group")
+    res = {}
+    for fast in (False, True):
+        model, _ = construct_ppnet(
+            "group", "deeplabv2_resnet101_multiscale", num_classes=19,
+            bindings=bindings, spec=spec)
+        model.load_state_dict(sd, strict=True)
+        model.set_compute_dtype(torch.bfloat16)
+        model.features.base.aspp.fast = fast
+        res[fast] = group_micro_step(model.to(dev), batch, hp["weights"], dev)
+    (lk, gk), (lp, gp) = res[True], res[False]
+    step_cmp = dict(loss_kernel=lk, loss_plain=lp, loss_abs_err=abs(lk - lp),
+                    group_grad_rel_l2=((gk - gp).norm() / gp.norm()).item())
+    log("group: one micro-step, kernel path vs plain path: "
+        + json.dumps(step_cmp))
+    # the loss within 1e-3 of its scale: at pushed prototypes the group
+    # head's exp(activation) reaches 1e4 and the loss thousands, where a
+    # float32 ulp alone is ~5e-4
+    if not (step_cmp["loss_abs_err"] <= 1e-3 * max(1.0, abs(lp))
+            and step_cmp["group_grad_rel_l2"] <= 2e-2):
+        raise AssertionError(f"group kernel vs plain micro-step {step_cmp}")
+    # where a group joint micro-step's time goes, on a resident batch
+    opt = PhaseOptimizer(model.named_parameters(),
+                         phase_groups("group", 1, hp["hp"]),
+                         schedule=poly_schedule(hp["poly_lr_power"], 8),
+                         iter_size=hp["iter_size"], guard_nonfinite=50)
+    state = TrainState(model, opt)
+    step = make_train_step(hp["weights"], project_group_simplex=True)
+    x = torch.from_numpy(batch[0]).to(dev)
+    t = torch.from_numpy(batch[1]).to(dev)
+    profile = profile_batch(lambda: step(state, x, t), TRAINING_GROUPS,
+                            iters=5)
+    log("group phase 1: one micro-step on a resident batch, device ms by "
+        f"kernel: {json.dumps(profile)}")
+    del model, opt, state
+    torch.cuda.empty_cache()
+    served = serve_group(tmp, run, out["final"], dev, smi)
+    return dict(counts=counts, step_cmp=step_cmp, profile=profile,
+                perf={p: out["phases"][p].perf for p in (0, 1)},
+                serve=served)
+
+
+def serve_group(tmp: str, run: str, final: str, dev, smi: str) -> dict:
+    """``final-group`` through ``serve.main`` in bf16 (K2, K1 and K3 on
+    every batch), its labels against the plain path, and K1 against its
+    plain version at the bank push left."""
+    img_dir = os.path.join(tmp, "group_images")
+    out_dir = os.path.join(tmp, "group_labels")
+    os.makedirs(img_dir)
+    rng = np.random.default_rng(3)
+    names = [f"frame_{i:03d}.npy" for i in range(N_GROUP_SERVE)]
+    for n in names:
+        np.save(os.path.join(img_dir, n),
+                rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8))
+    kernels.reset_launch_counts()
+    record = serve.main(["city_group", "final-group", "--input", img_dir,
+                         "--output", out_dir, "--batch", str(B),
+                         "--raw-output", "--results-root", tmp,
+                         "--workers", "4"])
+    counts = kernels.launch_counts()
+    batches = 1 + math.ceil(N_GROUP_SERVE / B)
+    for name in SERVING_KERNELS:
+        if counts[name] < batches:
+            raise AssertionError(f"final-group: {name} launched "
+                                 f"{counts[name]} times in {batches} batches")
+    plain_model, spec = load_model(run, final + ".pth", dtype=torch.bfloat16,
+                                   fast=False, device=dev)
+    plain = plain_path(plain_model)
+    agree = total = 0
+    classes = set()
+    for i in range(0, N_GROUP_SERVE, B):
+        x = np.stack([np.load(os.path.join(img_dir, n))
+                      for n in names[i:i + B]])
+        want = plain(torch.from_numpy(x).to(dev)).cpu().numpy()
+        got = np.stack([np.load(os.path.join(out_dir, n))
+                        for n in names[i:i + B]])
+        agree += int((got == want).sum())
+        total += got.size
+        classes |= set(np.unique(got).tolist())
+    agreement = agree / total
+    log(f"group: final-group served {record['images']} images at "
+        f"{record['img_per_s']} img/s (batch {B}, {HEIGHT}x{WIDTH}); "
+        f"launches {counts}; labels agree with the plain path on "
+        f"{100 * agreement:.4f}% of {total} pixels ({len(classes)} classes "
+        f"predicted); on {smi}")
+    if agreement < 0.99:
+        raise AssertionError(f"final-group agreement {agreement} < 0.99")
+    del plain_model, plain
+
+    # K1 at the bank push left (its spec and the model's group head): on
+    # random features against the plain head, rtol = atol = 1e-4; on the
+    # served model's own features, where pushed prototypes put d ~ 0 and
+    # the activation's slope (-1e4) magnifies the fp32 rounding of every
+    # form, against the float64 head as check_proto_rounding holds it
+    model, _ = load_model(run, final + ".pth", dtype=torch.bfloat16,
+                          fast=True, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.from_numpy(np.stack([np.load(os.path.join(img_dir, n))
+                                   for n in names[:B]])).to(dev)
+    mean = torch.tensor(IMAGENET_MEAN, device=dev)
+    std = torch.tensor(IMAGENET_STD, device=dev)
+    with torch.no_grad():
+        own = model.conv_features(((x.float() / 255.0 - mean) / std)
+                                  .to(torch.bfloat16)).contiguous()
+        gw, glw = model.group_weights()
+        protos = model.prototypes()
+        kw = dict(group_projection=gw, last_layer_group=glw)
+        head = pack_head(protos, None, spec, **kw)
+        feats = torch.rand(own.shape, generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        got = kernels.fused_proto_logits(feats, protos, None, spec, **kw,
+                                         head=head)
+        want = proto_plain(feats, protos, None, spec, **kw)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        err = (got - want).abs().max().item()
+        exact = proto_float64(own, protos, None, spec, **kw)
+        scale = exact.abs().max().item()
+        pushed_err = (kernels.fused_proto_logits(
+            own, protos, None, spec, **kw, head=head) - exact).abs().max() \
+            .item() / scale
+        plain_err = (proto_plain(own, protos, None, spec, **kw) - exact) \
+            .abs().max().item() / scale
+    log(f"group: K1 at the pushed bank ({spec.num_prototypes} prototypes, "
+        f"class counts {sorted(set(spec.class_counts.tolist()))}): random "
+        f"features, max |err| against the plain head {err:.3g} (rtol = atol "
+        f"= 1e-4); the served features, max |err| against the float64 head "
+        f"over its largest logit ({scale:.4g}): kernel {pushed_err:.3g}, fp32 "
+        f"plain head {plain_err:.3g} (limit {PROTO_PUSHED_RTOL:g})")
+    if not pushed_err <= PROTO_PUSHED_RTOL:
+        raise AssertionError(f"final-group: K1 {pushed_err:.3g} from the "
+                             "float64 head")
+    def k1():
+        return kernels.fused_proto_logits(own, protos, None, spec, **kw,
+                                          head=head)
+
+    k1_ms = time_ms(k1)
+    log(f"group: K1 at the pushed bank, served features: {k1_ms:.4f} ms "
+        f"(CUDA-event median of 10) on {smi}")
+    return dict(record, counts=counts, agreement=agreement,
+                proto_max_abs_err=err, proto_pushed_err=pushed_err,
+                proto_ms=k1_ms)
 
 
 def profile_train_steps(model, bindings, batch, dev) -> dict:
@@ -1503,12 +1844,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     trained = training_phase(dev, smi)
     quant, evals = served["quant"], served["evals"]
+    group = trained["group"]
     by_path = {name: {"serving": served["counts"][name],
                       "quant8_serving": quant["counts"][name],
                       "quant8_dynamic": quant["dyn_counts"][name],
                       "eval": evals[False]["counts"][name],
                       "eval_quant8": evals["static"]["counts"][name],
-                      "training": trained["counts"][name]}
+                      "training": trained["counts"][name],
+                      "group_training": group["counts"][name],
+                      "group_serving": group["serve"]["counts"][name]}
                for name in results}
     # each kernel's launches in the main path of its slice: the training
     # run for K2's forward and backward, the bf16 serving run for K1 and

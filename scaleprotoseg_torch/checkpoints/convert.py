@@ -119,6 +119,29 @@ def ppnet_params_to_statedict(params: Dict, batch_stats: Optional[Dict],
     return sd
 
 
+def bootstrap_group_state(group_state: Dict[str, torch.Tensor],
+                          proto_state: Dict[str, torch.Tensor]
+                          ) -> Dict[str, torch.Tensor]:
+    """A grouped model's state dict started from a prototype-phase
+    checkpoint's: the backbone (``features.*``) and the prototypes come
+    from ``proto_state``, the group heads stay as ``group_state`` holds
+    them (freshly initialized).  Every other key of ``proto_state`` must
+    be one the group model does not have (the plain last layer)."""
+    out = dict(group_state)
+    for key, value in proto_state.items():
+        if key.startswith("features.") or key == "prototype_vectors":
+            if key not in out or out[key].shape != value.shape:
+                raise ValueError(
+                    f"{key}: {tuple(value.shape)} in the checkpoint, "
+                    f"{tuple(out[key].shape) if key in out else 'absent'} "
+                    "in the group model")
+            out[key] = value
+        elif key in out:
+            raise ValueError(f"{key}: a prototype-phase key the group model "
+                             "also holds would be dropped")
+    return out
+
+
 def quant_scales_from_jax(tree: Dict) -> Dict[str, np.float32]:
     """The JAX package's ``quant_scales`` collection (nested dicts keyed by
     each ``_QuantConv`` site's path, ``backbone/layer4/block1/reduce/conv/

@@ -1,5 +1,6 @@
 """Shared plumbing of the training entry points: config resolution and
-overrides, the GPU recipe, seeding, the run directory and the loaders.
+overrides, the GPU recipe, seeding, the run directory and the loaders
+(training, validation and prototype push).
 
 A config is a name in the port's ``configs/`` directory
 (``scaleproto_cityscapes``) or a path.  ``--gin 'name.param = value'``
@@ -70,7 +71,7 @@ def add_override_args(parser) -> None:
     """The shared ``--gin``, ``--gpu-recipe`` and ``--device`` flags."""
     parser.add_argument(
         "--gin", action="append", default=None, metavar="BINDING",
-        help="extra gin binding, e.g. --gin \"train.push_proto = False\" "
+        help="extra gin binding, e.g. --gin \"train.warmup_steps = 10\" "
              "(repeatable; overrides the config file)")
     parser.add_argument(
         "--gpu-recipe", action="store_true",
@@ -124,24 +125,74 @@ def train_hparams(bindings: Bindings) -> dict:
     )
 
 
+def _dataset_kwargs(bindings: Bindings, data_root: Optional[str]) -> dict:
+    q = lambda p, d=None: query(bindings, "PatchClassificationDataset",  # noqa: E731
+                                p, d)
+    return dict(data_type=q("data_type"), mean=q("mean"), std=q("std"),
+                image_margin_size=q("image_margin_size", 0),
+                window_size=q("window_size"), scales=q("scales", (1.0,)),
+                jitter=q("jitter", False), root=data_root)
+
+
+def _num_workers(bindings: Bindings, num_workers: Optional[int]) -> int:
+    if num_workers is not None:
+        return num_workers
+    return query(bindings, "PatchClassificationDataModule",
+                 "dataloader_n_jobs", 8)
+
+
 def make_loaders(bindings: Bindings, batch_size: int,
                  num_workers: Optional[int] = None, seed: int = 0,
                  data_root: Optional[str] = None):
     """(train_loader, val_loader) per the dataset bindings."""
-    q = lambda name, p, d=None: query(bindings, name, p, d)  # noqa: E731
-    if num_workers is None:
-        num_workers = q("PatchClassificationDataModule", "dataloader_n_jobs",
-                        8)
-    train_key = q("PatchClassificationDataModule", "train_key", "train")
-    ds = "PatchClassificationDataset"
-    kw = dict(data_type=q(ds, "data_type"), mean=q(ds, "mean"),
-              std=q(ds, "std"), image_margin_size=q(ds, "image_margin_size",
-                                                      0),
-              window_size=q(ds, "window_size"), scales=q(ds, "scales", (1.0,)),
-              jitter=q(ds, "jitter", False), root=data_root)
+    num_workers = _num_workers(bindings, num_workers)
+    train_key = query(bindings, "PatchClassificationDataModule", "train_key",
+                      "train")
+    kw = _dataset_kwargs(bindings, data_root)
     train_ds = PatchClassificationDataset(train_key, **kw)
     val_ds = PatchClassificationDataset("val", **kw)
     return (DataLoader(train_ds, batch_size, shuffle=True,
                        num_workers=num_workers, seed=seed),
             DataLoader(val_ds, batch_size, shuffle=False,
                        num_workers=num_workers, seed=seed))
+
+
+def make_push_loader(bindings: Bindings, batch_size: int = 1,
+                     num_workers: Optional[int] = None,
+                     data_root: Optional[str] = None) -> DataLoader:
+    """Prototype push's loader: the train split at full resolution,
+    normalized and unaugmented, in a fixed order (re-iterable: push reads
+    it twice)."""
+    ds = PatchClassificationDataset("train", push_prototypes=True,
+                                    **_dataset_kwargs(bindings, data_root))
+    return DataLoader(ds, batch_size, shuffle=False,
+                      num_workers=_num_workers(bindings, num_workers))
+
+
+def run_phases(trainer, bindings: Bindings, hp: dict, phases: Iterable[int],
+               results: dict, num_workers: Optional[int] = None,
+               data_root: Optional[str] = None) -> dict:
+    """Run ``phases`` (0 warm-up, 1 joint, 2 last layer with early
+    stopping) of ``trainer`` in order, each on fresh loaders seeded
+    ``random_seed + phase``; a phase of 0 steps is skipped.  ``results``
+    ({phase: PhaseResult}) gathers them, and the global step goes on from
+    the phases already in it."""
+    steps = {0: hp["warmup_steps"], 1: hp["joint_steps"],
+             2: hp["finetune_steps"]}
+    batch = {0: hp["warmup_batch_size"], 1: hp["joint_batch_size"],
+             2: hp["joint_batch_size"]}
+    val_check = query(bindings, "Trainer", "val_check_interval", None)
+    for phase in phases:
+        if steps[phase] <= 0:
+            continue
+        tl, vl = make_loaders(bindings, batch[phase], num_workers=num_workers,
+                              seed=hp["random_seed"] + phase,
+                              data_root=data_root)
+        results[phase] = trainer.run_phase(
+            phase, steps[phase], tl, vl,
+            early_stopping_patience=(
+                hp["early_stopping_patience_last_layer"] if phase == 2
+                else None),
+            val_every_steps=val_check,
+            global_step0=sum(r.steps_done for r in results.values()))
+    return results

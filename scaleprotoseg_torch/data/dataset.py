@@ -74,7 +74,8 @@ def resized_window(image: np.ndarray, label: np.ndarray,
 
 class PatchClassificationDataset:
     """Map-style dataset of (image (H, W, 3) float32, label (H, W) int32),
-    augmented alike for training and validation, as the reference does.
+    augmented alike for training and validation, as the reference does;
+    with ``push_prototypes`` the whole image, normalized, unaugmented.
 
     ``jitter`` (color jitter, training only) is off in every shipped
     config and not ported: it is refused."""
@@ -84,7 +85,8 @@ class PatchClassificationDataset:
                  image_margin_size: int = 0,
                  window_size: Optional[Tuple[int, int]] = None,
                  scales: Tuple[float, ...] = (1.0,), jitter: bool = False,
-                 root: Optional[str] = None):
+                 root: Optional[str] = None, push_prototypes: bool = False):
+        self.push_prototypes = push_prototypes
         if jitter:
             raise NotImplementedError("color jitter is not ported yet "
                                       "(PatchClassificationDataset.jitter)")
@@ -120,6 +122,11 @@ class PatchClassificationDataset:
         if self.image_margin_size:
             m = self.image_margin_size
             image = image[m:-m, m:-m]
+        if self.push_prototypes:
+            # prototype push: the whole image, normalized, no augmentation
+            image = (image.astype(np.float32) / 255.0 - self.mean) / self.std
+            return image.astype(np.float32), \
+                convert_targets(label, self.data_type).astype(np.int32)
         # the reference's draws, in its order, from the global stream
         in_h, in_w = label.shape
         scale = 1.0 if len(self.scales) < 2 else \

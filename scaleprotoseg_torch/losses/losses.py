@@ -1,4 +1,4 @@
-"""The prototype phase's losses, as dense masked tensors.
+"""The losses of the prototype and group phases, as dense masked tensors.
 
 The port's copies of the JAX package's ``losses/losses.py``: validity
 conditions become multiplicative masks and "the mean over contributing
@@ -7,8 +7,9 @@ selections are one-hot contractions, so every backward is a product.
 
 Conventions: ``targets`` are resized labels, 0 = void and class c stored
 as c + 1 (every loss subtracts 1); ``distances``/``activations`` are
-(B, H, W, Pa) NHWC float32.  The group phase's four losses are not
-ported yet.
+(B, H, W, Pa) NHWC float32; the group-weight losses take the dense
+(C, G, Pc_max) view of the packed group projection
+(``PPNet.group_weights``), padded slots 0.
 """
 
 from __future__ import annotations
@@ -36,7 +37,11 @@ def loss_tables(spec: ProtoSpec, device: torch.device) -> dict:
             "ksel": as_t(spec.class_scale_proto_onehot),
             "kcounts": as_t(spec.class_scale_counts),
             "pcmask": as_t(spec.class_proto_mask),
-            "psel": as_t(spec.class_proto_onehot)}
+            "psel": as_t(spec.class_proto_onehot),
+            "counts": as_t(spec.class_counts),
+            "has": as_t(spec.class_has_protos),
+            "smask": as_t(spec.class_proto_scale_mask),
+            "gci": as_t(spec.group_class_identity)}
 
 
 def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -137,6 +142,26 @@ def entropy_sampl_loss(activations: torch.Tensor, targets: torch.Tensor,
     return _masked_mean(per_cell, cell_valid)
 
 
+def entropy_spat_loss(activations: torch.Tensor, targets: torch.Tensor,
+                      spec: ProtoSpec) -> torch.Tensor:
+    """Entropy of each class prototype's activations softmaxed over the
+    class's pixels, over log(pixels), averaged over the class's
+    prototypes, then over (image, class) with >= 2 class pixels."""
+    t = loss_tables(spec, activations.device)
+    a = _flatten_pixels(activations)
+    pcmask = t["pcmask"]
+    pixmask, counts = _class_pixel_mask(targets, spec.num_classes)
+    a_sel = torch.einsum("bnp,cqp->bcqn", a, t["psel"])       # (B,C,Pc,N)
+    pm = pixmask[:, :, None, :]
+    logp = _masked_log_softmax(a_sel, pm)
+    prob = torch.exp(logp) * pm
+    ent = -(prob * logp).sum(-1) / torch.log(counts.clamp_min(2.0))[..., None]
+    n_protos = pcmask.sum(-1)[None]
+    per_bc = (ent * pcmask[None]).sum(-1) / n_protos.clamp_min(1.0)
+    valid = ((counts >= 2) & (n_protos >= 1)).float()
+    return _masked_mean(per_bc, valid)
+
+
 def norm_loss(activations: torch.Tensor, targets: torch.Tensor,
               spec: ProtoSpec, norm_type: str = "l1") -> torch.Tensor:
     """Mean L1 (or L-inf) of class-prototype activations over the class's
@@ -160,8 +185,71 @@ def norm_loss(activations: torch.Tensor, targets: torch.Tensor,
     return _masked_mean(per_bc, valid)
 
 
+def entropy_group_loss(group_weights: torch.Tensor, spec: ProtoSpec,
+                       epsilon: float = 1e-5) -> torch.Tensor:
+    """Entropy of each group's weight row over log(P_c), averaged over the
+    (class, group) rows of classes with prototypes; padded slots are 0 and
+    add 0 * log(eps)."""
+    t = loss_tables(spec, group_weights.device)
+    w = group_weights.float()
+    ent = -(w * torch.log(w + epsilon)).sum(-1) / \
+        torch.log(t["counts"].clamp_min(2.0))[:, None]          # (C, G)
+    return _masked_mean(ent, t["has"][:, None].expand_as(ent))
+
+
+def cross_entropy_group_loss(group_weights: torch.Tensor, spec: ProtoSpec,
+                             epsilon: float = 1e-5) -> torch.Tensor:
+    """Mean over a class's ordered group pairs i != j of
+    sum_p w_i log(max(w_j, eps)): minimizing it pulls the rows apart."""
+    t = loss_tables(spec, group_weights.device)
+    w = group_weights.float()
+    cross = torch.einsum("cip,cjp->cij", w, torch.log(w.clamp_min(epsilon)))
+    g = w.shape[1]
+    offdiag = 1.0 - torch.eye(g, device=w.device)
+    return _masked_mean(cross, t["has"][:, None, None] * offdiag)
+
+
+def scale_max_loss(group_weights: torch.Tensor, spec: ProtoSpec
+                   ) -> torch.Tensor:
+    """Minus the mean over (class, scale) of the group-averaged largest
+    weight in the scale's column block: every group should weight every
+    scale."""
+    t = loss_tables(spec, group_weights.device)
+    w = group_weights.float()                                 # (C, G, Pc)
+    smask = t["smask"]                                        # (C, S, Pc)
+    masked = torch.where(smask[:, :, None, :] > 0, w[:, None],
+                         torch.full_like(w[:, None], _NEG_BIG))
+    per_cell = masked.amax(-1).mean(-1)                       # (C, S)
+    valid = (smask.sum(-1) >= 1).float() * t["has"][:, None]
+    return -_masked_mean(per_cell, valid)
+
+
+def kld_group_loss(group_activations: torch.Tensor, targets: torch.Tensor,
+                   spec: ProtoSpec) -> torch.Tensor:
+    """Mean of exp(-symKL) over a class's group pairs, each group's
+    activations softmaxed over the class's pixels, for (image, class) with
+    >= 2 class pixels; ``group_activations`` is (B, H, W, C, G)."""
+    t = loss_tables(spec, group_activations.device)
+    b, g = group_activations.shape[0], group_activations.shape[-1]
+    a = group_activations.reshape(b, -1, spec.num_classes, g) \
+        .permute(0, 2, 3, 1).float()                          # (B,C,G,N)
+    pixmask, counts = _class_pixel_mask(targets, spec.num_classes)
+    pm = pixmask[:, :, None, :]
+    logp = _masked_log_softmax(a, pm)
+    prob = torch.exp(logp) * pm
+    ent = (prob * logp).sum(-1)                               # (B,C,G)
+    kl = ent[..., :, None] - torch.einsum("bcgn,bchn->bcgh", prob, logp)
+    value = torch.exp(-0.5 * (kl + kl.transpose(-1, -2)))
+    upper = torch.triu(torch.ones((g, g), device=a.device), 1)
+    valid = (counts >= 2).float()[:, :, None, None] * \
+        t["has"][None, :, None, None] * upper
+    return _masked_mean(value, valid)
+
+
 def last_layer_l1(last_layer_weight: torch.Tensor,
                   identity: torch.Tensor) -> torch.Tensor:
     """L1 norm of the (in_features, C) last-layer weights on other-class
-    connections; ``identity`` is the (in_features, C) own-class one-hot."""
+    connections; ``identity`` is the (in_features, C) own-class one-hot
+    (the prototypes' or, for the dense group last layer, the spec's
+    ``group_class_identity``)."""
     return (last_layer_weight * (1.0 - identity)).abs().sum()

@@ -17,7 +17,8 @@ into the dense (C, G, Pc_max) / (C*G, C) layouts the head computes with.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +29,17 @@ from scaleprotoseg_torch.kernels.proto import (fused_proto_logits,
 from scaleprotoseg_torch.models.layers import WeightCache, set_compute_dtype
 from scaleprotoseg_torch.ops.prototype import (distance_to_similarity,
                                                scale_l2_distances)
+from scaleprotoseg_torch.ops.simplex import projection_simplex_sort
 from scaleprotoseg_torch.spec import ProtoSpec
+
+
+def group_projection_init(draw: torch.Tensor) -> torch.Tensor:
+    """A fresh (G, Pc) group projection from a U(-1, 1) ``draw`` of that
+    shape: torch ``nn.Linear``'s uniform init, ``draw / sqrt(Pc)``,
+    projected onto the simplex (the reference projects at init), so the
+    rows are sparse: entries under the projection's threshold are 0."""
+    return projection_simplex_sort(
+        draw * (1.0 / math.sqrt(max(draw.shape[-1], 1))))
 
 
 class PPNetOutput(NamedTuple):
@@ -81,6 +92,7 @@ class PPNet(nn.Module):
         self.spec = spec
         self.activation_fn = activation_fn
         self.grouped = grouped
+        self.incorrect_strength = incorrect_strength
         self.dtype = dtype
         self.features = Features(backbone)
         self.add_on_layers = AddOnLayers(add_on_type, dtype)
@@ -97,15 +109,19 @@ class PPNet(nn.Module):
             self.group_projection = nn.ModuleList()
             for cls in nonzero:
                 lin = nn.Linear(int(spec.class_counts[cls]), g, bias=False)
-                w = torch.rand(lin.weight.shape, generator=generator) + 1e-3
-                lin.weight.data.copy_(w / w.sum(-1, keepdim=True))
+                draw = torch.rand(lin.weight.shape, generator=generator)
+                with torch.no_grad():
+                    lin.weight.copy_(group_projection_init(draw * 2.0 - 1.0))
                 self.group_projection.append(lin)
             self.last_layer_group = nn.Linear(g * len(nonzero), c, bias=False)
-            packed = np.full((c, g * len(nonzero)), incorrect_strength,
-                             np.float32)
+            own = np.zeros((c, g * len(nonzero)), np.float32)
             for k, cls in enumerate(nonzero):
-                packed[cls, k * g:(k + 1) * g] = 1.0
+                own[cls, k * g:(k + 1) * g] = 1.0
+            packed = own + incorrect_strength * (1.0 - own)
             self.last_layer_group.weight.data.copy_(torch.from_numpy(packed))
+            # own-class entries of the packed group last layer
+            self.register_buffer("_glw_own", torch.from_numpy(own),
+                                 persistent=False)
             # packed -> dense scatter indices (non-persistent: not weights)
             idx = spec.class_proto_index
             slots = np.concatenate([
@@ -141,6 +157,20 @@ class PPNet(nn.Module):
         glw = torch.zeros((c * g, c), dtype=packed.dtype, device=dev)
         glw[self._glw_rows] = self.last_layer_group.weight.t()
         return gw.reshape(c, pc, g).permute(0, 2, 1), glw
+
+    @torch.no_grad()
+    def project_group_simplex_(self) -> None:
+        """Put every group-projection row back on the simplex, in place
+        (the version counters move, so K1's packed head rebuilds)."""
+        for m in self.group_projection:
+            m.weight.copy_(projection_simplex_sort(m.weight))
+
+    def mask_last_layer_group_grad_(self) -> None:
+        """Keep only the own-class entries of the group last layer's
+        gradient (the group phase's joint step at incorrect_strength 0)."""
+        grad = self.last_layer_group.weight.grad
+        if grad is not None:
+            grad.mul_(self._glw_own)
 
     def set_compute_dtype(self, dtype: torch.dtype) -> "PPNet":
         """Training form of mixed precision: parameters stay float32, the
@@ -182,6 +212,14 @@ class PPNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> PPNetOutput:
         return self.forward_from_conv_features(self.conv_features(x))
+
+    def push_forward(self, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(conv features (B, Hp, Wp, S*D), distances (B, Hp, Wp, Pa)):
+        what prototype push scans."""
+        f = self.conv_features(x)
+        return f, scale_l2_distances(f, self.prototypes(),
+                                     self.spec.scale_bounds)
 
     def _head_params(self) -> list:
         if self.grouped:

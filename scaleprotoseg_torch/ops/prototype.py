@@ -150,3 +150,15 @@ def pairwise_l2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     sq = (a32 * a32).sum(-1)[:, None] - 2.0 * a32 @ b32.t() + \
         (b32 * b32).sum(-1)[None, :]
     return torch.relu(sq)
+
+
+def pad_minima_to_bank(vals: torch.Tensor, idxs: torch.Tensor, spec
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pad per-image (B, Pa) prototype minima and argmins from the
+    distance layout to bank width: dangling bank rows (past the last
+    scale bound) get +inf, so they never win a push scan."""
+    pad = spec.num_prototypes - spec.num_active_prototypes
+    if pad:
+        vals = torch.nn.functional.pad(vals, (0, pad), value=float("inf"))
+        idxs = torch.nn.functional.pad(idxs, (0, pad))
+    return vals, idxs

@@ -70,6 +70,28 @@ class ProtoSpec:
                    proto_depth=proto_depth, class_ids=tuple(class_ids),
                    scale_bounds=scale_bounds, num_groups=num_groups)
 
+    def with_groups(self, num_groups: int) -> "ProtoSpec":
+        return dataclasses.replace(self, num_groups=num_groups)
+
+    def prune(self, prototypes_to_prune) -> "ProtoSpec":
+        """The spec after dropping the given prototype indices: the kept
+        prototypes keep their order and each scale's range is re-packed."""
+        keep = self.keep_indices(prototypes_to_prune)
+        bounds, pos = [], 0
+        for lo, hi in self.scale_bounds:
+            n_kept = int(((keep >= lo) & (keep < hi)).sum())
+            bounds.append((pos, pos + n_kept))
+            pos += n_kept
+        return dataclasses.replace(
+            self, class_ids=tuple(self.class_ids[i] for i in keep),
+            scale_bounds=tuple(bounds))
+
+    def keep_indices(self, prototypes_to_prune) -> np.ndarray:
+        """(P - dropped,) int32 indices of the prototypes that stay."""
+        drop = set(int(i) for i in prototypes_to_prune)
+        return np.array([i for i in range(self.num_prototypes)
+                         if i not in drop], dtype=np.int32)
+
     # ------------------------------------------------------------------
     # JSON sidecar (the ``spec`` entry of ``<checkpoint>.json``)
     # ------------------------------------------------------------------
@@ -120,6 +142,14 @@ class ProtoSpec:
         for p, c in enumerate(self.class_ids):
             if c >= 0:
                 out[p, c] = 1.0
+        return out
+
+    @functools.cached_property
+    def scale_ids(self) -> np.ndarray:
+        """(P,) int32 scale id per prototype (0 past the last bound)."""
+        out = np.zeros((self.num_prototypes,), np.int32)
+        for s, (lo, hi) in enumerate(self.scale_bounds):
+            out[lo:hi] = s
         return out
 
     @functools.cached_property
@@ -200,3 +230,23 @@ class ProtoSpec:
     def class_has_protos(self) -> np.ndarray:
         """(C,) float32, 1 where the class owns at least one prototype."""
         return (self.class_counts > 0).astype(np.float32)
+
+    @functools.cached_property
+    def class_proto_scale_mask(self) -> np.ndarray:
+        """(C, S, Pc_max) float32: which of a class's padded columns
+        belong to scale s (the scale-max group loss's column blocks)."""
+        out = np.zeros((self.num_classes, self.num_scales,
+                        self.max_protos_per_class), np.float32)
+        c, q = np.nonzero(self.class_proto_index >= 0)
+        out[c, self.scale_ids[self.class_proto_index[c, q]], q] = 1.0
+        return out
+
+    @functools.cached_property
+    def group_class_identity(self) -> np.ndarray:
+        """(C*G, C) one-hot (class, group) -> class identity of the dense
+        group last layer, rows of classes without prototypes zero."""
+        g = self.num_groups
+        out = np.zeros((self.num_classes * g, self.num_classes), np.float32)
+        for c in self.nonempty_classes:
+            out[c * g:(c + 1) * g, c] = 1.0
+        return out

@@ -32,6 +32,7 @@ Labels:
   add_on         add-on layers
   prototypes     prototype bank
   last_layer     the plain head's last layer
+  group_projection, last_layer_group   the group head
 """
 
 from __future__ import annotations
@@ -78,34 +79,59 @@ def poly_schedule(power: float, iter_max: int
     return fn
 
 
-def phase_groups(variant: str, phase: int,
-                 hp: Dict[str, float]) -> Dict[str, OptimGroup]:
-    """Trainable label -> OptimGroup for a (variant, phase) of the
-    prototype model: 0 warm-up (add-on, ASPP, prototypes), 1 joint under
+def phase_groups(variant: str, phase: int, hp: Dict[str, float],
+                 joint_last: bool = True, joint_no_proto: bool = False
+                 ) -> Dict[str, OptimGroup]:
+    """Trainable label -> OptimGroup for a (variant, phase); ``hp`` carries
+    the config's learning rates and decays.
+
+    Prototype model: 0 warm-up (add-on, ASPP, prototypes), 1 joint under
     poly decay (every conv, ASPP at 10x, add-on, prototypes), 2 the last
-    layer.  ``hp`` carries the config's learning rates and decays."""
-    if variant not in ("single", "multiscale"):
-        raise NotImplementedError(
-            f"the {variant!r} variant's phases (finetune_wandb_group) are "
-            "not ported yet")
+    layer.  Group model: 0 the group projections, 1 joint under poly decay
+    (``joint_last``: the group projections and the group last layer only;
+    otherwise also every conv, the ASPP at 10x, the add-on and, unless
+    ``joint_no_proto``, the prototypes), 2 the group last layer."""
     g: Dict[str, OptimGroup] = {}
-    if phase == 0:
-        for label in ("add_on", "aspp_w", "aspp_b"):
-            g[label] = OptimGroup(hp["warm_lr_add_on"], hp["warm_wd"])
-        g["prototypes"] = OptimGroup(hp["warm_lr_protos"])
-    elif phase == 1:
-        g["add_on"] = OptimGroup(hp["joint_lr_add_on"], hp["joint_wd"],
-                                 use_schedule=True)
-        g["features_conv"] = OptimGroup(hp["joint_lr_features"],
-                                        hp["joint_wd"], use_schedule=True)
-        for label in ("aspp_w", "aspp_b"):
-            g[label] = OptimGroup(10 * hp["joint_lr_features"],
-                                  hp["joint_wd"], use_schedule=True)
-        g["prototypes"] = OptimGroup(hp["joint_lr_protos"],
-                                     use_schedule=True)
+    if variant in ("single", "multiscale"):
+        if phase == 0:
+            for label in ("add_on", "aspp_w", "aspp_b"):
+                g[label] = OptimGroup(hp["warm_lr_add_on"], hp["warm_wd"])
+            g["prototypes"] = OptimGroup(hp["warm_lr_protos"])
+        elif phase == 1:
+            _joint_backbone(g, hp)
+            g["prototypes"] = OptimGroup(hp["joint_lr_protos"],
+                                         use_schedule=True)
+        else:
+            g["last_layer"] = OptimGroup(hp["last_layer_lr"])
+    elif variant == "group":
+        if phase == 0:
+            g["group_projection"] = OptimGroup(hp["warm_lr_group"])
+        elif phase == 1:
+            if not joint_last:
+                _joint_backbone(g, hp)
+                if not joint_no_proto:
+                    g["prototypes"] = OptimGroup(hp["joint_lr_protos"],
+                                                 use_schedule=True)
+            g["group_projection"] = OptimGroup(hp["joint_lr_group"],
+                                               use_schedule=True)
+            g["last_layer_group"] = OptimGroup(hp["last_layer_lr"],
+                                               use_schedule=True)
+        else:
+            g["last_layer_group"] = OptimGroup(hp["last_layer_lr"])
     else:
-        g["last_layer"] = OptimGroup(hp["last_layer_lr"])
+        raise ValueError(variant)
     return g
+
+
+def _joint_backbone(g: Dict[str, OptimGroup], hp: Dict[str, float]) -> None:
+    """The joint phase's backbone groups: add-on, convs, ASPP at 10x."""
+    g["add_on"] = OptimGroup(hp["joint_lr_add_on"], hp["joint_wd"],
+                             use_schedule=True)
+    g["features_conv"] = OptimGroup(hp["joint_lr_features"], hp["joint_wd"],
+                                    use_schedule=True)
+    for label in ("aspp_w", "aspp_b"):
+        g[label] = OptimGroup(10 * hp["joint_lr_features"], hp["joint_wd"],
+                              use_schedule=True)
 
 
 class PhaseOptimizer:

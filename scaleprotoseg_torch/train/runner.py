@@ -1,6 +1,7 @@
-"""Phase orchestration of the prototype-phase trainer.
+"""Phase orchestration of the prototype-phase and group-phase trainers.
 
-Drives one phase (0 warm-up, 1 joint, 2 last layer) over the prefetching
+Drives one phase (0 warm-up, 1 joint, 2 last layer; the group variant's
+stages carry ``-group``) over the prefetching
 loader: a micro-step per batch, validation every ``val_every`` micro-steps
 and at the end, ``{stage}_last`` and, on a better validation accuracy,
 ``{stage}_best`` checkpoints (``<stem>.pth`` plus the spec sidecar), early
@@ -45,7 +46,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def module_hparams(bindings: Bindings, variant: str) -> Dict:
-    """The ``PatchClassificationModule[MultiScale]`` bindings."""
+    """The ``PatchClassificationModule[MultiScale]`` bindings; the group
+    variant reads the same names."""
     name = "PatchClassificationModule" if variant == "single" else \
         "PatchClassificationModuleMultiScale"
     q = lambda p, d: query(bindings, name, p, d)  # noqa: E731
@@ -53,12 +55,22 @@ def module_hparams(bindings: Bindings, variant: str) -> Dict:
         raise NotImplementedError("trainable BatchNorm (freeze_type "
                                   f"{q('freeze_type', None)!r}) is not "
                                   "ported; BN stays frozen")
+    if variant != "group" and q("joint_last", None) is not None:
+        # joint_last / joint_no_proto shape the group joint phase only; on
+        # another variant they would do nothing
+        raise ValueError("joint_last is a group-phase flag; it has no "
+                         f"effect on the {variant!r} variant's phases")
     return dict(
-        weights=LossWeights(crs_ent=q("loss_weight_crs_ent", 1.0),
-                            l1=q("loss_weight_l1", 1e-4),
-                            kld=q("loss_weight_kld", 0.0),
-                            entropy=q("loss_weight_entropy", 0.0),
-                            norm=q("loss_weight_norm", 0.0)),
+        weights=LossWeights(
+            crs_ent=q("loss_weight_crs_ent", 1.0),
+            l1=q("loss_weight_l1", 1e-4),
+            kld=q("loss_weight_kld", 0.0),
+            entropy=q("loss_weight_entropy", 0.0),
+            spatial_entropy=q("loss_weight_spatial_entropy", 0.0),
+            norm=q("loss_weight_norm", 0.0),
+            crs_ent_group=q("loss_weight_crs_ent_group", 0.0),
+            scale_max=q("loss_weight_scale_max", 0.0),
+            group_ent=q("loss_weight_group_ent", 0.0)),
         hp=dict(
             warm_lr_add_on=q("warm_optimizer_lr_add_on_layers", 2.5e-4),
             warm_lr_protos=q("warm_optimizer_lr_prototype_vectors", 2.5e-4),
@@ -68,10 +80,15 @@ def module_hparams(bindings: Bindings, variant: str) -> Dict:
             joint_lr_protos=q("joint_optimizer_lr_prototype_vectors",
                               2.5e-4),
             joint_wd=q("joint_optimizer_weight_decay", 0.0),
-            last_layer_lr=q("last_layer_optimizer_lr", 2.5e-4)),
+            last_layer_lr=q("last_layer_optimizer_lr", 2.5e-4),
+            warm_lr_group=q("warm_optimizer_lr_group_projection", 2.5e-4),
+            joint_lr_group=q("joint_optimizer_lr_group_projection",
+                             2.5e-4)),
         poly_lr_power=q("poly_lr_power", 0.9),
         iter_size=q("iter_size", 1),
         ignore_void_class=q("ignore_void_class", True),
+        joint_no_proto=q("joint_no_proto", False),
+        joint_last=q("joint_last", True),
     )
 
 
@@ -121,7 +138,8 @@ class PhaseTrainer:
         self.best_acc = 0.0
 
     def stage_key(self, phase: int) -> str:
-        return {0: "warmup", 1: "nopush", 2: "push"}[min(phase, 2)]
+        base = {0: "warmup", 1: "nopush", 2: "push"}[min(phase, 2)]
+        return base + ("-group" if self.variant == "group" else "")
 
     def _avg_dist_proto(self) -> float:
         """Per-scale mean pairwise squared distance of the prototypes."""
@@ -146,14 +164,21 @@ class PhaseTrainer:
                   global_step0: int = 0) -> PhaseResult:
         hp = self.hp
         iter_size = int(hp["iter_size"])
-        groups = phase_groups(self.variant, phase, hp["hp"])
+        groups = phase_groups(self.variant, phase, hp["hp"],
+                              joint_last=hp["joint_last"],
+                              joint_no_proto=hp["joint_no_proto"])
         schedule = poly_schedule(hp["poly_lr_power"],
                                  max(max_steps // iter_size, 1)) \
             if phase == 1 else None
         state = TrainState(self.model, PhaseOptimizer(
             self.model.named_parameters(), groups, schedule=schedule,
             iter_size=iter_size, guard_nonfinite=50))
-        step_fn = make_train_step(hp["weights"], hp["ignore_void_class"])
+        grouped = self.variant == "group"
+        step_fn = make_train_step(
+            hp["weights"], hp["ignore_void_class"],
+            grad_mask_last_group=(grouped and phase == 1 and
+                                  self.model.incorrect_strength == 0),
+            project_group_simplex=grouped)
         eval_fn = make_eval_step(hp["weights"], hp["ignore_void_class"])
         stage = self.stage_key(phase)
         val_every = val_every_steps or max(len(train_loader), 1)

@@ -1,5 +1,5 @@
-"""Train and eval steps of the prototype phase: loss assembly and the
-micro-step update.
+"""Train and eval steps of the prototype and group phases: loss assembly
+and the micro-step update.
 
 The label map is resized to the logit grid inside the step (PIL-NEAREST
 indices, ``ops.resize.resize_label_nearest``), the losses are the JAX
@@ -25,14 +25,20 @@ Metrics = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class LossWeights:
-    """The prototype phase's loss weights (config
-    ``PatchClassificationModuleMultiScale.loss_weight_*``)."""
+    """The loss weights (config
+    ``PatchClassificationModuleMultiScale.loss_weight_*``); ``kld`` weighs
+    the prototype KLD in the prototype phase and the group KLD in the group
+    phase."""
 
     crs_ent: float = 1.0
     l1: float = 1e-4
     kld: float = 0.0
     entropy: float = 0.0
+    spatial_entropy: float = 0.0
     norm: float = 0.0
+    crs_ent_group: float = 0.0
+    scale_max: float = 0.0
+    group_ent: float = 0.0
 
 
 def compute_losses(model: PPNet, out: PPNetOutput, target_full: torch.Tensor,
@@ -40,9 +46,6 @@ def compute_losses(model: PPNet, out: PPNetOutput, target_full: torch.Tensor,
                    class_weights: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Metrics]:
     """Total loss and metrics of one output against (B, H, W) labels."""
-    if model.grouped:
-        raise NotImplementedError("the group losses (finetune_wandb_group) "
-                                  "are not ported yet")
     spec = model.spec
     target = resize_label_nearest(target_full, out.logits.shape[1],
                                   out.logits.shape[2])
@@ -50,47 +53,76 @@ def compute_losses(model: PPNet, out: PPNetOutput, target_full: torch.Tensor,
         out.logits, target, ignore_void=ignore_void,
         class_weights=class_weights)
     zero = torch.zeros((), device=ce.device)
-    kld = L.kld_loss(out.distances, target, spec) if weights.kld > 0 \
-        else zero
-    # the active rows only: dangling bank rows never reach the logits
-    a = spec.num_active_prototypes
-    l1 = L.last_layer_l1(model.last_layer.weight.t()[:a],
-                         L.loss_tables(spec, ce.device)["identity"])
-    ent = L.entropy_sampl_loss(out.activations, target, spec) \
-        if weights.entropy > 0 else zero
-    nrm = L.norm_loss(out.activations, target, spec) if weights.norm > 0 \
-        else zero
-    total = weights.crs_ent * ce + weights.kld * kld + weights.l1 * l1 + \
-        weights.entropy * ent + weights.norm * nrm
+    w = weights
+    on = lambda weight, fn, *args: fn(*args, spec) if weight > 0 \
+        else zero  # noqa: E731
+    nrm = on(w.norm, L.norm_loss, out.activations, target)
+    if model.grouped:
+        gw, glw = model.group_weights()
+        kld = on(w.kld, L.kld_group_loss, out.group_activations, target)
+        l1 = L.last_layer_l1(glw, L.loss_tables(spec, ce.device)["gci"])
+        terms = {"kld_loss": kld, "l1": l1,
+                 "spat_ent_loss": on(w.spatial_entropy, L.entropy_spat_loss,
+                                     out.activations, target),
+                 "norm_loss": nrm,
+                 "cross_entropy_group": on(w.crs_ent_group,
+                                           L.cross_entropy_group_loss, gw),
+                 "scale_max_loss": on(w.scale_max, L.scale_max_loss, gw),
+                 "group_ent_loss": on(w.group_ent, L.entropy_group_loss, gw)}
+        factors = (w.kld, w.l1, w.spatial_entropy, w.norm, w.crs_ent_group,
+                   w.scale_max, w.group_ent)
+    else:
+        # the active rows only: dangling bank rows never reach the logits
+        a = spec.num_active_prototypes
+        l1 = L.last_layer_l1(model.last_layer.weight.t()[:a],
+                             L.loss_tables(spec, ce.device)["identity"])
+        terms = {"kld_loss": on(w.kld, L.kld_loss, out.distances, target),
+                 "l1": l1,
+                 "ent_loss": on(w.entropy, L.entropy_sampl_loss,
+                                out.activations, target),
+                 "norm_loss": nrm}
+        factors = (w.kld, w.l1, w.entropy, w.norm)
+    total = w.crs_ent * ce
+    for f, v in zip(factors, terms.values()):
+        total = total + f * v
     return total, {"loss": total, "cross_entropy": ce,
                    "n_correct": correct.sum(),
                    "n_patches": torch.full((), float(correct.numel()),
-                                           device=ce.device),
-                   "kld_loss": kld, "l1": l1, "ent_loss": ent,
-                   "norm_loss": nrm}
+                                           device=ce.device), **terms}
 
 
 def make_train_step(weights: LossWeights, ignore_void: bool = True,
-                    class_weights: Optional[torch.Tensor] = None
+                    class_weights: Optional[torch.Tensor] = None,
+                    grad_mask_last_group: bool = False,
+                    project_group_simplex: bool = False
                     ) -> Callable[[TrainState, torch.Tensor, torch.Tensor],
                                   Metrics]:
     """``step(state, image, target) -> metrics``: one micro-step of
     ``state.model`` on (B, H, W, 3) images and (B, H, W) labels, both on
-    the model's device."""
+    the model's device.  Group phase: ``grad_mask_last_group`` keeps only
+    the own-class entries of the group last layer's gradient (the joint
+    phase at incorrect_strength 0), ``project_group_simplex`` puts the
+    group projections back on the simplex after the update (idempotent
+    on accumulation micro-steps, which update nothing)."""
 
     def step(state: TrainState, image: torch.Tensor,
              target: torch.Tensor) -> Metrics:
-        if getattr(state.model.features.base, "quant8", False):
+        model = state.model
+        if getattr(model.features.base, "quant8", False):
             raise ValueError(
                 "model was built with quant8 (int8 serving convs: their "
                 "round() has zero gradient, so training would silently "
                 "freeze the backbone); reload without quant8 to train")
-        state.model.train()
-        out = state.model(image)
-        loss, metrics = compute_losses(state.model, out, target, weights,
+        model.train()
+        out = model(image)
+        loss, metrics = compute_losses(model, out, target, weights,
                                        ignore_void, class_weights)
         loss.backward()
+        if grad_mask_last_group:
+            model.mask_last_layer_group_grad_()
         state.optimizer.step()
+        if project_group_simplex:
+            model.project_group_simplex_()
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}
 

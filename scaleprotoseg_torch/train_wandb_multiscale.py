@@ -8,18 +8,19 @@ CONFIG is a name in ``scaleprotoseg_torch/configs`` (e.g.
 ``scaleproto_cityscapes``) or a path; RUN names the run directory under
 the results root.  Pipeline: seed -> model -> phase 0 (warm-up: ASPP and
 prototypes) -> phase 1 (joint: every conv outside BN, ASPP at 10x, and
-prototypes, under poly decay) -> phase 2 (last layer, when
-``train.finetune_steps > 0``) -> ``checkpoints/push_final``.  Each phase
-writes ``{warmup,nopush,push}_{last,best}`` at its validations; every
-checkpoint is ``<stem>.pth`` plus its spec sidecar and loads through
-``model_loading.load_model``.
+prototypes, under poly decay) -> prototype push (``train.push_proto``,
+default True: each prototype onto its nearest same-class training pixel,
+exact duplicates pruned, ``push_last`` written) -> phase 2 (last layer,
+when ``train.finetune_steps > 0``) -> ``checkpoints/push_final``.  Each
+phase writes ``{warmup,nopush,push}_{last,best}`` at its validations;
+every checkpoint is ``<stem>.pth`` plus its spec sidecar and loads
+through ``model_loading.load_model``.  ``finetune_wandb_group`` starts the
+group phase from ``push_final``.
 
 The device is ``cuda`` unless ``--device`` names another; without a card
-that is an error.  Not ported yet, and refused: prototype push
-(``train.push_proto``, default True: pass ``--gin "train.push_proto =
-False"``), the group phase, a pretrained backbone from the environment,
-Orbax resume and preemption, the profiler trace, W&B and TensorBoard
-sinks, and more than one device.
+that is an error.  Not ported yet, and refused: push's image artifacts, a
+pretrained backbone from the environment, Orbax resume and preemption,
+the profiler trace, W&B and TensorBoard sinks, and more than one device.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ from scaleprotoseg_torch.checkpoints.convert import (load_checkpoint,
 from scaleprotoseg_torch.configlib import Bindings, query
 from scaleprotoseg_torch.model_loading import resolve_device
 from scaleprotoseg_torch.models.factory import construct_ppnet
+from scaleprotoseg_torch.push.push import push_prototypes
+from scaleprotoseg_torch.spec import ProtoSpec
 from scaleprotoseg_torch.train.metrics import MetricsLogger, create_logger
 from scaleprotoseg_torch.train.runner import (PhaseResult, PhaseTrainer,
                                               module_hparams)
@@ -43,10 +46,12 @@ from scaleprotoseg_torch.train.runner import (PhaseResult, PhaseTrainer,
 VARIANT = "multiscale"
 
 
-def build_model(bindings: Bindings, seed: int):
-    """(model, spec) from the ``construct_PPNet`` bindings; the prototypes
-    come from a generator seeded with ``seed``, the convs from torch's
-    seeded global stream."""
+def build_model(bindings: Bindings, seed: int,
+                spec: Optional[ProtoSpec] = None):
+    """(model, spec) from the ``construct_PPNet`` bindings (``spec``: a
+    pruned bank in place of the equal allocation); the prototypes come
+    from a generator seeded with ``seed``, the convs from torch's seeded
+    global stream."""
     q = lambda p, d=None: query(bindings, "construct_PPNet", p, d)  # noqa
     if q("pretrained", False):
         raise NotImplementedError("construct_PPNet.pretrained is not ported")
@@ -57,7 +62,7 @@ def build_model(bindings: Bindings, seed: int):
         prototype_activation_function=q("prototype_activation_function",
                                         "log"),
         add_on_layers_type=q("add_on_layers_type", "deeplab_simple"),
-        scale_head_type=q("scale_head_type"), bindings=bindings,
+        scale_head_type=q("scale_head_type"), bindings=bindings, spec=spec,
         generator=torch.Generator().manual_seed(seed))
 
 
@@ -67,15 +72,11 @@ def train(config: str, experiment_name: str, data_root: Optional[str] = None,
           device: Optional[str] = None, results_root: Optional[str] = None,
           log=None) -> Dict:
     """Run the phases; returns ``{"final": <push_final stem>, "phases":
-    {phase: PhaseResult}}``."""
+    {phase: PhaseResult}, "push": PushResult or None}``."""
     dev = resolve_device(device)
     config_file, bindings = cli_common.load_config(config)
     lines = cli_common.apply_overrides(bindings, gin_overrides, gpu_recipe)
     hp = cli_common.train_hparams(bindings)
-    if hp["push_proto"]:
-        raise NotImplementedError(
-            "prototype push (train.push_proto) is not ported yet; run with "
-            "--gin \"train.push_proto = False\"")
     for env in ("PRETRAINED_BACKBONE", "PRETRAINED_BACKBONE_CKPT"):
         if os.environ.get(env):
             raise NotImplementedError(f"{env}: loading a pretrained backbone "
@@ -97,37 +98,42 @@ def train(config: str, experiment_name: str, data_root: Optional[str] = None,
         sd, _ = load_checkpoint(os.path.splitext(start)[0])
         model.load_state_dict(sd, strict=True)
         log(f"Resumed from {start}")
-    trainer = PhaseTrainer(model, spec, VARIANT, run,
-                           module_hparams(bindings, VARIANT), bindings, dev,
+    mhp = module_hparams(bindings, VARIANT)
+    trainer = PhaseTrainer(model, spec, VARIANT, run, mhp, bindings, dev,
                            logger=MetricsLogger(run), log=log)
-    val_check = query(bindings, "Trainer", "val_check_interval", None)
-
     phases: Dict[int, PhaseResult] = {}
-    global_step = 0
-    plan = ((0, hp["warmup_steps"], hp["warmup_batch_size"], None),
-            (1, hp["joint_steps"], hp["joint_batch_size"], None),
-            (2, hp["finetune_steps"], hp["joint_batch_size"],
-             hp["early_stopping_patience_last_layer"]))
-    for phase, steps, batch, patience in plan:
-        if steps <= 0:
-            continue
-        tl, vl = cli_common.make_loaders(bindings, batch,
-                                         num_workers=num_workers,
-                                         seed=seed + phase,
-                                         data_root=data_root)
-        res = trainer.run_phase(phase, steps, tl, vl,
-                                early_stopping_patience=patience,
-                                val_every_steps=val_check,
-                                global_step0=global_step)
-        phases[phase] = res
-        global_step += res.steps_done
+    cli_common.run_phases(trainer, bindings, hp, (0, 1), phases,
+                          num_workers=num_workers, data_root=data_root)
+    push = None
+    if hp["push_proto"]:
+        push = push_prototypes(
+            model, spec, cli_common.make_push_loader(
+                bindings, num_workers=num_workers, data_root=data_root),
+            prototypes_dir=os.path.join(run, "prototypes"), log=log)
+        if push.spec.num_prototypes != spec.num_prototypes:
+            # dedup pruned the bank: a model, optimizer and K2 weight
+            # cache of the new size
+            spec = push.spec
+            model, _ = build_model(bindings, seed, spec)
+            model.load_state_dict(push.state_dict, strict=True)
+            trainer = PhaseTrainer(model, spec, VARIANT, run, mhp, bindings,
+                                   dev, logger=trainer.logger, log=log)
+            log(f"push: the model now holds {spec.num_prototypes} "
+                "prototypes")
+        save_checkpoint(os.path.join(run, "checkpoints", "push_last"),
+                        _numpy_state(model), spec, extra={"variant": VARIANT})
+    cli_common.run_phases(trainer, bindings, hp, (2,), phases,
+                          num_workers=num_workers, data_root=data_root)
 
     final = os.path.join(run, "checkpoints", "push_final")
-    save_checkpoint(final, {k: v.detach().cpu().numpy()
-                            for k, v in model.state_dict().items()}, spec,
+    save_checkpoint(final, _numpy_state(model), spec,
                     extra={"variant": VARIANT})
     log(f"Training complete; final checkpoint: {final}.pth")
-    return {"final": final, "phases": phases}
+    return {"final": final, "phases": phases, "push": push}
+
+
+def _numpy_state(model) -> Dict:
+    return {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
 
 
 def main(argv: Optional[List[str]] = None) -> Dict:

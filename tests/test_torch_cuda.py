@@ -62,21 +62,6 @@ def gen():
     return np.random.default_rng(7)
 
 
-def _without(spec, drop):
-    """``spec`` with the prototypes in ``drop`` removed (per-scale ranges
-    re-packed), as a pruned checkpoint carries it."""
-    drop = set(drop)
-    keep = [p for p in range(spec.num_prototypes) if p not in drop]
-    bounds, pos = [], 0
-    for lo, hi in spec.scale_bounds:
-        n = sum(lo <= p < hi for p in keep)
-        bounds.append((pos, pos + n))
-        pos += n
-    return ProtoSpec(spec.num_classes, spec.num_scales, spec.proto_depth,
-                     tuple(spec.class_ids[p] for p in keep), tuple(bounds),
-                     spec.num_groups)
-
-
 def _bf16_ulps(got, want):
     mag = np.maximum(np.abs(want), np.abs(want).max() * 2.0 ** -10)
     return float((np.abs(got - want)
@@ -259,7 +244,7 @@ def test_proto_kernel_matches_plain(dev, gen, grouped, bank):
     if bank == "cityscapes":
         spec = ProtoSpec.equal_allocation(228, 64, num_classes=19,
                                           num_groups=g)
-        spec = _without(spec, [3, 100] + [
+        spec = spec.prune([3, 100] + [
             p for p, c in enumerate(spec.class_ids) if c == 4])
     elif bank == "ade20k":
         spec = ProtoSpec.equal_allocation(1800, 64, num_classes=150,
@@ -561,3 +546,125 @@ def test_int8_wrappers_refuse_misaligned_operands(dev):
     x = torch.zeros(2 + 64, dtype=torch.float32, device=dev)[2:]
     with pytest.raises(ValueError, match="aligned"):
         kernels.quantize_int8(x, torch.tensor(1.0, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# push and the group step on the card
+# ---------------------------------------------------------------------------
+def _narrow_group_model(spec, seed=0):
+    """A one-block-per-stage DeepLabV2 (full ASPP widths, so K2 runs) with
+    a group head over ``spec`` and seeded synthetic weights."""
+    from scaleprotoseg_torch.models.deeplab import DeepLabV2
+    from scaleprotoseg_torch.models.ppnet import PPNet
+    from scaleprotoseg_torch.checkpoints.convert import synthetic_state_dict
+    backbone = DeepLabV2(n_out=64, n_blocks=(1, 1, 1, 1),
+                         atrous_rates=(6, 12, 18, 24), aspp_mode="concat")
+    model = PPNet(backbone, spec, grouped=True)
+    sd = synthetic_state_dict(model, seed)
+    for key in sd:      # bounded activations, as chip_smoke.write_run
+        if key.endswith(".increase.bn.weight"):
+            sd[key] = sd[key] * np.float32(0.1)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+    return model
+
+
+class _Loader:
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def test_push_on_the_card_matches_the_cpu(dev, gen):
+    """Push of a model in the bf16 training recipe (K2 on) runs the float32
+    forward without K2 and TF32: on the card it finds the CPU's winners and
+    vectors (atol 1e-5 where the best-to-second margin exceeds 1e-4), K2
+    never launches, and the recipe is restored."""
+    from scaleprotoseg_torch.push.push import push_prototypes
+    spec = ProtoSpec.equal_allocation(228, 64, num_classes=19, num_groups=3)
+    y = np.repeat(np.repeat(np.arange(20).reshape(4, 5), 17, 0), 14, 1)
+    batches = [(gen.standard_normal((2, 65, 65, 3)).astype(np.float32),
+                np.stack([np.roll(y[:65, :65], (i, 3 * s), (0, 1))
+                          for s in (0, 1)]).astype(np.int32))
+               for i in range(2)]
+    cpu = _narrow_group_model(spec)
+    card = _narrow_group_model(spec).to(dev)
+    card.set_compute_dtype(torch.bfloat16)
+    card.features.base.aspp.fast = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        want = push_prototypes(cpu, spec, _Loader(batches), dedup=False,
+                               log=lambda _: None)
+        before = kernels.fused_aspp.launches
+        got = push_prototypes(card, spec, _Loader(batches), dedup=False,
+                              log=lambda _: None)
+        assert kernels.fused_aspp.launches == before
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert card.dtype == torch.bfloat16 and card.features.base.aspp.fast
+    from scaleprotoseg_torch.ops.resize import resize_label_nearest
+    cls = torch.as_tensor(spec.class_ids)
+    masked = []
+    with torch.no_grad():
+        for x, t in batches:
+            d = cpu.eval().push_forward(torch.from_numpy(x))[1]
+            t = resize_label_nearest(torch.from_numpy(t), d.shape[1],
+                                     d.shape[2]).long() - 1
+            masked.append(torch.where(t[..., None] == cls, d, d + 1e10)
+                          .reshape(-1, 228))
+    two = torch.sort(torch.cat(masked), 0).values[:2]
+    decided = ((two[1] - two[0]) > 1e-4 * (1 + two[0])).numpy()
+    assert decided.mean() > 0.8, decided.mean()
+    np.testing.assert_array_equal(got.winners[decided], want.winners[decided])
+    np.testing.assert_array_equal(got.flat_idx[decided],
+                                  want.flat_idx[decided])
+    np.testing.assert_allclose(
+        card.prototypes().detach().cpu().numpy()[decided],
+        cpu.prototypes().detach().numpy()[decided], rtol=0, atol=1e-5)
+
+
+def test_group_step_projects_and_k1_follows(dev, gen):
+    """A group joint micro-step on the card: the rows stay on the simplex
+    after the projection, and K1's packed head (cached on the parameter
+    versions) serves the projected weights, rtol = atol = 1e-4 against the
+    plain head."""
+    from scaleprotoseg_torch.train.optim import PhaseOptimizer, phase_groups
+    from scaleprotoseg_torch.train.state import TrainState
+    from scaleprotoseg_torch.train.steps import LossWeights, make_train_step
+    spec = ProtoSpec.equal_allocation(228, 64, num_classes=19,
+                                      num_groups=3).prune([3, 60, 61, 130])
+    model = _narrow_group_model(spec).to(dev)
+    model.set_compute_dtype(torch.bfloat16)
+    model.features.base.aspp.fast = True
+    hp = dict(joint_lr_group=1e-2, last_layer_lr=1e-2)
+    opt = PhaseOptimizer(model.named_parameters(),
+                         phase_groups("group", 1, hp))
+    state = TrainState(model, opt)
+    step = make_train_step(LossWeights(l1=1e-3, group_ent=0.05),
+                           project_group_simplex=True)
+    x = torch.from_numpy(gen.standard_normal((2, 65, 65, 3))
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(gen.integers(0, 20, (2, 65, 65))
+                         .astype(np.int32)).to(dev)
+    with torch.no_grad():
+        model.eval().fast_logits(x.to(torch.bfloat16))   # head cached
+    before = [m.weight.detach().clone() for m in model.group_projection]
+    metrics = step(state, x, y)
+    assert torch.isfinite(metrics["loss"])
+    rows = [m.weight.detach() for m in model.group_projection]
+    assert not all(torch.equal(a, b) for a, b in zip(rows, before))
+    for w in rows:
+        assert bool((w >= 0).all())
+        torch.testing.assert_close(w.sum(-1), torch.ones_like(w[:, 0]),
+                                   rtol=0, atol=1e-5)
+    model.eval()
+    with torch.no_grad():
+        xb = x.to(torch.bfloat16)
+        got = model.fast_logits(xb)
+        feats = model.conv_features(xb).contiguous()
+        gw, glw = model.group_weights()
+        want = proto_plain(feats, model.prototypes(), None, spec,
+                           group_projection=gw, last_layer_group=glw)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

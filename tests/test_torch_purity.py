@@ -22,8 +22,11 @@ import chip_smoke  # noqa: F401
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "scaleprotoseg_tpu"))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 20 else 0)
+missing = sorted({"scaleprotoseg_torch." + m for m in (
+    "ops.simplex", "push.push", "models.group_init",
+    "finetune_wandb_group")} - set(names))
+print(len(names), bad, missing)
+sys.exit(1 if bad or missing or len(names) < 20 else 0)
 """
 
 

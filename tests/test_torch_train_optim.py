@@ -113,11 +113,6 @@ def _get(tree, path):
     return tree
 
 
-def test_optimizer_refuses_group_variant():
-    with pytest.raises(NotImplementedError, match="finetune_wandb_group"):
-        toptim.phase_groups("group", 1, HP)
-
-
 def test_optimizer_step_invalidates_weight_caches():
     """The fused update does not bump the parameters' version counters
     itself; after ``step`` a ``WeightCache`` over them must rebuild, or

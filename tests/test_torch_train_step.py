@@ -218,14 +218,6 @@ def test_cli_trains_on_cpu_and_checkpoints_load(tmp_path):
     assert (run / "metrics.csv").exists()
 
 
-def test_cli_refuses_push(tmp_path):
-    root = build_synthetic_dataset(str(tmp_path / "data"), n_train=2,
-                                   n_val=2, size=48)
-    with pytest.raises(NotImplementedError, match="push_proto"):
-        trainer.main(_argv(root, tmp_path / "results", []))
-    assert not (tmp_path / "results" / "tiny_run" / "checkpoints").exists()
-
-
 def test_cli_without_device_needs_cuda(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -8,11 +8,13 @@ with ``strict=True``.  Inputs cross as numpy arrays.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 import jax
 import jax.numpy as jnp
 
 from __graft_entry__ import _flagship, synthetic_init
+from scaleprotoseg_torch.kernels import proto as tproto
 from scaleprotoseg_torch.checkpoints.convert import (ppnet_params_to_statedict,
                                                      to_tensors)
 from scaleprotoseg_torch.models.deeplab import DeepLabV2 as TDeepLabV2
@@ -74,3 +76,54 @@ def labels_equal_outside_ties(got: np.ndarray, want: np.ndarray,
     decided = (top2[..., 1] - top2[..., 0]) >= margin
     assert decided.mean() > 0.9, "too few decided pixels to compare"
     np.testing.assert_array_equal(got[decided], want[decided])
+
+
+def emulate_proto_kernel(feats, head, spec, pieces=3):
+    """``csrc/proto.cu``'s arithmetic on the CPU, read from the packed head
+    alone: per step the cross term as the bf16 pieces' products (exact
+    products, lo first; ``pieces`` = 2 leaves lo out) summed and rounded
+    to fp32, the reference
+    formula for d and the activation, then the head tables walked as the
+    kernel walks them (group: each half of a chunk's entries adds into
+    registers and flushes a class run into its G scores; plain: each half
+    of the pass's output columns), and each pass's logits written or
+    added."""
+    x = feats.reshape(-1, spec.feature_depth).float()
+    n, c, g = x.shape[0], spec.num_classes, head.groups
+    k = head.columns.shape[0]
+    split = head.bank.reshape(k, 3, 64, 64).double()
+    table = head.table
+    out = torch.full((n, c), float("nan"))     # every logit written once
+    scores = None
+    for a0, q, e0, e1, e2, flags, win0, wins in head.steps.tolist():
+        xs = x[:, a0 * 64:(a0 + 1) * 64]
+        if flags & tproto.OPEN:
+            scores = torch.zeros((n, 64))
+        cross = sum(xs.double() @ split[q, pc].t()
+                    for pc in reversed(range(pieces)))
+        xn = (xs * xs).sum(-1, keepdim=True)
+        d = torch.relu((xn - 2.0 * cross.float()) + head.chunk_pn[q])
+        act = torch.log((d + 1.0) / (d + 1e-4))
+        if g:
+            for lo, hi in ((e0, e1), (e1, e2)):
+                acc = torch.zeros((n, 4))
+                for e in range(lo, hi):
+                    meta = int(table[e, 4:5].view(torch.int32))
+                    acc += act[:, meta & 63, None] * table[e, :4]
+                    if meta & 64:
+                        base = meta >> 8
+                        scores[:, base:base + g] += acc[:, :g]
+                        acc.zero_()
+        else:
+            kb = (wins + 1) // 2
+            blk = table[e0]
+            w = torch.cat([blk[:e1, 0, :kb], blk[:e1, 1, :wins - kb]], 1)
+            scores[:, :wins] += act[:, :e1] @ w
+        if flags & tproto.CLOSE:
+            if g:
+                o = torch.exp(scores[:, :wins]) @ \
+                    head.glw_pad[win0:win0 + wins, :c]
+                out = o if flags & tproto.WRITE else out + o
+            else:
+                out[:, win0:win0 + wins] = scores[:, :wins]
+    return out.reshape(*feats.shape[:-1], c)
