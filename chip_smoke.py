@@ -71,7 +71,8 @@ Phases; any failure exits non-zero and prints no result:
    difference, img/s and the launches are printed;
 5. training slice: a temporary Cityscapes-layout data root (24 train and
    4 val seeded uint8 1024 x 2048 images, raw category-index labels in
-   blocks holding void and every train class) trained through
+   blocks holding void and every train class, each block a seeded colour
+   of its class plus noise) trained through
    ``scaleprotoseg_torch.train_wandb_multiscale.main --gpu-recipe`` on
    the full-depth flagship backbone: 20 warm-up and 40 joint micro-steps
    (``iter_size`` 5), a validation every 20.  Per phase: every micro-step's
@@ -102,7 +103,27 @@ Phases; any failure exits non-zero and prints no result:
    K1 is held at the bank push left: on random features against its plain
    version (rtol = atol = 1e-4), on the served features (pushed
    prototypes, d ~ 0) against the float64 head within
-   ``PROTO_PUSHED_RTOL`` of its largest logit;
+   ``PROTO_PUSHED_RTOL`` of its largest logit.  Then the pruning slice on
+   the same runs: the push artifacts the trainer wrote (seconds, files, one
+   ``bb.npy`` row per prototype of the scanned bank, every matched box
+   inside 1024 x 2048); ``run_pruning.main`` (k = 6, threshold 3, the 24
+   train images at full size; no kernel launch): every kept prototype has
+   >= 3 own-class labels among its 6 and every pruned one fewer, each
+   pushed prototype's nearest non-void patch lies within 1e-5 (1 + |p|^2),
+   the share whose first label is its own class is printed;
+   ``train_wandb.main --pruned --gpu-recipe`` for 10 last-layer
+   micro-steps: losses finite, K2's forward on every micro-step and
+   validation batch, its backward never, only ``last_layer.weight`` moved,
+   img/s, step ms and idle share; the ``pruned`` phase served as
+   ``final-group`` is (labels and K1 at its bank);
+   ``threshold_save`` at 0.1 on ``final-group``: entries below 0.1 zeroed,
+   the rest bit-equal, no row re-normalised, ``th-0.1-final-group``
+   served likewise; ``eval_test.main`` on ``pruned`` over 4 test images:
+   K1, K2 and K3 once a batch, 4 gray PNGs of 1024 x 2048 decoded by
+   ``imageio.read_png``, every value a Cityscapes label id, equal to the
+   plain path's after the label table on >= 99% of pixels; and
+   ``run_evaluation`` of ``pruned`` over the 4 val images (a finite mIoU,
+   K2 and K3 once a batch);
 6. one line per kernel with its times, bound and launches, for the six
    kernels since redesigned the earlier design's recorded times beside
    the new ones, the card's name and power limit, the kernels
@@ -174,6 +195,8 @@ N_TRAIN, N_VAL = 24, 4
 WARMUP_STEPS, JOINT_STEPS, VAL_EVERY = 20, 40, 20
 GROUP_WARMUP_STEPS, GROUP_JOINT_STEPS = 10, 10   # a validation at each end
 N_GROUP_SERVE = 8
+PRUNED_STEPS = 10             # last-layer micro-steps of the pruned model
+N_TEST = 4                    # test-split images exported by eval_test
 SERVING_KERNELS = ("aspp", "proto", "upsample")
 TRAINING_KERNELS = ("aspp", "aspp_grad_pack", "aspp_grad_weight")
 
@@ -965,6 +988,16 @@ def write_run(root: str, seed: int, dev) -> str:
     return run
 
 
+def head_kw(model) -> dict:
+    """The prototype head's weights as K1 and its plain versions take
+    them: the plain last layer, or the dense group weights."""
+    if model.grouped:
+        gw, glw = model.group_weights()
+        return dict(last_layer=None, group_projection=gw,
+                    last_layer_group=glw)
+    return dict(last_layer=model.last_layer.weight.t())
+
+
 def plain_path(model):
     """``fn(x)`` for raw uint8 batches: the labels of the serving fast path
     with every kernel replaced by its plain version (K2 by ``aspp_plain``,
@@ -985,9 +1018,8 @@ def plain_path(model):
     def fn(x: torch.Tensor) -> torch.Tensor:
         xn = ((x.float() / 255.0 - mean) / std).to(torch.bfloat16)
         feats = model.conv_features(xn).contiguous()
-        gw, glw = model.group_weights()
-        logits = proto_plain(feats, model.prototypes(), None, model.spec,
-                             group_projection=gw, last_layer_group=glw)
+        logits = proto_plain(feats, model.prototypes(), spec=model.spec,
+                             **head_kw(model))
         return upsample_argmax_plain(logits, x.shape[1], x.shape[2])
 
     return fn
@@ -1310,10 +1342,14 @@ def write_city_root(root: str, seed: int,
     """Cityscapes layout at Cityscapes size: uint8 1024 x 2048 images and
     raw category-index labels in a 4 x 5 grid of blocks, one void block
     and one per train class, shuffled per image; ``splits`` gives the
-    image count of each split."""
+    image count of each split.  Each block's pixels are a seeded colour of
+    its class plus uniform noise of +-48, so that patches of one class lie
+    near each other (purity pruning then keeps most prototypes)."""
     rng = np.random.default_rng(seed)
     cats = [0] + [next(k for k, v in CITYSCAPES_19_EVAL_CATEGORIES.items()
                        if v == c) for c in range(1, 20)]
+    palette = np.zeros((256, 3), np.int16)
+    palette[cats] = rng.integers(48, 208, (len(cats), 3))
     bh, bw = HEIGHT // 4, WIDTH // 5 + 1
     index = {}
     for split, n in splits:
@@ -1327,8 +1363,9 @@ def write_city_root(root: str, seed: int,
             label = np.repeat(np.repeat(grid, bh, 0), bw, 1)[:HEIGHT, :WIDTH]
             np.save(os.path.join(ann, name + ".npy"),
                     np.ascontiguousarray(label))
+            noise = rng.integers(-48, 49, (HEIGHT, WIDTH, 3), dtype=np.int16)
             np.save(os.path.join(img, name + ".npy"),
-                    rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8))
+                    (palette[label] + noise).astype(np.uint8))
     with open(os.path.join(root, "all_images.json"), "w") as f:
         json.dump(index, f)
     return root
@@ -1367,6 +1404,7 @@ def training_phase(dev, smi: str) -> dict:
                 "--data-root", data, "--results-root", tmp]
         for line in gin:
             argv += ["--gin", line]
+        artifacts = time_artifacts()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         out = train_wandb_multiscale.main(argv)
@@ -1443,10 +1481,11 @@ def training_phase(dev, smi: str) -> dict:
         del served, logits, x
         torch.cuda.empty_cache()
         group = group_phase(tmp, data, out["final"], batch, dev, smi)
+        pruning = pruning_phase(tmp, data, out, artifacts, dev, smi)
         return dict(counts=counts, step_cmp=step_cmp, pushed_cmp=pushed_cmp,
                     profiles=step_profiles,
                     perf={p: out["phases"][p].perf for p in (0, 1)},
-                    push=push_stats, group=group)
+                    push=push_stats, group=group, pruning=pruning)
 
 
 def kernel_vs_plain_step(bindings, stem: str, batch, dev):
@@ -1519,6 +1558,281 @@ def check_push(out: dict, data: str, dev) -> dict:
         raise AssertionError(f"push: a kept prototype sits {worst:.3g} from "
                              "its winning pixel")
     return stats
+
+
+def time_artifacts() -> dict:
+    """Times push's artifact pass inside the trainer: the returned dict
+    gets its ``seconds`` and its bound-box table."""
+    from scaleprotoseg_torch.push import artifacts
+    seen = {}
+    save = artifacts.save_push_artifacts
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        seen["bb"] = save(*args, **kwargs)
+        seen["seconds"] = time.perf_counter() - t0
+        return seen["bb"]
+
+    artifacts.save_push_artifacts = timed
+    return seen
+
+
+def check_artifacts(run: str, push, artifacts: dict, smi: str) -> dict:
+    """The push artifacts the trainer wrote: five files a matched
+    prototype under its class's directory, and ``bb.npy`` one row per
+    prototype of the scanned bank, each matched row its winner image and
+    a box inside the image."""
+    root = os.path.join(run, "prototypes")
+    files = [f for _, _, fs in os.walk(root) for f in fs
+             if f.startswith(("prototype-", "bb"))]
+    bb = np.load(os.path.join(root, "bb.npy"))
+    matched = push.winners >= 0
+    rows = bb[matched]
+    if bb.shape != (len(push.winners), 6) or not np.array_equal(
+            rows[:, 0], push.winners[matched]) or \
+            not (bb[~matched] == -1).all():
+        raise AssertionError(f"bb.npy {bb.shape} does not follow the winners")
+    inside = ((rows[:, 1] >= 0) & (rows[:, 1] < rows[:, 2]) &
+              (rows[:, 2] <= HEIGHT) & (rows[:, 3] >= 0) &
+              (rows[:, 3] < rows[:, 4]) & (rows[:, 4] <= WIDTH))
+    if not inside.all() or len(files) != 5 * int(matched.sum()) + 2:
+        raise AssertionError(f"artifacts: {int((~inside).sum())} boxes "
+                             f"outside the image, {len(files)} files")
+    if not np.array_equal(np.load(os.path.join(root, "bb-receptive_field"
+                                                ".npy")), bb) or \
+            not np.array_equal(artifacts["bb"], bb):
+        raise AssertionError("artifacts: the bound-box tables differ")
+    area = (rows[:, 2] - rows[:, 1]) * (rows[:, 4] - rows[:, 3])
+    stats = dict(seconds=artifacts["seconds"], files=len(files),
+                 prototypes=int(matched.sum()),
+                 box_area_share_median=float(np.median(area)) /
+                 (HEIGHT * WIDTH), zlib=zlib_levels(root))
+    log(f"artifacts: {json.dumps(stats)}; every box inside {HEIGHT} x "
+        f"{WIDTH}; on {smi}")
+    return stats
+
+
+def zlib_levels(root: str) -> dict:
+    """What the zlib level costs on this run's artifacts: one heat-map
+    overlay and one original, decoded and encoded again at levels 0, 1
+    (``imageio.ZLIB_LEVEL``) and 6 (PIL's default), host seconds and MB
+    each (one thread)."""
+    from scaleprotoseg_torch.imageio import encode_png, read_png
+    pngs = sorted(os.path.join(d, f) for d, _, fs in os.walk(root)
+                  for f in fs if f.endswith(".png"))
+    picks = [next(p for p in pngs if "with_self_act" in p),
+             next(p for p in pngs if "-original" in os.path.basename(p)
+                  and "_" not in os.path.basename(p))]
+    out = {}
+    for level in (0, 1, 6):
+        for path in picks:
+            px = read_png(path)
+            t0 = time.perf_counter()
+            n = len(encode_png(px, level))
+            kind = "overlay" if "with_self_act" in path else "original"
+            out[f"{kind}_level{level}"] = dict(
+                seconds=round(time.perf_counter() - t0, 4),
+                mb=round(n / 2 ** 20, 3))
+    return out
+
+
+def pruning_phase(tmp: str, data: str, trained: dict, artifacts: dict, dev,
+                  smi: str) -> dict:
+    """The pruning slice on the training run: the push artifacts, then
+    ``run_pruning`` (k = 6, threshold 3, over the 24 train images at full
+    size, as the README runs it), ``train_wandb --pruned`` for
+    ``PRUNED_STEPS`` last-layer micro-steps, the ``pruned`` phase served,
+    ``threshold_save`` at 0.1 on the group run's ``final-group`` and its
+    ``th-`` checkpoint served, and ``eval_test`` of ``pruned`` on
+    ``N_TEST`` test images."""
+    from scaleprotoseg_torch import (eval_test, find_nearest, prune,
+                                     run_pruning, train_wandb)
+    from scaleprotoseg_torch.analysis import threshold_save
+    from scaleprotoseg_torch.imageio import read_png
+    run = os.path.join(tmp, "city_train")
+    out = dict(artifacts=check_artifacts(run, trained["push"], artifacts,
+                                         smi))
+
+    # the scan's labels and distances, caught on their way to the pruning
+    seen = {}
+    nearest, find = find_nearest.nearest_patches, \
+        prune.find_k_nearest_patches_to_prototypes
+
+    def nearest_spy(*args, **kwargs):
+        seen["top"] = nearest(*args, **kwargs)
+        return seen["top"]
+
+    def find_spy(*args, **kwargs):
+        seen["labels"] = find(*args, **kwargs)
+        return seen["labels"]
+
+    find_nearest.nearest_patches = nearest_spy
+    prune.find_k_nearest_patches_to_prototypes = find_spy
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        res = run_pruning.main(["scaleproto_cityscapes", "city_train",
+                                "--data-root", data, "--results-root", tmp])
+    finally:
+        find_nearest.nearest_patches = nearest
+        prune.find_k_nearest_patches_to_prototypes = find
+    seconds = time.perf_counter() - t0
+    if sum(kernels.launch_counts().values()):
+        raise AssertionError("run_pruning launched a kernel: its scan is the "
+                             "float32 plain forward")
+    sd, meta = load_checkpoint(res["source"])
+    spec = ProtoSpec.from_meta(meta["spec"])
+    labels = seen["labels"]
+    top_d = seen["top"][0]
+    own_class = np.argmax(spec.class_identity, axis=1)
+    own = (labels == own_class[:, None]).sum(1)
+    kept = np.zeros(spec.num_prototypes, bool)
+    kept[res["kept"]] = True
+    if not ((own[kept] >= 3).all() and (own[~kept] < 3).all()):
+        raise AssertionError("pruning kept a prototype with fewer than 3 "
+                             "own-class patches, or pruned one with more")
+    p = sd["prototype_vectors"].flatten(1).double()
+    ratio = top_d[:, 0] / (1.0 + (p * p).sum(1).numpy())
+    emptied = [c for c in range(spec.num_classes)
+               if spec.class_counts[c] and not res["spec"].class_counts[c]]
+    stats = dict(seconds=seconds, prototypes=spec.num_prototypes,
+                 pruned=int((~kept).sum()), classes_emptied=emptied,
+                 first_label_own_share=float((labels[:, 0] == own_class)
+                                             .mean()),
+                 own_labels_histogram=np.bincount(own, minlength=7).tolist(),
+                 max_nearest_over_1_plus_p_sq=float(ratio.max()))
+    log(f"pruning: run_pruning {json.dumps(stats)}; on {smi}")
+    if not 0 < len(res["kept"]) or not ratio.max() <= 1e-5:
+        raise AssertionError(f"pruning: kept {len(res['kept'])}, nearest "
+                             f"patch {ratio.max():.3g} of (1 + |p|^2)")
+    out["run_pruning"] = stats
+
+    # the last-layer re-finetune of the pruned model
+    argv = ["scaleproto_cityscapes", "city_train", "--pruned",
+            "--gpu-recipe", "--data-root", data, "--results-root", tmp,
+            "--gin", f"train.finetune_steps = {PRUNED_STEPS}"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ft = train_wandb.main(argv)
+    phase = ft["phases"][2]
+    want = PRUNED_STEPS + phase.validations * math.ceil(N_VAL / B)
+    log(f"pruning: train_wandb --pruned took {time.perf_counter() - t0:.1f} "
+        f"s; {phase.steps_done} micro-steps, {phase.validations} "
+        f"validations; launches {phase.launches}; losses first "
+        f"{phase.losses[0]:.4f} last {phase.losses[-1]:.4f}; "
+        f"{phase.perf['img_per_s']} img/s, median step "
+        f"{phase.perf['step_ms_median']} ms, device idle share "
+        f"{phase.perf['device_idle_share']} over "
+        f"{phase.perf['steps_timed']} steps past the first 3; batch {B} at "
+        f"513 x 513, bf16 recipe, on {smi}")
+    if phase.steps_done != PRUNED_STEPS or not all(
+            math.isfinite(v) for v in phase.losses):
+        raise AssertionError(f"pruned finetune: {phase.steps_done} steps, "
+                             f"losses {phase.losses}")
+    if phase.launches["aspp"] != want or phase.launches["aspp_grad_pack"] \
+            or phase.launches["aspp_grad_weight"]:
+        raise AssertionError(f"pruned finetune launches {phase.launches}, "
+                             f"want K2 {want} and no backward")
+    before, _ = load_checkpoint(res["pruned"])
+    after, _ = load_checkpoint(ft["final"])
+    moved = sorted(k for k in before if not torch.equal(before[k], after[k]))
+    if moved != ["last_layer.weight"]:
+        raise AssertionError(f"pruned finetune moved {moved}")
+    out["finetune"] = dict(perf=phase.perf, launches=phase.launches,
+                           validations=phase.validations)
+    torch.cuda.empty_cache()
+    out["serve_pruned"] = serve_checkpoint(tmp, "city_train", "pruned", dev,
+                                           smi, "pruned")
+
+    # the group model's pruning analog
+    src, _ = load_checkpoint(os.path.join(tmp, "city_group", "checkpoints",
+                                          "final-group"))
+    th = threshold_save.main(["city_group", "final-group", "0.1",
+                              "--results-root", tmp])
+    thr, _ = load_checkpoint(th)
+    zeroed = rows = 0
+    for k, w in src.items():
+        if not k.startswith("group_projection."):
+            if not torch.equal(w, thr[k]):
+                raise AssertionError(f"threshold_save changed {k}")
+            continue
+        low = w < 0.1
+        if not (torch.equal(thr[k][~low], w[~low]) and
+                bool((thr[k][low] == 0).all())):
+            raise AssertionError(f"threshold_save: {k} re-normalised")
+        zeroed += int((low & (w != 0)).sum())
+        rows += w.shape[0]
+    log(f"pruning: threshold_save zeroed {zeroed} group weights below 0.1 "
+        f"over {rows} rows, the rest bit-equal (no row re-normalised); on "
+        f"{smi}")
+    out["threshold"] = dict(zeroed=zeroed, rows=rows)
+    out["serve_th"] = serve_checkpoint(tmp, "city_group",
+                                       "th-0.1-final-group", dev, smi, "th")
+
+    # the test-split export of the pruned model
+    test_dir = os.path.join(data, "img_with_margin_0", "test")
+    os.makedirs(test_dir)
+    rng = np.random.default_rng(8)
+    names = [f"test_{i:03d}" for i in range(N_TEST)]
+    for n in names:
+        np.save(os.path.join(test_dir, n + ".npy"),
+                rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out_dir = eval_test.main(["city_train", "pruned", str(B), "--data-root",
+                              data, "--results-root", tmp])
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    batches = math.ceil(N_TEST / B)
+    if any(counts[k] != batches for k in SERVING_KERNELS):
+        raise AssertionError(f"eval_test launches {counts}, want {batches} "
+                             "of K1, K2 and K3")
+    lut = eval_test.train_id_to_source_lut()
+    model, _ = load_model(run, os.path.join(run, "pruned", "checkpoints",
+                                            "push_last.pth"),
+                          dtype=torch.bfloat16, fast=False, device=dev)
+    plain = plain_path(model)
+    agree = 0
+    for i in range(0, N_TEST, B):
+        x = np.stack([np.load(os.path.join(test_dir, n + ".npy"))
+                      for n in names[i:i + B]])
+        want = lut[plain(torch.from_numpy(x).to(dev)).cpu().numpy()
+                   .astype(np.int64) + 1]
+        for j, n in enumerate(names[i:i + B]):
+            png = read_png(os.path.join(out_dir, n + ".png"))
+            if png.shape != (HEIGHT, WIDTH) or png.dtype != np.uint8 or \
+                    not np.isin(png, lut[1:20]).all():
+                raise AssertionError(f"eval_test: {n}.png {png.shape} "
+                                     "outside the label ids")
+            agree += int((png == want[j]).sum())
+    agreement = agree / (N_TEST * HEIGHT * WIDTH)
+    log(f"pruning: eval_test wrote {N_TEST} PNGs of {HEIGHT} x {WIDTH} in "
+        f"{seconds:.2f} s ({seconds / N_TEST:.3f} s an image, the model load "
+        f"included); launches {counts}; label ids agree with the plain path "
+        f"on {100 * agreement:.4f}% of pixels; on {smi}")
+    if agreement < 0.99:
+        raise AssertionError(f"eval_test agreement {agreement} < 0.99")
+    del model, plain
+    torch.cuda.empty_cache()
+    out["eval_test"] = dict(seconds=seconds, counts=counts,
+                            agreement=agreement)
+
+    # the pruned model on the val split
+    kernels.reset_launch_counts()
+    res = evm.run_evaluation("city_train", "pruned", batch_size=B,
+                             data_root=data, results_root=tmp)
+    counts = kernels.launch_counts()
+    batches = math.ceil(N_VAL / B)
+    if not math.isfinite(res["mean_iou"]) or counts["aspp"] != batches or \
+            counts["upsample"] != batches:
+        raise AssertionError(f"eval of pruned: mIoU {res['mean_iou']}, "
+                             f"launches {counts}")
+    log(f"pruning: the pruned model on {N_VAL} val images: mIoU "
+        f"{res['mean_iou']:.6f}, pixel acc {res['pixel_accuracy']:.6f}, "
+        f"top-1 purity {res['top_k_purity_percent'][0]:.2f}%; launches "
+        f"{counts}; on {smi}")
+    out["eval_valid"] = dict(miou=res["mean_iou"], counts=counts)
+    return out
 
 
 def group_micro_step(model, batch, weights, dev) -> tuple:
@@ -1632,26 +1946,37 @@ def group_phase(tmp: str, data: str, start: str, batch, dev,
         f"kernel: {json.dumps(profile)}")
     del model, opt, state
     torch.cuda.empty_cache()
-    served = serve_group(tmp, run, out["final"], dev, smi)
+    served = serve_checkpoint(tmp, "city_group", "final-group", dev, smi,
+                              "group")
     return dict(counts=counts, step_cmp=step_cmp, profile=profile,
                 perf={p: out["phases"][p].perf for p in (0, 1)},
                 serve=served)
 
 
-def serve_group(tmp: str, run: str, final: str, dev, smi: str) -> dict:
-    """``final-group`` through ``serve.main`` in bf16 (K2, K1 and K3 on
-    every batch), its labels against the plain path, and K1 against its
-    plain version at the bank push left."""
-    img_dir = os.path.join(tmp, "group_images")
-    out_dir = os.path.join(tmp, "group_labels")
-    os.makedirs(img_dir)
-    rng = np.random.default_rng(3)
+def serve_checkpoint(tmp: str, run_name: str, phase: str, dev, smi: str,
+                     tag: str) -> dict:
+    """Phase ``phase`` of run ``run_name`` through ``serve.main`` in bf16 on
+    ``N_GROUP_SERVE`` full-size images (K2, K1 and K3 on every batch), its
+    labels against the plain path (>= 99% of pixels), and K1 at its bank
+    and head: on random features against the plain head (rtol = atol =
+    1e-4), on the served features (pushed prototypes, d ~ 0 there, where
+    the activation's slope of -1e4 magnifies the fp32 rounding of every
+    form) against the float64 head within ``PROTO_PUSHED_RTOL`` of its
+    largest logit, as ``check_proto_rounding`` holds it."""
+    from scaleprotoseg_torch.model_loading import resolve_checkpoint
+    run = os.path.join(tmp, run_name)
+    ckpt = resolve_checkpoint(run, phase)
+    img_dir = os.path.join(tmp, "check_images")
+    out_dir = os.path.join(tmp, f"labels_{tag}")
     names = [f"frame_{i:03d}.npy" for i in range(N_GROUP_SERVE)]
-    for n in names:
-        np.save(os.path.join(img_dir, n),
-                rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8))
+    if not os.path.isdir(img_dir):
+        os.makedirs(img_dir)
+        rng = np.random.default_rng(3)
+        for n in names:
+            np.save(os.path.join(img_dir, n),
+                    rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8))
     kernels.reset_launch_counts()
-    record = serve.main(["city_group", "final-group", "--input", img_dir,
+    record = serve.main([run_name, phase, "--input", img_dir,
                          "--output", out_dir, "--batch", str(B),
                          "--raw-output", "--results-root", tmp,
                          "--workers", "4"])
@@ -1659,9 +1984,9 @@ def serve_group(tmp: str, run: str, final: str, dev, smi: str) -> dict:
     batches = 1 + math.ceil(N_GROUP_SERVE / B)
     for name in SERVING_KERNELS:
         if counts[name] < batches:
-            raise AssertionError(f"final-group: {name} launched "
-                                 f"{counts[name]} times in {batches} batches")
-    plain_model, spec = load_model(run, final + ".pth", dtype=torch.bfloat16,
+            raise AssertionError(f"{tag}: {name} launched {counts[name]} "
+                                 f"times in {batches} batches")
+    plain_model, spec = load_model(run, ckpt, dtype=torch.bfloat16,
                                    fast=False, device=dev)
     plain = plain_path(plain_model)
     agree = total = 0
@@ -1676,22 +2001,17 @@ def serve_group(tmp: str, run: str, final: str, dev, smi: str) -> dict:
         total += got.size
         classes |= set(np.unique(got).tolist())
     agreement = agree / total
-    log(f"group: final-group served {record['images']} images at "
+    log(f"{tag}: {phase} served {record['images']} images at "
         f"{record['img_per_s']} img/s (batch {B}, {HEIGHT}x{WIDTH}); "
         f"launches {counts}; labels agree with the plain path on "
         f"{100 * agreement:.4f}% of {total} pixels ({len(classes)} classes "
         f"predicted); on {smi}")
     if agreement < 0.99:
-        raise AssertionError(f"final-group agreement {agreement} < 0.99")
+        raise AssertionError(f"{tag}: agreement {agreement} < 0.99")
     del plain_model, plain
 
-    # K1 at the bank push left (its spec and the model's group head): on
-    # random features against the plain head, rtol = atol = 1e-4; on the
-    # served model's own features, where pushed prototypes put d ~ 0 and
-    # the activation's slope (-1e4) magnifies the fp32 rounding of every
-    # form, against the float64 head as check_proto_rounding holds it
-    model, _ = load_model(run, final + ".pth", dtype=torch.bfloat16,
-                          fast=True, device=dev)
+    model, _ = load_model(run, ckpt, dtype=torch.bfloat16, fast=True,
+                          device=dev)
     gen = torch.Generator(device=dev).manual_seed(4)
     x = torch.from_numpy(np.stack([np.load(os.path.join(img_dir, n))
                                    for n in names[:B]])).to(dev)
@@ -1700,43 +2020,46 @@ def serve_group(tmp: str, run: str, final: str, dev, smi: str) -> dict:
     with torch.no_grad():
         own = model.conv_features(((x.float() / 255.0 - mean) / std)
                                   .to(torch.bfloat16)).contiguous()
-        gw, glw = model.group_weights()
         protos = model.prototypes()
-        kw = dict(group_projection=gw, last_layer_group=glw)
-        head = pack_head(protos, None, spec, **kw)
+        kw = head_kw(model)
+        head = pack_head(protos, spec=spec, **kw)
         feats = torch.rand(own.shape, generator=gen, device=dev) \
             .to(torch.bfloat16)
-        got = kernels.fused_proto_logits(feats, protos, None, spec, **kw,
+        got = kernels.fused_proto_logits(feats, protos, spec=spec, **kw,
                                          head=head)
-        want = proto_plain(feats, protos, None, spec, **kw)
+        want = proto_plain(feats, protos, spec=spec, **kw)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
         err = (got - want).abs().max().item()
-        exact = proto_float64(own, protos, None, spec, **kw)
+        exact = proto_float64(own, protos, spec=spec, **kw)
         scale = exact.abs().max().item()
         pushed_err = (kernels.fused_proto_logits(
-            own, protos, None, spec, **kw, head=head) - exact).abs().max() \
+            own, protos, spec=spec, **kw, head=head) - exact).abs().max() \
             .item() / scale
-        plain_err = (proto_plain(own, protos, None, spec, **kw) - exact) \
+        plain_err = (proto_plain(own, protos, spec=spec, **kw) - exact) \
             .abs().max().item() / scale
-    log(f"group: K1 at the pushed bank ({spec.num_prototypes} prototypes, "
-        f"class counts {sorted(set(spec.class_counts.tolist()))}): random "
-        f"features, max |err| against the plain head {err:.3g} (rtol = atol "
-        f"= 1e-4); the served features, max |err| against the float64 head "
-        f"over its largest logit ({scale:.4g}): kernel {pushed_err:.3g}, fp32 "
-        f"plain head {plain_err:.3g} (limit {PROTO_PUSHED_RTOL:g})")
+    log(f"{tag}: K1 at the bank ({spec.num_prototypes} prototypes, class "
+        f"counts {sorted(set(spec.class_counts.tolist()))}, "
+        f"{'group' if model.grouped else 'plain'} head): random features, "
+        f"max |err| against the plain head {err:.3g} (rtol = atol = 1e-4); "
+        f"the served features, max |err| against the float64 head over its "
+        f"largest logit ({scale:.4g}): kernel {pushed_err:.3g}, fp32 plain "
+        f"head {plain_err:.3g} (limit {PROTO_PUSHED_RTOL:g}); on {smi}")
     if not pushed_err <= PROTO_PUSHED_RTOL:
-        raise AssertionError(f"final-group: K1 {pushed_err:.3g} from the "
-                             "float64 head")
+        raise AssertionError(f"{tag}: K1 {pushed_err:.3g} from the float64 "
+                             "head")
+
     def k1():
-        return kernels.fused_proto_logits(own, protos, None, spec, **kw,
+        return kernels.fused_proto_logits(own, protos, spec=spec, **kw,
                                           head=head)
 
     k1_ms = time_ms(k1)
-    log(f"group: K1 at the pushed bank, served features: {k1_ms:.4f} ms "
+    log(f"{tag}: K1 at this bank, served features: {k1_ms:.4f} ms "
         f"(CUDA-event median of 10) on {smi}")
+    del model
+    torch.cuda.empty_cache()
     return dict(record, counts=counts, agreement=agreement,
                 proto_max_abs_err=err, proto_pushed_err=pushed_err,
-                proto_ms=k1_ms)
+                proto_ms=k1_ms, prototypes=spec.num_prototypes)
 
 
 def profile_train_steps(model, bindings, batch, dev) -> dict:
@@ -1844,7 +2167,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     trained = training_phase(dev, smi)
     quant, evals = served["quant"], served["evals"]
-    group = trained["group"]
+    group, pruning = trained["group"], trained["pruning"]
     by_path = {name: {"serving": served["counts"][name],
                       "quant8_serving": quant["counts"][name],
                       "quant8_dynamic": quant["dyn_counts"][name],
@@ -1852,7 +2175,14 @@ def main() -> None:
                       "eval_quant8": evals["static"]["counts"][name],
                       "training": trained["counts"][name],
                       "group_training": group["counts"][name],
-                      "group_serving": group["serve"]["counts"][name]}
+                      "group_serving": group["serve"]["counts"][name],
+                      "pruned_finetune":
+                          pruning["finetune"]["launches"][name],
+                      "pruned_serving":
+                          pruning["serve_pruned"]["counts"][name],
+                      "threshold_serving": pruning["serve_th"]["counts"][name],
+                      "eval_test": pruning["eval_test"]["counts"][name],
+                      "pruned_eval": pruning["eval_valid"]["counts"][name]}
                for name in results}
     # each kernel's launches in the main path of its slice: the training
     # run for K2's forward and backward, the bf16 serving run for K1 and

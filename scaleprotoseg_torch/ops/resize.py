@@ -12,6 +12,9 @@
   output pixels without the full upsampled volume (the purity curve).
 - Label resize as PIL's ``Image.resize(..., NEAREST)``: ``_nearest_index``
   gives PIL's source index for every output pixel without PIL.
+- Bilinear as ``cv2.resize(..., interpolation=cv2.INTER_LINEAR)`` computes
+  it for float32 input (``resize_linear_cv2``), without cv2: the push
+  artifacts' activation upsample.
 """
 
 from __future__ import annotations
@@ -149,3 +152,52 @@ def bilinear_sample(arr: torch.Tensor, rows: torch.Tensor,
             a[bi, y0, x1] * (1 - wy) * wx +
             a[bi, y1, x0] * wy * (1 - wx) +
             a[bi, y1, x1] * wy * wx)
+
+
+@lru_cache(maxsize=512)
+def _cv2_linear_taps(out_size: int, in_size: int):
+    """cv2's INTER_LINEAR taps along one axis: (first source index, second
+    source index, float32 weight of the second).  The source coordinate
+    ``(o + 0.5) * in/out - 0.5`` and its fraction are float64, the weight
+    is the fraction rounded to float32; a coordinate below 0 clamps to
+    index 0 with weight 0, one at or past the last index to the last with
+    weight 0.  Callers must not write to the cached arrays."""
+    src = (np.arange(out_size, dtype=np.float64) + 0.5) * \
+        (in_size / out_size) - 0.5
+    lo = np.floor(src).astype(np.int64)
+    frac = (src - lo).astype(np.float32)
+    frac[lo < 0] = 0
+    lo[lo < 0] = 0
+    past = lo >= in_size - 1
+    frac[past] = 0
+    lo[past] = in_size - 1
+    return lo, np.minimum(lo + 1, in_size - 1), frac
+
+
+def _fma_lerp(p: torch.Tensor, q: torch.Tensor,
+              t: torch.Tensor) -> torch.Tensor:
+    """``fma(q - p, t, p)`` in float32, as cv2 interpolates: the float32
+    difference times the weight plus ``p`` in float64 (the product of two
+    float32 values is exact there), then rounded to float32 (it differs
+    from a single rounding only where the float64 sum lands on a float32
+    tie, about one element in 2^29)."""
+    return ((q - p).double() * t.double() + p.double()).float()
+
+
+def resize_linear_cv2(x: torch.Tensor, height: int, width: int
+                      ) -> torch.Tensor:
+    """(..., h, w) float32 -> (..., height, width) float32 as
+    ``cv2.resize(x, (width, height), interpolation=cv2.INTER_LINEAR)``
+    computes it for float32 input: half-pixel centres, edges clamped, the
+    rows interpolated first and then the columns, each step an FMA lerp
+    (``_fma_lerp``).  Runs on ``x``'s device.  cv2 takes another path for
+    an exact halving of both axes (INTER_AREA), which this form does not
+    reproduce."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"resize_linear_cv2 takes float32, got {x.dtype}")
+    taps = [[torch.as_tensor(a, device=x.device) for a in
+             _cv2_linear_taps(n, x.shape[d])]
+            for n, d in ((height, -2), (width, -1))]
+    (y0, y1, wy), (x0, x1, wx) = taps
+    rows = _fma_lerp(x[..., x0], x[..., x1], wx)
+    return _fma_lerp(rows[..., y0, :], rows[..., y1, :], wy[:, None])

@@ -24,8 +24,12 @@ onto the features of its nearest same-class pixel of the train split.
 Precision: the scan and the encoding run the model's float32 forward
 with TF32 off and without the K2 kernels, whatever the training recipe
 (``float32_forward``), so a pushed prototype sits at distance ~0 from its
-pixel, as in the JAX package.  The image artifacts (``save_artifacts``,
-``push/artifacts.py`` there) need PIL and are not ported.
+pixel, as in the JAX package.
+
+``save_artifacts`` writes the per-prototype images and the bound-box
+tables (``push/artifacts.py``) under ``prototypes_dir`` from the winners
+of the scan, before the prototypes move, as the JAX package renders them
+from its pre-push variables.
 """
 
 from __future__ import annotations
@@ -106,16 +110,15 @@ def _batch_minima(model, spec: ProtoSpec, class_of_proto: torch.Tensor,
 def push_prototypes(model, spec: ProtoSpec, push_loader,
                     prototypes_dir: Optional[str] = None,
                     dedup: bool = True, save_artifacts: bool = False,
+                    cls2name: Optional[Dict[int, str]] = None,
                     log=print) -> PushResult:
     """Project every prototype of ``model`` (in place) onto its nearest
     same-class pixel of ``push_loader``: re-iterable (images (B, H, W, 3)
     normalized float32, raw labels (B, H, W)) numpy batches of the train
     split in a fixed order.  Returns the pushed state dict pruned of
-    duplicates, with the spec it fits."""
-    if save_artifacts:
-        raise NotImplementedError(
-            "push artifacts (the prototype image crops of push/artifacts.py) "
-            "need PIL and are not ported yet; push with save_artifacts=False")
+    duplicates, with the spec it fits; with ``save_artifacts`` and a
+    ``prototypes_dir``, the artifacts go there, each class's directory
+    named by ``cls2name``."""
     if getattr(push_loader, "shuffle", False):
         raise ValueError(
             "push_prototypes requires a fixed-order loader: the winner "
@@ -165,6 +168,11 @@ def push_prototypes(model, spec: ProtoSpec, push_loader,
             offset += len(images)
             if len(cache) == len(winners):
                 break
+
+        if save_artifacts and prototypes_dir:
+            from scaleprotoseg_torch.push.artifacts import save_push_artifacts
+            save_push_artifacts(model, spec, push_loader, best_img, best_flat,
+                                prototypes_dir, cls2name=cls2name, log=log)
 
         matched = best_img >= 0
         if not matched.all():

@@ -17,10 +17,14 @@ every checkpoint is ``<stem>.pth`` plus its spec sidecar and loads
 through ``model_loading.load_model``.  ``finetune_wandb_group`` starts the
 group phase from ``push_final``.
 
+Push writes its per-prototype image artifacts and bound-box tables to
+``<run>/prototypes/`` (``push_artifacts``, on by default, as in the JAX
+package; each class's directory is named after the class).
+
 The device is ``cuda`` unless ``--device`` names another; without a card
-that is an error.  Not ported yet, and refused: push's image artifacts, a
-pretrained backbone from the environment, Orbax resume and preemption,
-the profiler trace, W&B and TensorBoard sinks, and more than one device.
+that is an error.  Not ported yet, and refused: a pretrained backbone from
+the environment, Orbax resume and preemption, the profiler trace, W&B and
+TensorBoard sinks, and more than one device.
 """
 
 from __future__ import annotations
@@ -70,7 +74,7 @@ def train(config: str, experiment_name: str, data_root: Optional[str] = None,
           num_workers: Optional[int] = None,
           gin_overrides: Optional[List[str]] = None, gpu_recipe: bool = False,
           device: Optional[str] = None, results_root: Optional[str] = None,
-          log=None) -> Dict:
+          push_artifacts: bool = True, log=None) -> Dict:
     """Run the phases; returns ``{"final": <push_final stem>, "phases":
     {phase: PhaseResult}, "push": PushResult or None}``."""
     dev = resolve_device(device)
@@ -106,10 +110,14 @@ def train(config: str, experiment_name: str, data_root: Optional[str] = None,
                           num_workers=num_workers, data_root=data_root)
     push = None
     if hp["push_proto"]:
+        from scaleprotoseg_torch.eval_valid_multiscale import class_names
+        cls2name = dict(enumerate(class_names(hp["data_type"] or "cityscapes",
+                                              spec.num_classes)))
         push = push_prototypes(
             model, spec, cli_common.make_push_loader(
                 bindings, num_workers=num_workers, data_root=data_root),
-            prototypes_dir=os.path.join(run, "prototypes"), log=log)
+            prototypes_dir=os.path.join(run, "prototypes"),
+            save_artifacts=push_artifacts, cls2name=cls2name, log=log)
         if push.spec.num_prototypes != spec.num_prototypes:
             # dedup pruned the bank: a model, optimizer and K2 weight
             # cache of the new size

@@ -551,15 +551,16 @@ def test_int8_wrappers_refuse_misaligned_operands(dev):
 # ---------------------------------------------------------------------------
 # push and the group step on the card
 # ---------------------------------------------------------------------------
-def _narrow_group_model(spec, seed=0):
+def _narrow_group_model(spec, seed=0, grouped=True):
     """A one-block-per-stage DeepLabV2 (full ASPP widths, so K2 runs) with
-    a group head over ``spec`` and seeded synthetic weights."""
+    a group head (or with ``grouped=False`` the plain head) over ``spec``
+    and seeded synthetic weights."""
     from scaleprotoseg_torch.models.deeplab import DeepLabV2
     from scaleprotoseg_torch.models.ppnet import PPNet
     from scaleprotoseg_torch.checkpoints.convert import synthetic_state_dict
     backbone = DeepLabV2(n_out=64, n_blocks=(1, 1, 1, 1),
                          atrous_rates=(6, 12, 18, 24), aspp_mode="concat")
-    model = PPNet(backbone, spec, grouped=True)
+    model = PPNet(backbone, spec, grouped=grouped)
     sd = synthetic_state_dict(model, seed)
     for key in sd:      # bounded activations, as chip_smoke.write_run
         if key.endswith(".increase.bn.weight"):
@@ -668,3 +669,146 @@ def test_group_step_projects_and_k1_follows(dev, gen):
         want = proto_plain(feats, model.prototypes(), None, spec,
                            group_projection=gw, last_layer_group=glw)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# purity pruning, its last-layer re-finetune and group thresholding
+# ---------------------------------------------------------------------------
+def _purity_pruned_spec(groups=0):
+    """Cityscapes' bank with scattered prototypes and all of class 4 gone,
+    as purity pruning leaves it."""
+    spec = ProtoSpec.equal_allocation(228, 64, num_classes=19,
+                                      num_groups=groups)
+    return spec.prune([3, 60, 61, 130, 227] + [
+        p for p, c in enumerate(spec.class_ids) if c == 4])
+
+
+def _head_kw(model):
+    if model.grouped:
+        gw, glw = model.group_weights()
+        return dict(last_layer=None, group_projection=gw,
+                    last_layer_group=glw)
+    return dict(last_layer=model.last_layer.weight.t())
+
+
+def test_last_layer_step_rebuilds_k1_head(dev, gen):
+    """A phase-2 micro-step (the pruned re-finetune) on the card writes the
+    last layer in place: K1's packed head, cached before the step, is
+    rebuilt, and ``fast_logits`` after the step equals the plain head on
+    the new weights (rtol = atol = 1e-4); nothing else moved."""
+    from scaleprotoseg_torch.train.optim import PhaseOptimizer, phase_groups
+    from scaleprotoseg_torch.train.state import TrainState
+    from scaleprotoseg_torch.train.steps import LossWeights, make_train_step
+    spec = _purity_pruned_spec()
+    model = _narrow_group_model(spec, grouped=False).to(dev)
+    model.set_compute_dtype(torch.bfloat16)
+    model.features.base.aspp.fast = True
+    state = TrainState(model, PhaseOptimizer(
+        model.named_parameters(),
+        phase_groups("multiscale", 2, dict(last_layer_lr=1e-2))))
+    step = make_train_step(LossWeights(l1=1e-4))
+    x = torch.from_numpy(gen.standard_normal((2, 65, 65, 3))
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(gen.integers(0, 20, (2, 65, 65))
+                         .astype(np.int32)).to(dev)
+    xb = x.to(torch.bfloat16)
+    with torch.no_grad():
+        stale = model.eval().fast_logits(xb)           # head cached
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    grads = (kernels.aspp_grad_pack.launches,
+             kernels.aspp_grad_weight.launches)
+    assert torch.isfinite(step(state, x, y)["loss"])
+    assert (kernels.aspp_grad_pack.launches,
+            kernels.aspp_grad_weight.launches) == grads
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]) != (k == "last_layer.weight"), k
+    model.eval()
+    with torch.no_grad():
+        got = model.fast_logits(xb)
+        feats = model.conv_features(xb).contiguous()
+        want = proto_plain(feats, model.prototypes(), spec=spec,
+                           **_head_kw(model))
+    assert not torch.allclose(got, stale, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("head", ["purity_pruned", "thresholded_group"])
+def test_k1_at_pruned_and_thresholded_heads(dev, gen, head):
+    """K1 at the heads of this slice's checkpoints: a purity-pruned plain
+    head (class 4 emptied) and a group head whose projection entries below
+    0.1 are zeroed, rows not re-normalised.  On the model's own features,
+    against the plain head (rtol = atol = 1e-4) and, with every prototype
+    moved onto a pixel's features (d = 0 there), against the float64 head
+    within ``PROTO_PUSHED_RTOL`` of its largest logit."""
+    grouped = head == "thresholded_group"
+    spec = _purity_pruned_spec(3 if grouped else 0)
+    model = _narrow_group_model(spec, grouped=grouped).to(dev).eval()
+    model.set_compute_dtype(torch.bfloat16)
+    model.features.base.aspp.fast = True
+    if grouped:
+        with torch.no_grad():
+            for m in model.group_projection:
+                m.weight.copy_(torch.where(m.weight < 0.1,
+                                           torch.zeros_like(m.weight),
+                                           m.weight))
+        sums = torch.cat([m.weight.sum(-1) for m in model.group_projection])
+        assert bool((sums < 1 - 1e-6).any())
+    x = torch.from_numpy(gen.standard_normal((2, 65, 65, 3))
+                         .astype(np.float32)).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        feats = model.conv_features(x).contiguous()
+        got = model.fast_logits(x)
+        want = proto_plain(feats, model.prototypes(), spec=spec,
+                           **_head_kw(model))
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        flat = feats.reshape(-1, 256).float()
+        at = gen.integers(0, flat.shape[0], spec.num_prototypes)
+        pushed = torch.stack([flat[at[p], s * 64:(s + 1) * 64]
+                              for s, (lo, hi) in enumerate(spec.scale_bounds)
+                              for p in range(lo, hi)])
+        model.prototype_vectors.copy_(pushed.view_as(model.prototype_vectors))
+        got = model.fast_logits(x)
+        exact = proto_float64(feats, model.prototypes(), spec=spec,
+                              **_head_kw(model))
+    err = ((got - exact).abs().max() / exact.abs().max()).item()
+    assert err <= PROTO_PUSHED_RTOL, err
+
+
+def test_find_nearest_on_the_card_matches_the_cpu(dev, gen):
+    """The k-nearest-patch scan of a model in the bf16 recipe runs the
+    float32 forward without K2 and TF32: on the card it finds the CPU's
+    images, pixels and labels wherever the CPU's distances decide them
+    (1e-4 (1 + d) apart), its distances within 1e-5 relative, and K2
+    never launches."""
+    from scaleprotoseg_torch.find_nearest import (
+        find_k_nearest_patches_to_prototypes, nearest_patches)
+    spec = ProtoSpec.equal_allocation(228, 64, num_classes=19)
+    y = np.repeat(np.repeat(np.arange(20).reshape(4, 5), 17, 0), 14, 1)
+    batches = [(gen.standard_normal((2, 65, 65, 3)).astype(np.float32),
+                np.stack([np.roll(y[:65, :65], (5 * i, 3 * s), (0, 1))
+                          for s in (0, 1)]).astype(np.int32))
+               for i in range(4)]
+    cpu = _narrow_group_model(spec, grouped=False)
+    card = _narrow_group_model(spec, grouped=False).to(dev)
+    card.set_compute_dtype(torch.bfloat16)
+    card.features.base.aspp.fast = True
+    loader = _Loader(batches)
+    quiet = dict(log=lambda _: None)
+    want = nearest_patches(loader, cpu, spec, 6, **quiet)
+    want_labels = find_k_nearest_patches_to_prototypes(loader, cpu, spec,
+                                                       **quiet)
+    before = kernels.fused_aspp.launches
+    got = nearest_patches(loader, card, spec, 6, **quiet)
+    got_labels = find_k_nearest_patches_to_prototypes(loader, card, spec,
+                                                      **quiet)
+    assert kernels.fused_aspp.launches == before
+    assert card.dtype == torch.bfloat16 and card.features.base.aspp.fast
+    d = want[0]
+    gap = np.diff(np.concatenate([d, np.full((len(d), 1), np.inf)], 1), 1)
+    ok = gap > 1e-4 * (1 + d)
+    ok &= np.concatenate([np.ones((len(d), 1), bool), ok[:, :-1]], 1)
+    assert ok.mean() > 0.8, ok.mean()
+    np.testing.assert_allclose(got[0], d, rtol=1e-5)
+    for g, w in zip(got[1:3], want[1:3]):
+        np.testing.assert_array_equal(g[ok], w[ok])
+    np.testing.assert_array_equal(got_labels[ok], want_labels[ok])

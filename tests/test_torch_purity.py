@@ -24,7 +24,9 @@ bad = sorted(n for n in sys.modules
                                     "scaleprotoseg_tpu"))
 missing = sorted({"scaleprotoseg_torch." + m for m in (
     "ops.simplex", "push.push", "models.group_init",
-    "finetune_wandb_group")} - set(names))
+    "finetune_wandb_group", "push.artifacts", "find_nearest", "prune",
+    "run_pruning", "train_wandb", "analysis.threshold_save", "eval_test",
+    "imageio", "helpers")} - set(names))
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 20 else 0)
 """

@@ -270,9 +270,11 @@ def test_push_refuses_a_shuffling_or_reordered_loader():
     with pytest.raises(RuntimeError, match="second pass"):
         tpush.push_prototypes(model, spec, Reordering(batches),
                               log=lambda _: None)
-    with pytest.raises(NotImplementedError, match="PIL"):
-        tpush.push_prototypes(model, spec, Loader(batches),
-                              save_artifacts=True)
+    # the order check comes first: artifacts are never written from a
+    # loader that could hand them another image
+    with pytest.raises(ValueError, match="fixed-order"):
+        tpush.push_prototypes(model, spec, shuffling, save_artifacts=True,
+                              log=lambda _: None)
 
 
 def test_push_runs_float32_and_restores_the_recipe():
