@@ -61,14 +61,38 @@ Phases; any failure exits non-zero and prints no result:
    quant8 path (same calibration, every kernel replaced by its plain
    version, int8 products in float64); the agreement with the bf16 labels
    is reported, not gated; img/s and idle share per run and a profile of
-   one resident quant8 batch.  Then evaluation: a temporary
+   one resident quant8 batch; and, measured only, dynamic quant8 with K2,
+   K1 and K3 (``fast_logits`` then ``fused_upsample_argmax``) against
+   dynamic quant8 as it serves (device ms a batch in turns, label
+   agreement over 8 images).  Then the deployable artifact:
+   ``serve.main --export`` writes three artifacts of the run at full width
+   (bf16 fast at batch 2 with the normalization inside, static quant8 fast
+   calibrated on the first 8 images with its scales shipped, and a
+   ``--dynamic-batch`` float32 plain one); a fresh interpreter loads each
+   (timed) and serves it through ``serve.main --artifact`` (bf16 and
+   quant8 over the 256 images, the plain one over the first 8), printing
+   its launch counts and the modules it imported: K1, K2 and K3 once a
+   batch (and the int8 kernels' 54 / 26 / 80 under quant8), no kernel in
+   the plain one, no model, config or JAX module imported, labels equal
+   to the run-dir serve's (bf16, static quant8, float32 ``--no-fast``) on
+   >= 99.99% of pixels (bit-equality printed); export, save and load
+   seconds, artifact MB and img/s beside the run-dir img/s; one resident
+   batch of each fast artifact loaded in this process beside the run-dir
+   forward (CUDA-event ms, host ms to enqueue it, profile), and that enqueue
+   time below 0/3/7/12/20 extra Python frames through ``predict`` and
+   through the program's module alone; then one
+   ``--canvas 1024 2048`` run over a full-size and a 600 x 900 image: the
+   crops' shapes, the full-size labels equal to the run-dir serve's.
+   Then evaluation: a temporary
    Cityscapes-layout val root (8 images of 1024 x 2048, labels holding
    void and every class) evaluated on the same run through
    ``eval_valid_multiscale.run_evaluation``, bf16 and
    ``--quant8-static``: both finish into separate directories with a
    finite mIoU, and each run's confusion matrix equals the host
-   ``bincount`` over its own predicted labels; both mIoUs, their
-   difference, img/s and the launches are printed;
+   ``bincount`` over its own predicted labels, and each writes the
+   sample renders of its first 5 images (input | ground truth |
+   prediction); both mIoUs, their difference, img/s and the launches are
+   printed;
 5. training slice: a temporary Cityscapes-layout data root (24 train and
    4 val seeded uint8 1024 x 2048 images, raw category-index labels in
    blocks holding void and every train class, each block a seeded colour
@@ -157,6 +181,7 @@ from scaleprotoseg_torch.constants import (CITYSCAPES_19_EVAL_CATEGORIES,
                                            IMAGENET_MEAN, IMAGENET_STD)
 from scaleprotoseg_torch.eval.miou import SegEvaluator
 from scaleprotoseg_torch.eval_valid_multiscale import eval_targets
+from scaleprotoseg_torch.imageio import read_png
 from scaleprotoseg_torch.kernels.aspp import (aspp_plain, aspp_trainable,
                                               grad_pack_plain,
                                               grad_weight_plain, pack_weights,
@@ -167,14 +192,15 @@ from scaleprotoseg_torch.kernels.int8 import (absmax_plain,
                                               quantize_int8_plain)
 from scaleprotoseg_torch.kernels.proto import (distance_error, pack_head,
                                                proto_float64, proto_plain)
-from scaleprotoseg_torch.kernels.upsample import upsample_argmax_plain
+from scaleprotoseg_torch.kernels.upsample import (fused_upsample_argmax,
+                                                  upsample_argmax_plain)
 from scaleprotoseg_torch.model_loading import (calibrate_quant_scales,
                                                load_model, quant_sites)
 from scaleprotoseg_torch.models.factory import construct_ppnet
 from scaleprotoseg_torch.ops.prototype import EPSILON
 from scaleprotoseg_torch.ops.resize import _bilinear_matrix
 from scaleprotoseg_torch.serving import serve
-from scaleprotoseg_torch.serving.export import make_serving_fn
+from scaleprotoseg_torch.serving.export import load_artifact, make_serving_fn
 from scaleprotoseg_torch.spec import ProtoSpec
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a
@@ -247,6 +273,7 @@ QUANT_KERNELS = tuple(PER_BATCH)
 N_CALIB = 8
 N_CHECK_PLAIN = 16
 N_EVAL = 8
+N_SAMPLES = 5                 # eval's sample renders (the first files)
 
 # The earlier designs of the kernels since rebuilt, as
 # measured on NVIDIA H100 80GB HBM3 at 700 W (wrapper ms and profiler device
@@ -317,6 +344,23 @@ def time_ms(fn, warmup: int = 3, iters: int = 10) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def enqueue_ms(fn, warmup: int = 2, iters: int = 10) -> float:
+    """Median host-clock ms that ``fn()`` takes to return from an idle
+    card: the time to enqueue one call's device work (the card runs it
+    behind; a call whose enqueueing outlasts its device time leaves the card
+    idle)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -1104,6 +1148,7 @@ def serving_phase(dev, smi: str) -> dict:
             raise AssertionError(f"fast-path logits {tuple(logits.shape)} "
                                  "not finite or misshapen")
         batch_ms = time_ms(lambda: fast(x), warmup=2, iters=10)
+        queue_ms = enqueue_ms(lambda: fast(x))
         breakdown = profile_batch(lambda: fast(x))
         for i, r in enumerate(runs):
             log(f"slice: run {i + 1}: {r['img_per_s']} img/s through "
@@ -1119,13 +1164,33 @@ def serving_phase(dev, smi: str) -> dict:
         del fast_model, fast, logits, x
         torch.cuda.empty_cache()
         quant = quant8_phase(tmp, run, img_dir, out_dir, dev, smi)
+        art = artifact_phase(tmp, img_dir, out_dir,
+                             os.path.join(tmp, "labels_q8"), dev, smi, rates,
+                             quant["img_per_s"])
+        for name, run_ms, run_queue, run_prof in (
+                ("bf16", batch_ms, queue_ms, breakdown),
+                ("quant8", quant["batch_ms"], quant["enqueue_ms"],
+                 quant["profile"])):
+            r = art["resident"][name]
+            log(f"artifact {name}: one resident batch {r['ms']} ms (CUDA-"
+                f"event median of 10) vs the run-dir forward {run_ms} ms; "
+                f"host ms to enqueue it {r['enqueue_ms']} vs {run_queue} "
+                f"(median of 10 from an idle card); "
+                f"host clock {r['profile']['wall_ms']} vs "
+                f"{run_prof['wall_ms']} ms, device {r['profile']['device_ms']} vs "
+                f"{run_prof['device_ms']} ms, busy share "
+                f"{r['profile']['busy_share']} vs {run_prof['busy_share']}, "
+                f"device operations {r['profile']['kernels_per_call']} vs "
+                f"{run_prof['kernels_per_call']}; host ms to enqueue it below "
+                f"0/3/7/12/20 more frames {r['by_depth']}; on {smi}")
         log(f"slice: img/s bf16 {rates} vs quant8-static "
             f"{quant['img_per_s']} vs quant8 dynamic "
             f"{quant['dyn_img_per_s']}, same call; device forward per batch "
             f"bf16 {batch_ms} ms vs quant8-static {quant['batch_ms']} ms")
         evals = eval_phase(tmp, dev, smi)
         return dict(counts=counts, img_per_s=rates, agreement=agreement,
-                    batch_ms=batch_ms, quant=quant, evals=evals)
+                    batch_ms=batch_ms, quant=quant, evals=evals,
+                    artifact=art)
 
 
 def serve_quant8_run(run_root: str, img_dir: str, out_dir: str,
@@ -1235,6 +1300,7 @@ def quant8_phase(tmp: str, run: str, img_dir: str, bf16_dir: str, dev,
             not bool(torch.isfinite(logits).all()):
         raise AssertionError("quant8 logits not finite or misshapen")
     batch_ms = time_ms(lambda: fast(x), warmup=2, iters=10)
+    queue_ms = enqueue_ms(lambda: fast(x))
     breakdown = profile_batch(lambda: fast(x), QUANT_GROUPS)
     share = breakdown["quantize_kernel"] / breakdown["device_ms"]
     del model, fast, logits, x
@@ -1250,10 +1316,317 @@ def quant8_phase(tmp: str, run: str, img_dir: str, bf16_dir: str, dev,
         f"{100 * share:.2f}% of its device time")
     log("quant8: device time per static batch by kernel: "
         + json.dumps(breakdown))
+    dyn_kernels = dynamic_with_kernels(run, img_dir, names, dev, smi)
     return dict(counts=runs[0]["counts"], dyn_counts=dyn["counts"],
+                dyn_kernels=dyn_kernels, profile=breakdown,
+                enqueue_ms=queue_ms,
                 img_per_s=[r["img_per_s"] for r in runs],
                 dyn_img_per_s=dyn["img_per_s"], agreement=agreement,
                 vs_bf16=vs_bf16, batch_ms=batch_ms)
+
+
+def dynamic_with_kernels(run: str, img_dir: str, names, dev,
+                         smi: str) -> dict:
+    """Dynamic quant8 as it serves (the JAX package's rule: no fast path,
+    so the plain head and the resize + argmax) against the same model
+    with K2, K1 and K3 (``fast_logits``, then ``fused_upsample_argmax``,
+    called from here): device ms a batch, in turns, and their labels over
+    the first ``N_CALIB`` images.  A measurement only: the package keeps
+    the rule."""
+    ckpt = os.path.join(run, "checkpoints", "push_final.ckpt")
+    model, _ = load_model(run, ckpt, dtype=torch.bfloat16, device=dev,
+                          quant8=True)
+    aspp = model.features.base.aspp
+    plain = make_serving_fn(model, normalize_to=torch.bfloat16)
+    mean = torch.tensor(IMAGENET_MEAN, device=dev)
+    std = torch.tensor(IMAGENET_STD, device=dev)
+
+    def today(x):
+        aspp.fast = False
+        return plain(x)
+
+    @torch.inference_mode()
+    def fused(x):
+        aspp.fast = True
+        xn = ((x.float() / 255.0 - mean) / std).to(torch.bfloat16)
+        return fused_upsample_argmax(model.fast_logits(xn), x.shape[1],
+                                     x.shape[2])
+
+    agree = total = 0
+    kernels.reset_launch_counts()
+    for i in range(0, N_CALIB, B):
+        x = torch.from_numpy(np.stack([np.load(os.path.join(img_dir, n))
+                                       for n in names[i:i + B]])).to(dev)
+        a, b = today(x), fused(x)
+        agree += int((a == b).sum())
+        total += a.numel()
+    counts = kernels.launch_counts()
+    if min(counts[k] for k in SERVING_KERNELS) < N_CALIB // B:
+        raise AssertionError(f"dynamic quant8 with kernels: {counts}")
+    ms = {"today": [], "kernels": []}
+    for name in ("today", "kernels", "kernels", "today"):
+        fn = today if name == "today" else fused
+        ms[name].append(time_ms(lambda: fn(x), warmup=2, iters=10))
+    out = dict(today_ms=ms["today"], kernels_ms=ms["kernels"],
+               agreement=agree / total)
+    log(f"quant8 dynamic: the forward a batch as served (no K1/K3, plain "
+        f"ASPP) {ms['today']} ms vs with K2, K1 and K3 {ms['kernels']} ms "
+        f"(CUDA-event medians of 10, in turns); labels equal on "
+        f"{100 * out['agreement']:.4f}% of {total} pixels over {N_CALIB} "
+        f"images; on {smi} (measured only: dynamic quant8 serves without "
+        f"the fast path)")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+# served in a fresh interpreter, as a deployment would: each artifact loaded
+# once on its own (the load timed), then served through serve.main
+# --artifact with the launch counts from zero; the last line names every
+# model, config or JAX module the interpreter imported (none may be)
+ARTIFACT_SERVE = r"""
+import json, sys, time
+from scaleprotoseg_torch import kernels
+from scaleprotoseg_torch.serving import serve
+from scaleprotoseg_torch.serving.export import load_artifact
+out = {}
+for name, art, img_dir, out_dir in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    load_artifact(art)
+    load_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    rec = serve.main(["--artifact", art, "--input", img_dir, "--output",
+                      out_dir, "--batch", "2", "--raw-output",
+                      "--workers", "4"])
+    out[name] = dict(rec, load_s=load_s, counts=kernels.launch_counts())
+out["modules"] = sorted(m for m in sys.modules if m.startswith((
+    "scaleprotoseg_torch.models", "scaleprotoseg_torch.configlib",
+    "scaleprotoseg_tpu", "jax", "flax")))
+print(json.dumps(out))
+"""
+ARTIFACTS = {   # name -> serve.main flags of its export
+    "bf16": [],
+    "quant8": ["--quant8-static", "--calib-images", str(N_CALIB)],
+    "dynamic_batch": ["--dynamic-batch"],
+}
+
+
+def time_exports(spans: dict):
+    """Wrap ``serving.export``'s ``export_serving`` and ``save_artifact``
+    so that each call appends its host seconds to ``spans``; returns the
+    function that restores them."""
+    from scaleprotoseg_torch.serving import export
+    real = {n: getattr(export, n) for n in ("export_serving",
+                                            "save_artifact")}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*args, **kwargs)
+            finally:
+                spans.setdefault(name, []).append(time.perf_counter() - t0)
+        return call
+
+    for name in real:
+        setattr(export, name, timed(name))
+    return lambda: [setattr(export, n, f) for n, f in real.items()]
+
+
+def _agreement(got_dir: str, want_dir: str, names) -> tuple:
+    """(share of equal labels, pixels) of two prediction directories."""
+    same = total = 0
+    for n in names:
+        got, want = np.load(os.path.join(got_dir, n)), \
+            np.load(os.path.join(want_dir, n))
+        if got.shape != want.shape or got.dtype != np.uint8:
+            raise AssertionError(f"{n}: labels {got.shape} {got.dtype}, "
+                                 f"want {want.shape}")
+        same += int((got == want).sum())
+        total += got.size
+    return same / total, total
+
+
+def enqueue_by_depth(model, x, depths=(0, 3, 7, 12, 20)) -> dict:
+    """Host ms to enqueue one batch of a loaded artifact, called below
+    ``depths`` extra Python frames: through ``predict`` (its roomy frame,
+    ``serving.export._roomy_call``) and through the program's module
+    alone.  Where the module's big frame lands at the end of a CPython
+    frame-stack chunk, every Python call it makes maps a chunk of its own;
+    the roomy frame keeps the enqueue time flat."""
+    def below(depth, fn):
+        return fn() if depth == 0 else below(depth - 1, fn)
+
+    def bare():
+        with torch.inference_mode():
+            return model.call(x)
+
+    return {name: [round(enqueue_ms(lambda: below(d, fn), iters=5), 2)
+                   for d in depths]
+            for name, fn in (("predict", lambda: model.predict(x)),
+                             ("module_alone", bare))}
+
+
+def artifact_phase(tmp: str, img_dir: str, bf16_dir: str, q8_dir: str,
+                   dev, smi: str, rates, q8_rates) -> dict:
+    """The deploy step and the artifact served: three artifacts of the run
+    written through ``serve.main --export`` at full width (bf16 fast at
+    batch 2 with the normalization inside, static quant8 fast with its
+    scales, a ``--dynamic-batch`` plain one), served by ``serve.main
+    --artifact`` in a fresh interpreter (the bf16 and quant8 ones over the
+    256 images, the plain one over the first 8), their labels against the
+    run-dir serve's, their launches and the modules imported; then one
+    ``--canvas`` run over a full-size and a smaller image."""
+    names = sorted(os.listdir(img_dir))
+    few = os.path.join(tmp, "images_8")
+    os.makedirs(few)
+    for n in names[:N_CALIB]:
+        os.symlink(os.path.join(img_dir, n), os.path.join(few, n))
+    run_args = ["city_flagship", "push_final", "--results-root", tmp,
+                "--batch", str(B), "--workers", "4"]
+    arts = {}
+    for name, flags in ARTIFACTS.items():
+        path = os.path.join(tmp, f"artifact_{name}")
+        spans = {}
+        restore = time_exports(spans)
+        t0 = time.perf_counter()
+        try:
+            rec = serve.main([*run_args, "--input", few, "--export", path,
+                              *flags])
+        finally:
+            restore()
+        cli_s = time.perf_counter() - t0
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        want = [None if name == "dynamic_batch" else B, HEIGHT, WIDTH, 3]
+        if rec["input"] != want or meta["input"]["shape"] != want or \
+                meta["platforms"] != ["cuda"] or \
+                not meta["input"]["device_normalize"]:
+            raise AssertionError(f"artifact {name}: {rec} {meta}")
+        mb = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path)) / 2 ** 20
+        arts[name] = dict(path=path, cli_s=cli_s,
+                          export_s=spans["export_serving"][0],
+                          save_s=spans["save_artifact"][0], mb=mb,
+                          files={f: os.path.getsize(os.path.join(path, f))
+                                 for f in sorted(os.listdir(path))})
+        log(f"artifact {name}: serve --export {cli_s:.2f} s (export_serving "
+            f"{arts[name]['export_s']:.2f} s, save_artifact "
+            f"{arts[name]['save_s']:.2f} s), {mb:.1f} MB {arts[name]['files']}"
+            f"; input {meta['input']}; on {smi}")
+        torch.cuda.empty_cache()
+
+    # the plain artifact's reference: the run-dir serve of the same images
+    # in float32, under the library defaults the fresh interpreter has
+    # (cuDNN may take TF32 for a float32 conv)
+    plain_dir = os.path.join(tmp, "labels_f32")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        serve.main([*run_args, "--input", few, "--output", plain_dir,
+                    "--raw-output", "--no-fast"])
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+
+    out_dirs = {n: os.path.join(tmp, f"labels_art_{n}") for n in arts}
+    jobs = [(n, arts[n]["path"], few if n == "dynamic_batch" else img_dir,
+             out_dirs[n]) for n in arts]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", ARTIFACT_SERVE, json.dumps(jobs)], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+        text=True, timeout=900)
+    if proc.returncode:
+        raise AssertionError(f"artifact serving failed (exit "
+                             f"{proc.returncode}):\n{proc.stderr[-6000:]}")
+    served = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"artifact: the fresh interpreter took {time.perf_counter() - t0:.1f}"
+        f" s; model, config or JAX modules imported: {served['modules']}")
+    if served["modules"]:
+        raise AssertionError(f"serving an artifact imported "
+                             f"{served['modules']}")
+    batches = 1 + math.ceil(N_IMAGES / B)
+    refs = {"bf16": (bf16_dir, names), "quant8": (q8_dir, names),
+            "dynamic_batch": (plain_dir, names[:N_CALIB])}
+    for name, (want_dir, want_names) in refs.items():
+        r = served[name]
+        want = dict.fromkeys(kernels.WRAPPERS, 0)
+        if name != "dynamic_batch":
+            want.update(aspp=batches, proto=batches, upsample=batches)
+        if name == "quant8":
+            want.update({k: v * batches for k, v in PER_BATCH.items()})
+        if r["counts"] != want or r["images"] != len(want_names):
+            raise AssertionError(f"artifact {name}: launches {r['counts']}, "
+                                 f"want {want}; record {r}")
+        agreement, total = _agreement(out_dirs[name], want_dir, want_names)
+        r.update(agreement=agreement, pixels=total)
+        log(f"artifact {name}: loaded in {r['load_s']:.2f} s in a fresh "
+            f"interpreter; labels equal to the run-dir serve's on "
+            f"{100 * agreement:.4f}% of {total} pixels"
+            f"{' (bit-equal)' if agreement == 1.0 else ''}; "
+            f"{r['img_per_s']} img/s, device idle share "
+            f"{r['device_idle_share']} ({r['images']} images, batch "
+            f"{r['batch_size']}); launches {r['counts']} on {smi}")
+        if agreement < 0.9999:
+            raise AssertionError(f"artifact {name}: labels agree on "
+                                 f"{agreement} < 0.9999")
+    # one resident batch of each fast artifact in this process: its device
+    # time and the host clock it takes, beside the run-dir forward's
+    resident = {}
+    x = torch.from_numpy(np.stack([np.load(os.path.join(img_dir, n))
+                                   for n in names[:B]])).to(dev)
+    for name, groups in (("bf16", SERVING_GROUPS), ("quant8", QUANT_GROUPS)):
+        model = load_artifact(arts[name]["path"])
+        resident[name] = dict(
+            ms=time_ms(lambda: model.predict(x), warmup=2, iters=10),
+            enqueue_ms=enqueue_ms(lambda: model.predict(x)),
+            profile=profile_batch(lambda: model.predict(x), groups),
+            by_depth=enqueue_by_depth(model, x))
+        del model
+        torch.cuda.empty_cache()
+    log(f"artifact: img/s bf16 artifact {served['bf16']['img_per_s']} vs "
+        f"run dir {rates}; static quant8 artifact "
+        f"{served['quant8']['img_per_s']} vs run dir {q8_rates}; same call, "
+        f"on {smi}")
+
+    # --canvas: a full-size and a smaller image through one program
+    mixed = os.path.join(tmp, "images_mixed")
+    os.makedirs(mixed)
+    os.symlink(os.path.join(img_dir, names[0]),
+               os.path.join(mixed, names[0]))
+    np.save(os.path.join(mixed, "small.npy"), np.random.default_rng(5)
+            .integers(0, 256, (600, 900, 3), dtype=np.uint8))
+    canvas_dir = os.path.join(tmp, "labels_canvas")
+    rec = serve.main([*run_args, "--input", mixed, "--output", canvas_dir,
+                      "--raw-output", "--canvas", str(HEIGHT), str(WIDTH)])
+    full = np.load(os.path.join(canvas_dir, names[0]))
+    small = np.load(os.path.join(canvas_dir, "small.npy"))
+    same = float((full == np.load(os.path.join(bf16_dir, names[0]))).mean())
+    log(f"canvas: {rec['images']} images through one {HEIGHT}x{WIDTH} "
+        f"program ({rec['preprocess']} preprocess): crops {full.shape} and "
+        f"{small.shape}, the full-size labels equal to the plain serve's on "
+        f"{100 * same:.4f}% of pixels")
+    if rec["preprocess"] != "host" or full.shape != (HEIGHT, WIDTH) or \
+            small.shape != (600, 900) or small.max() >= 19 or same != 1.0:
+        raise AssertionError(f"canvas: {rec} {full.shape} {small.shape} "
+                             f"{same}")
+    return dict(exports=arts, served=served, counts={
+        "bf16": served["bf16"]["counts"],
+        "quant8": served["quant8"]["counts"]}, canvas_agreement=same,
+        resident=resident)
+
+
+def check_samples(eval_dir: str, names) -> None:
+    """The sample renders of an evaluation: one PNG a name, input |
+    ground truth | prediction, 1024 high, the input panel's pixels the
+    image's own."""
+    got = sorted(os.listdir(os.path.join(eval_dir, "samples")))
+    if got != sorted(f"{n}.png" for n in names):
+        raise AssertionError(f"sample renders {got}, want {names}")
+    png = read_png(os.path.join(eval_dir, "samples", got[0]))
+    if png.shape != (HEIGHT, WIDTH + 2 * (8 + FW), 3):
+        raise AssertionError(f"sample render of shape {png.shape}")
 
 
 class RecordingEvaluator(SegEvaluator):
@@ -1305,9 +1678,11 @@ def eval_phase(tmp: str, dev, smi: str) -> dict:
             if not np.array_equal(ev.cm, host):
                 raise AssertionError(f"eval {quant8}: confusion matrix "
                                      "differs from the host bincount")
+            # the sample renders run the model's forward once a sample
             want = {"upsample": batches, "int8_absmax": 0,
-                    "aspp": batches + (N_CALIB if quant8 else 0)}
-            want.update({k: (v * batches if quant8 else 0)
+                    "aspp": batches + N_SAMPLES
+                    + (N_CALIB if quant8 else 0)}
+            want.update({k: (v * (batches + N_SAMPLES) if quant8 else 0)
                          for k, v in PER_BATCH.items()})
             if counts != {**counts, **want}:
                 raise AssertionError(f"eval {quant8}: launches {counts}, "
@@ -1318,6 +1693,7 @@ def eval_phase(tmp: str, dev, smi: str) -> dict:
             if not (math.isfinite(res["mean_iou"]) and os.path.exists(path)):
                 raise AssertionError(f"eval {quant8}: {res['mean_iou']} "
                                      f"{path}")
+            check_samples(os.path.dirname(path), names[:N_SAMPLES])
             out[quant8] = dict(miou=res["mean_iou"],
                                pixel_accuracy=res["pixel_accuracy"],
                                img_per_s=N_EVAL / secs, counts=counts)
@@ -1617,7 +1993,7 @@ def zlib_levels(root: str) -> dict:
     overlay and one original, decoded and encoded again at levels 0, 1
     (``imageio.ZLIB_LEVEL``) and 6 (PIL's default), host seconds and MB
     each (one thread)."""
-    from scaleprotoseg_torch.imageio import encode_png, read_png
+    from scaleprotoseg_torch.imageio import encode_png
     pngs = sorted(os.path.join(d, f) for d, _, fs in os.walk(root)
                   for f in fs if f.endswith(".png"))
     picks = [next(p for p in pngs if "with_self_act" in p),
@@ -1648,7 +2024,6 @@ def pruning_phase(tmp: str, data: str, trained: dict, artifacts: dict, dev,
     from scaleprotoseg_torch import (eval_test, find_nearest, prune,
                                      run_pruning, train_wandb)
     from scaleprotoseg_torch.analysis import threshold_save
-    from scaleprotoseg_torch.imageio import read_png
     run = os.path.join(tmp, "city_train")
     out = dict(artifacts=check_artifacts(run, trained["push"], artifacts,
                                          smi))
@@ -1823,7 +2198,12 @@ def pruning_phase(tmp: str, data: str, trained: dict, artifacts: dict, dev,
                              data_root=data, results_root=tmp)
     counts = kernels.launch_counts()
     batches = math.ceil(N_VAL / B)
-    if not math.isfinite(res["mean_iou"]) or counts["aspp"] != batches or \
+    samples = min(N_SAMPLES, N_VAL)
+    check_samples(os.path.join(tmp, "city_train", "evaluation", "pruned"),
+                  sorted(p[:-4] for p in os.listdir(os.path.join(
+                      data, "annotations", "val")))[:samples])
+    if not math.isfinite(res["mean_iou"]) or \
+            counts["aspp"] != batches + samples or \
             counts["upsample"] != batches:
         raise AssertionError(f"eval of pruned: mIoU {res['mean_iou']}, "
                              f"launches {counts}")
@@ -2168,8 +2548,11 @@ def main() -> None:
     trained = training_phase(dev, smi)
     quant, evals = served["quant"], served["evals"]
     group, pruning = trained["group"], trained["pruning"]
+    art = served["artifact"]["counts"]
     by_path = {name: {"serving": served["counts"][name],
                       "quant8_serving": quant["counts"][name],
+                      "artifact_serving": art["bf16"][name],
+                      "artifact_quant8": art["quant8"][name],
                       "quant8_dynamic": quant["dyn_counts"][name],
                       "eval": evals[False]["counts"][name],
                       "eval_quant8": evals["static"]["counts"][name],

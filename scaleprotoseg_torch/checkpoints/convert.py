@@ -179,8 +179,10 @@ def quant_scales_to_jax(scales: Dict[str, float]) -> Dict:
 
 
 def to_tensors(sd: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """numpy state dict -> tensors (copies, so read-only arrays are fine)."""
-    return {k: torch.tensor(np.asarray(v)) for k, v in sd.items()}
+    """numpy state dict -> tensors (copies, so read-only arrays are fine);
+    tensors (bf16 ones among them) pass as they are."""
+    return {k: v if isinstance(v, torch.Tensor) else
+            torch.tensor(np.asarray(v)) for k, v in sd.items()}
 
 
 def synthetic_state_dict(model: nn.Module, seed: int = 0
@@ -217,11 +219,15 @@ def synthetic_state_dict(model: nn.Module, seed: int = 0
 
 
 def save_checkpoint(stem: str, state_dict: Dict[str, np.ndarray],
-                    spec: ProtoSpec, extra: Optional[Dict] = None) -> None:
-    """Write ``<stem>.pth`` and the ``<stem>.ckpt.json`` spec sidecar."""
+                    spec: Optional[ProtoSpec],
+                    extra: Optional[Dict] = None) -> None:
+    """Write ``<stem>.pth`` and the ``<stem>.ckpt.json`` spec sidecar
+    (without a ``spec`` entry when ``spec`` is None)."""
     os.makedirs(os.path.dirname(stem) or ".", exist_ok=True)
     torch.save(to_tensors(state_dict), stem + ".pth")
-    meta = {"format": SIDECAR_FORMAT, "spec": spec.to_meta()}
+    meta = {"format": SIDECAR_FORMAT}
+    if spec is not None:
+        meta["spec"] = spec.to_meta()
     if extra:
         meta["extra"] = extra
     with open(stem + ".ckpt.json", "w") as f:

@@ -11,8 +11,14 @@ loads the run's checkpoint, runs full-image inference over the raw val
 label resolution, and accumulates mIoU and pixel accuracy ignoring void,
 with the top-K prototype purity curve over the whole split.  Writes
 ``evaluation/<phase>[-quant8static|-quant8]/{iou_scores.json,
-mean_iou.txt, eval.log, proto_purity.json}``, and the plots where
-matplotlib is importable (a plot failure is logged; the result stays).
+mean_iou.txt, eval.log, proto_purity.json}``; the sample renders
+``samples/<name>.png`` of the first 5 files (input | ground truth |
+prediction at the model's output grid, the label panels coloured by
+``imageio.tab20_bytes``, written without matplotlib); and, where
+matplotlib is importable, the plots: per-class IoU, the purity curve and
+``proto_distance_hist.png``, the histogram of same-class prototype
+squared distances (computed on the model's device).  A failure of these
+artifacts is logged; the result stays.
 
 On the card (the default) the forward runs in bf16 with K2 and the
 output through K3 (``--exact-output``: the gather-form resize instead;
@@ -21,8 +27,8 @@ float32 plain path.  Quantized evaluations get their own directory, so
 the mIoU difference to the unquantized one is the accuracy cost of int8:
 ``--quant8-static`` calibrates on the first ``--calib-images`` val images
 (float32, one per batch); ``--quant8`` (dynamic) forces the non-K3
-output path.  Pascal and ADE resize their images with cv2, which the
-port does not have yet, and are refused.
+output path.  Pascal and ADE are refused until the other datasets are
+ported (ROADMAP.md Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -44,9 +50,11 @@ from scaleprotoseg_torch.constants import (CITYSCAPES_19_EVAL_CATEGORIES,
                                            COCO_ID_2_LABEL, EM_ID_2_LABEL,
                                            IMAGENET_MEAN, IMAGENET_STD)
 from scaleprotoseg_torch.eval.miou import SegEvaluator
+from scaleprotoseg_torch.imageio import tab20_bytes, write_png
 from scaleprotoseg_torch.model_loading import (calibrate_quant_scales,
                                                load_model, resolve_checkpoint,
                                                resolve_device)
+from scaleprotoseg_torch.ops.resize import resize_label_nearest_np
 from scaleprotoseg_torch.train.metrics import create_logger
 
 FULL_IMAGE = ("cityscapes", "coco", "em")
@@ -67,9 +75,10 @@ def class_names(data_type: str, num_classes: int) -> List[str]:
 def _check_protocol(data_type: str) -> None:
     if data_type in ("pascal", "ade"):
         raise NotImplementedError(
-            f"{data_type} evaluation resizes each image with cv2 "
-            "(INTER_LINEAR), which the port does not have yet; the port "
-            f"evaluates the full-image protocol of {FULL_IMAGE}")
+            f"{data_type} evaluation (its cv2 INTER_LINEAR resize is "
+            "ops/resize.resize_linear_cv2) waits for the port of the other "
+            "datasets: their labels, data paths and configs (ROADMAP.md "
+            f"Queue 1 item 5); the port evaluates {FULL_IMAGE}")
     if data_type not in FULL_IMAGE:
         raise ValueError(f"unknown data type {data_type!r}")
 
@@ -117,10 +126,9 @@ def run_evaluation(model_name: str, training_phase: str,
     log(f"Loading model from {checkpoint}")
 
     fast = dev.type == "cuda" and not fp32
-    model, spec = load_model(
-        model_path, checkpoint,
-        dtype=torch.bfloat16 if fast else torch.float32, fast=fast,
-        device=dev, quant8=quant8)
+    dtype = torch.bfloat16 if fast else torch.float32
+    model, spec = load_model(model_path, checkpoint, dtype=dtype, fast=fast,
+                             device=dev, quant8=quant8)
     if fast_output is None:
         fast_output = dev.type == "cuda"
     if quant8 is True and fast_output:
@@ -177,6 +185,11 @@ def run_evaluation(model_name: str, training_phase: str,
             pending_imgs.append(x)
             pending_anns.append(ann)
     flush()
+    try:
+        _save_sample_artifacts(model, files, img_dir, ann_dir, data_type,
+                               margin, out_dir, dtype)
+    except Exception as e:  # the renders are best-effort artifacts
+        log(f"eval sample artifacts skipped: {e!r}")
 
     result = evaluator.result()
     # the scores first: a plot failure must never lose the result
@@ -194,7 +207,9 @@ def run_evaluation(model_name: str, training_phase: str,
         log(f"top-1 prototype purity over {result['purity_images']} "
             f"images: {result['top_k_purity_percent'][0]:.2f}%")
     try:
-        _save_plots(out_dir, iou_scores, result.get("top_k_purity_percent"))
+        dists = same_class_distances(model.prototypes().detach(), spec)
+        _save_plots(out_dir, iou_scores, result.get("top_k_purity_percent"),
+                    dists.cpu().numpy())
     except Exception as e:  # the plots are best-effort artifacts
         log(f"eval plot artifacts skipped: {e!r}")
     log(f"mean IoU: {result['mean_iou']:.4f}  "
@@ -202,9 +217,72 @@ def run_evaluation(model_name: str, training_phase: str,
     return result
 
 
-def _save_plots(out_dir: str, iou_scores: dict, curve) -> None:
-    """The per-class IoU bar chart and the top-K purity plot, where
-    matplotlib is importable."""
+def same_class_distances(prototypes: torch.Tensor, spec) -> torch.Tensor:
+    """Squared L2 distances between the prototypes of each class, every
+    pair once (classes in order, pairs in ``np.triu_indices`` order), on
+    the prototypes' device: the numbers behind the JAX package's
+    ``proto_distance_hist.png``."""
+    p = prototypes.float()
+    identity = torch.as_tensor(spec.class_identity, device=p.device)
+    out = [p.new_zeros(0)]
+    for c in range(spec.num_classes):
+        idx = torch.nonzero(identity[:, c]).flatten()
+        if len(idx) < 2:
+            continue
+        pc = p[idx]
+        d = ((pc[:, None] - pc[None]) ** 2).sum(-1)
+        i, j = torch.triu_indices(len(idx), len(idx), 1, device=p.device)
+        out.append(d[i, j])
+    return torch.cat(out)
+
+
+def render_sample(image: np.ndarray, target: np.ndarray,
+                  pred: np.ndarray, gap: int = 8) -> np.ndarray:
+    """uint8 RGB: the input image, the target labels and the predicted
+    labels side by side, top-aligned on white, ``gap`` pixels apart; each
+    label panel coloured by ``tab20_bytes`` (matplotlib's tab20 over that
+    panel's own minimum and maximum)."""
+    panels = [np.asarray(image)[..., :3].astype(np.uint8),
+              tab20_bytes(torch.as_tensor(target)),
+              tab20_bytes(torch.as_tensor(pred))]
+    height = max(q.shape[0] for q in panels)
+    width = sum(q.shape[1] for q in panels) + gap * (len(panels) - 1)
+    out = np.full((height, width, 3), 255, np.uint8)
+    x0 = 0
+    for q in panels:
+        out[:q.shape[0], x0:x0 + q.shape[1]] = q
+        x0 += q.shape[1] + gap
+    return out
+
+
+def _save_sample_artifacts(model, files, img_dir: str, ann_dir: str,
+                           data_type: str, margin: int, out_dir: str,
+                           dtype: torch.dtype, n_samples: int = 5) -> None:
+    """``samples/<name>.png`` of the first ``n_samples`` files: input |
+    ground truth (nearest-resized to the output grid, 0 = void) |
+    prediction + 1, the JAX package's three panels."""
+    sample_dir = os.path.join(out_dir, "samples")
+    os.makedirs(sample_dir, exist_ok=True)
+    dev = next(model.parameters()).device
+    for name in files[:n_samples]:
+        img = np.load(os.path.join(img_dir, name + ".npy"))
+        if margin:
+            img = img[margin:-margin, margin:-margin]
+        ann = eval_targets(np.load(os.path.join(ann_dir, name + ".npy")),
+                           data_type).astype(np.int64)
+        x = torch.from_numpy(normalize(img))[None].to(dev, dtype)
+        with torch.inference_mode():
+            pred = model(x).logits[0].argmax(-1).cpu().numpy()
+        target = resize_label_nearest_np(ann, (pred.shape[1], pred.shape[0]))
+        write_png(os.path.join(sample_dir, f"{name}.png"),
+                  render_sample(img, target, pred + 1))
+
+
+def _save_plots(out_dir: str, iou_scores: dict, curve,
+                dists: np.ndarray) -> None:
+    """The per-class IoU bar chart, the top-K purity plot and the
+    same-class prototype distance histogram, where matplotlib is
+    importable."""
     try:
         import matplotlib
     except ImportError:
@@ -229,6 +307,14 @@ def _save_plots(out_dir: str, iou_scores: dict, curve) -> None:
         fig.savefig(os.path.join(out_dir,
                                  "class_prototypes_in_nearest_k.png"),
                     dpi=110)
+        plt.close(fig)
+    if len(dists):
+        fig, ax = plt.subplots()
+        ax.hist(dists.tolist(), bins=50)
+        ax.set_xlabel("same-class prototype squared L2 distance")
+        fig.tight_layout()
+        fig.savefig(os.path.join(out_dir, "proto_distance_hist.png"),
+                    dpi=120)
         plt.close(fig)
 
 

@@ -14,7 +14,11 @@ It reproduces the pixels of the JAX package's renderers:
 - ``jet``: ``matplotlib.pyplot.cm.jet(x)`` of floats in [0, 1]: the
   256-entry table built from matplotlib's ``_jet_data`` segments as
   ``LinearSegmentedColormap`` builds it, indexed at ``int(x * 256)``
-  (1.0 maps to 255, NaN to the transparent "bad" colour).
+  (1.0 maps to 255, NaN to the transparent "bad" colour);
+- ``tab20``: ``matplotlib.cm.tab20(x)``, the 20-colour listed table
+  indexed the same way at ``int(x * 20)``; ``tab20_bytes`` of labels is
+  ``cm.tab20(Normalize(vmin, vmax)(labels), bytes=True)`` with the
+  panel's own minimum and maximum, the colouring of eval's sample renders.
 
 Decoded pixels are what match, not file bytes: matplotlib adds a
 ``Software`` text chunk and PIL picks its own filters and zlib level.
@@ -48,6 +52,12 @@ _JET_DATA = {
              (1.00, 0, 0)),
 }
 _JET_N = 256
+
+# matplotlib's ``_cm._tab20_data``, as the hex colours it lists
+_TAB20_HEX = ("1f77b4", "aec7e8", "ff7f0e", "ffbb78", "2ca02c", "98df8a",
+              "d62728", "ff9896", "9467bd", "c5b0d5", "8c564b", "c49c94",
+              "e377c2", "f7b6d2", "7f7f7f", "c7c7c7", "bcbd22", "dbdb8d",
+              "17becf", "9edae5")
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -147,19 +157,42 @@ def _segment_lut(data, n: int) -> np.ndarray:
     return np.clip(lut, 0.0, 1.0)
 
 
-def _jet_table() -> np.ndarray:
-    """(N + 3, 4) float64: the colours, then under (the first), over (the
-    last) and bad (transparent black), as ``Colormap._init`` lays them."""
-    lut = np.ones((_JET_N + 3, 4))
-    for i, name in enumerate(("red", "green", "blue")):
-        lut[:_JET_N, i] = _segment_lut(_JET_DATA[name], _JET_N)
-    lut[_JET_N] = lut[0]
-    lut[_JET_N + 1] = lut[_JET_N - 1]
-    lut[_JET_N + 2] = 0.0
+def _with_extremes(colours: np.ndarray) -> np.ndarray:
+    """(N + 3, 4) float64: the N colours, then under (the first), over
+    (the last) and bad (transparent black), as ``Colormap._init`` lays
+    them."""
+    n = len(colours)
+    lut = np.ones((n + 3, 4))
+    lut[:n, :3] = colours
+    lut[n] = lut[0]
+    lut[n + 1] = lut[n - 1]
+    lut[n + 2] = 0.0
     return lut
 
 
+def _jet_table() -> np.ndarray:
+    return _with_extremes(np.stack([_segment_lut(_JET_DATA[name], _JET_N)
+                                    for name in ("red", "green", "blue")], 1))
+
+
 JET_LUT = _jet_table()
+TAB20_LUT = _with_extremes(np.array(
+    [[int(h[i:i + 2], 16) / 255 for i in (0, 2, 4)] for h in _TAB20_HEX]))
+
+
+def _lookup(lut: np.ndarray, x: torch.Tensor) -> torch.Tensor:
+    """``Colormap.__call__`` of floats: (..., 4) float64 RGBA from the
+    table ``lut`` of N colours and the three extremes."""
+    if not x.dtype.is_floating_point:
+        raise TypeError("a colour map takes floats in [0, 1]")
+    n = len(lut) - 3
+    xa = x * n
+    xa = torch.where(xa == n, xa.new_tensor(n - 1), xa)
+    idx = torch.nan_to_num(xa, nan=0.0).clamp(-1, n).long()
+    idx = torch.where(xa < 0, n, idx)
+    idx = torch.where(xa >= n, n + 1, idx)
+    idx = torch.where(torch.isnan(xa), n + 2, idx)
+    return torch.as_tensor(lut, device=x.device)[idx]
 
 
 def jet(x: torch.Tensor) -> torch.Tensor:
@@ -167,12 +200,19 @@ def jet(x: torch.Tensor) -> torch.Tensor:
     ``x``'s device.  ``x * 256`` is taken in ``x``'s dtype (exact: a power
     of two) and truncated; 1.0 takes the last colour, values outside
     [0, 1] the under and over colours, NaN the bad one."""
-    if not x.dtype.is_floating_point:
-        raise TypeError("jet takes floats in [0, 1]")
-    xa = x * _JET_N
-    xa = torch.where(xa == _JET_N, xa.new_tensor(_JET_N - 1), xa)
-    idx = torch.nan_to_num(xa, nan=0.0).clamp(-1, _JET_N).long()
-    idx = torch.where(xa < 0, _JET_N, idx)
-    idx = torch.where(xa >= _JET_N, _JET_N + 1, idx)
-    idx = torch.where(torch.isnan(xa), _JET_N + 2, idx)
-    return torch.as_tensor(JET_LUT, device=x.device)[idx]
+    return _lookup(JET_LUT, x)
+
+
+def tab20(x: torch.Tensor) -> torch.Tensor:
+    """``matplotlib.cm.tab20(x)`` of a float tensor, as ``jet``."""
+    return _lookup(TAB20_LUT, x)
+
+
+def tab20_bytes(labels: torch.Tensor) -> np.ndarray:
+    """uint8 (H, W, 3): ``cm.tab20(Normalize(vmin, vmax)(labels),
+    bytes=True)`` without alpha, vmin and vmax the labels' own (all
+    labels equal map to 0).  Normalize takes integer labels in float64."""
+    x = torch.as_tensor(labels).double()
+    lo, hi = x.min(), x.max()
+    x = torch.zeros_like(x) if bool(lo == hi) else (x - lo) / (hi - lo)
+    return (tab20(x)[..., :3] * 255).to(torch.uint8).cpu().numpy()

@@ -14,9 +14,11 @@ boxes from the unpadded map, zero-filled by the hardware at the border
 realignment have no counterpart here), and the three dy taps of a dx are
 views of one staged column strip.
 
-``fused_aspp`` launches the kernel for a CUDA tensor and runs
-``aspp_plain`` for a CPU tensor; ``aspp_plain`` is the shifted-matmul form
-of the JAX package's ``_xla_shifted_aspp`` with the same bf16 contract.
+``fused_aspp`` runs the registered op ``scaleprotoseg::fused_aspp``,
+whose CUDA implementation launches the kernel and whose CPU one is
+``aspp_plain``, the shifted-matmul form of the JAX package's
+``_xla_shifted_aspp`` with the same bf16 contract; a traced graph
+(``torch.export``) holds it as one node.
 
 Training goes through ``aspp_trainable``, the counterpart of the JAX
 package's ``fused_aspp_trainable``: the forward above (the shifted-matmul
@@ -34,7 +36,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -113,11 +115,31 @@ def fused_aspp(x: torch.Tensor, weights: Sequence[torch.Tensor],
     """Concat-ASPP: x (B, H, W, C) -> (B, H, W, len(rates)*F) bf16.
 
     Weights are per-rate (3, 3, C, F), biases per-rate (F,); ``packed``
-    is ``pack_weights(weights, biases)``, made once by the caller."""
-    if x.device.type == "cpu":
-        return aspp_plain(x, weights, biases, rates)
-    if x.device.type != "cuda":
+    is ``pack_weights(weights, biases)``, made once by the caller.  Runs
+    the registered op ``scaleprotoseg::fused_aspp``."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_aspp: unsupported device {x.device}")
+    wstack, bias = packed if packed is not None else (None, None)
+    return _aspp_op(x, list(weights), list(biases), list(rates), wstack,
+                    bias)
+
+
+fused_aspp.launches = 0
+
+
+@torch.library.custom_op("scaleprotoseg::fused_aspp", mutates_args=(),
+                         device_types="cpu")
+def _aspp_op(x: torch.Tensor, weights: List[torch.Tensor],
+             biases: List[torch.Tensor], rates: List[int],
+             wstack: Optional[torch.Tensor],
+             bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """K2 as one graph node; on the CPU its plain version (the packed
+    weights unused)."""
+    return aspp_plain(x, weights, biases, rates)
+
+
+@_aspp_op.register_kernel("cuda")
+def _aspp_cuda(x, weights, biases, rates, wstack, bias):
     b, h, w, c = x.shape
     f = weights[0].shape[-1]
     n_rates = len(rates)
@@ -130,8 +152,8 @@ def fused_aspp(x: torch.Tensor, weights: Sequence[torch.Tensor],
             tuple(wt.shape) != (3, 3, c, f) for wt in weights):
         raise ValueError("fused_aspp: one (3, 3, C, F) weight and one bias "
                          "per rate")
-    wstack, bias = packed if packed is not None else \
-        pack_weights(weights, biases)
+    if wstack is None:
+        wstack, bias = pack_weights(weights, biases)
     out = torch.empty((b, h, w, n_rates * f), dtype=torch.bfloat16,
                       device=x.device)
     r = list(rates) + [0] * (4 - n_rates)
@@ -143,7 +165,10 @@ def fused_aspp(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return out
 
 
-fused_aspp.launches = 0
+@_aspp_op.register_fake
+def _aspp_fake(x, weights, biases, rates, wstack, bias):
+    return x.new_empty((*x.shape[:3], len(rates) * weights[0].shape[-1]),
+                       dtype=torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +298,14 @@ def stack_weights_t(weights: Sequence[torch.Tensor],
                       for wt in weights], dim=0)
 
 
+def _aspp_forward(x, weights, biases, rates, packed):
+    """K2 from ``KERNEL_MIN_C`` input channels up, the shifted-matmul form
+    below."""
+    if x.shape[-1] >= KERNEL_MIN_C:
+        return fused_aspp(x, weights, biases, rates, packed)
+    return aspp_plain(x, weights, biases, rates)
+
+
 class _TrainableASPP(torch.autograd.Function):
     """The concat-ASPP with the tap-packed backward.  Inputs: x, rates,
     the packed forward weights (or None), then the R per-rate (3, 3, C, F)
@@ -282,10 +315,7 @@ class _TrainableASPP(torch.autograd.Function):
     def forward(ctx, x, rates, packed, *params):
         n_rates = len(rates)
         weights, biases = params[:n_rates], params[n_rates:]
-        if x.shape[-1] >= KERNEL_MIN_C:
-            y = fused_aspp(x, weights, biases, rates, packed)
-        else:
-            y = aspp_plain(x, weights, biases, rates)
+        y = _aspp_forward(x, weights, biases, rates, packed)
         ctx.rates = tuple(rates)
         ctx.save_for_backward(x, *weights)
         return y
@@ -318,5 +348,10 @@ def aspp_trainable(x: torch.Tensor, weights: Sequence[torch.Tensor],
                    ) -> torch.Tensor:
     """Concat-ASPP x (B, H, W, C) -> (B, H, W, R*F) bf16, differentiable
     in x, the per-rate (3, 3, C, F) weights and the (F,) biases through
-    the tap-packed backward.  ``packed`` as for ``fused_aspp``."""
+    the tap-packed backward.  ``packed`` as for ``fused_aspp``.  Where no
+    gradient is recorded (``no_grad``, ``inference_mode``, a traced
+    export) the forward runs alone, so that a graph holds the op and not
+    the Function."""
+    if not torch.is_grad_enabled():
+        return _aspp_forward(x, weights, biases, tuple(rates), packed)
     return _TrainableASPP.apply(x, tuple(rates), packed, *weights, *biases)

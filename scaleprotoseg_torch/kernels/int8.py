@@ -20,9 +20,11 @@ Bound on the H100: the layer4/5 convs are operations-bound (int8 tensor
 cores, 1,979 TOP/s); K4 at its benchmark shape and the quantize passes
 are bytes-bound.  See the source for the design.
 
-Each wrapper runs its plain PyTorch version for a CPU tensor and launches
-its kernel, or raises, for a CUDA one.  The plain int8 products run in
-float64, exact for int8 operands below 2^53, then cast to int32.
+Each wrapper runs a registered op (``scaleprotoseg::<name>``) whose CPU
+implementation is the plain PyTorch version and whose CUDA one launches
+the kernel, or raises; a traced graph holds each as one node.  The plain
+int8 products run in float64, exact for int8 operands below 2^53, then
+cast to int32.
 """
 
 from __future__ import annotations
@@ -124,6 +126,12 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _devices(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name}: unsupported device {t.device}")
+
+
 def _cuda(name: str, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.device.type != "cuda":
@@ -166,9 +174,24 @@ def int8_mm(a: torch.Tensor, bt: torch.Tensor,
     ``sx`` () and ``sw`` (N,) float32 the dequantized ``out_dtype``
     (bf16 or float32); bf16 -> float32.  The kernel takes contiguous
     operands with N % 128 == 0 and K % 64 (int8) or 32 (bf16) == 0; rows
-    past M are masked."""
-    if a.device.type == "cpu":
-        return int8_mm_plain(a, bt, sx, sw, out_dtype)
+    past M are masked.  Runs the registered op ``scaleprotoseg::int8_mm``."""
+    _devices("int8_mm", a, bt)
+    return _mm_op(a, bt, sx, sw, out_dtype)
+
+
+int8_mm.launches = 0
+
+
+@torch.library.custom_op("scaleprotoseg::int8_mm", mutates_args=(),
+                         device_types="cpu")
+def _mm_op(a: torch.Tensor, bt: torch.Tensor, sx: Optional[torch.Tensor],
+           sw: Optional[torch.Tensor],
+           out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    return int8_mm_plain(a, bt, sx, sw, out_dtype)
+
+
+@_mm_op.register_kernel("cuda")
+def _mm_cuda(a, bt, sx, sw, out_dtype):
     _cuda("int8_mm", a, bt)
     m, k = a.shape
     n = bt.shape[0]
@@ -200,7 +223,11 @@ def int8_mm(a: torch.Tensor, bt: torch.Tensor,
     return out
 
 
-int8_mm.launches = 0
+@_mm_op.register_fake
+def _mm_fake(a, bt, sx, sw, out_dtype):
+    dtype = torch.float32 if a.dtype != torch.int8 else \
+        out_dtype if sx is not None else torch.int32
+    return a.new_empty((a.shape[0], bt.shape[0]), dtype=dtype)
 
 
 def int8_conv3x3(x: torch.Tensor, wt: torch.Tensor, dilation: int,
@@ -209,9 +236,25 @@ def int8_conv3x3(x: torch.Tensor, wt: torch.Tensor, dilation: int,
                  out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Dilated 3x3 conv, zero padding = ``dilation``: x (B, H, W, C) int8
     NHWC and wt (9, N, C) int8 -> (B, H, W, N) int32, or dequantized as
-    ``int8_mm``.  The kernel needs C % 64 == 0 and N % 128 == 0."""
-    if x.device.type == "cpu":
-        return int8_conv3x3_plain(x, wt, dilation, sx, sw, out_dtype)
+    ``int8_mm``.  The kernel needs C % 64 == 0 and N % 128 == 0.  Runs the
+    registered op ``scaleprotoseg::int8_conv3x3``."""
+    _devices("int8_conv3x3", x, wt)
+    return _conv_op(x, wt, dilation, sx, sw, out_dtype)
+
+
+int8_conv3x3.launches = 0
+
+
+@torch.library.custom_op("scaleprotoseg::int8_conv3x3", mutates_args=(),
+                         device_types="cpu")
+def _conv_op(x: torch.Tensor, wt: torch.Tensor, dilation: int,
+             sx: Optional[torch.Tensor], sw: Optional[torch.Tensor],
+             out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    return int8_conv3x3_plain(x, wt, dilation, sx, sw, out_dtype)
+
+
+@_conv_op.register_kernel("cuda")
+def _conv_cuda(x, wt, dilation, sx, sw, out_dtype):
     _cuda("int8_conv3x3", x, wt)
     b, h, w, c = x.shape
     n = wt.shape[1]
@@ -235,7 +278,10 @@ def int8_conv3x3(x: torch.Tensor, wt: torch.Tensor, dilation: int,
     return out
 
 
-int8_conv3x3.launches = 0
+@_conv_op.register_fake
+def _conv_fake(x, wt, dilation, sx, sw, out_dtype):
+    dtype = out_dtype if sx is not None else torch.int32
+    return x.new_empty((*x.shape[:3], wt.shape[1]), dtype=dtype)
 
 
 def _elementwise_input(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -251,9 +297,24 @@ def _elementwise_input(name: str, x: torch.Tensor) -> torch.Tensor:
 def quantize_int8(x: torch.Tensor, scale: torch.Tensor,
                   divide: bool = False) -> torch.Tensor:
     """x (any shape, bf16 or float32) -> int8 of the same shape with the
-    device scalar ``scale``; see ``quantize_int8_plain``."""
-    if x.device.type == "cpu":
-        return quantize_int8_plain(x, scale, divide)
+    device scalar ``scale``; see ``quantize_int8_plain``.  Runs the
+    registered op ``scaleprotoseg::quantize_int8``."""
+    _devices("quantize_int8", x)
+    return _quantize_op(x, scale, divide)
+
+
+quantize_int8.launches = 0
+
+
+@torch.library.custom_op("scaleprotoseg::quantize_int8", mutates_args=(),
+                         device_types="cpu")
+def _quantize_op(x: torch.Tensor, scale: torch.Tensor,
+                 divide: bool) -> torch.Tensor:
+    return quantize_int8_plain(x, scale, divide)
+
+
+@_quantize_op.register_kernel("cuda")
+def _quantize_cuda(x, scale, divide):
     _cuda("quantize_int8", x, scale)
     x = _elementwise_input("quantize_int8", x)
     scale = scale.reshape(1)
@@ -268,16 +329,30 @@ def quantize_int8(x: torch.Tensor, scale: torch.Tensor,
     return q
 
 
-quantize_int8.launches = 0
+@_quantize_op.register_fake
+def _quantize_fake(x, scale, divide):
+    return x.new_empty(x.shape, dtype=torch.int8)
 
 
 def int8_absmax(x: torch.Tensor) -> torch.Tensor:
     """The dynamic per-tensor scale ``max(max|x|, 1e-12) / 127`` as a
     float32 () tensor on x's device: per-block maxima, then one block;
-    no host sync."""
-    if x.device.type == "cpu":
-        return absmax_plain(x)
-    _cuda("int8_absmax", x)
+    no host sync.  Runs the registered op ``scaleprotoseg::int8_absmax``."""
+    _devices("int8_absmax", x)
+    return _absmax_op(x)
+
+
+int8_absmax.launches = 0
+
+
+@torch.library.custom_op("scaleprotoseg::int8_absmax", mutates_args=(),
+                         device_types="cpu")
+def _absmax_op(x: torch.Tensor) -> torch.Tensor:
+    return absmax_plain(x)
+
+
+@_absmax_op.register_kernel("cuda")
+def _absmax_cuda(x):
     x = _elementwise_input("int8_absmax", x)
     fns = _launchers()
     partials = torch.empty(fns["absmax_blocks"](x.numel()),
@@ -291,4 +366,6 @@ def int8_absmax(x: torch.Tensor) -> torch.Tensor:
     return scale
 
 
-int8_absmax.launches = 0
+@_absmax_op.register_fake
+def _absmax_fake(x):
+    return x.new_empty((), dtype=torch.float32)

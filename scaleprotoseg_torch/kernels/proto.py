@@ -20,7 +20,8 @@ the producer and the consumers follow alike.  A head wider than 64 scores
 runs in passes over class windows (group head) or output-column windows
 (plain head).
 
-``fused_proto_logits`` launches the kernel for a CUDA tensor and runs
+``fused_proto_logits`` runs the registered op
+``scaleprotoseg::fused_proto_logits``: the kernel for a CUDA tensor,
 ``proto_plain`` for a CPU tensor.  The kernel reads bf16 features, the
 add-on output of the bf16 fast path.
 """
@@ -29,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -44,10 +45,18 @@ _DEPTH = 64                   # the kernel's compiled per-scale depth
 _CHUNK = 64                   # prototypes per bank chunk (CHUNK)
 
 
-@lru_cache(maxsize=64)
 def spec_tensors(spec: ProtoSpec, device: torch.device) -> dict:
     """Device copies of the spec's static index tables, made once per
-    (spec, device) so the forward issues no host-to-device copies."""
+    (spec, device) so the forward makes no host-to-device copies.  While
+    ``torch.export`` traces they are made anew and not kept: a table made
+    then is a fake tensor (the trace lifts it as a constant)."""
+    if torch.compiler.is_exporting():
+        return _spec_tensors.__wrapped__(spec, device)
+    return _spec_tensors(spec, device)
+
+
+@lru_cache(maxsize=64)
+def _spec_tensors(spec: ProtoSpec, device: torch.device) -> dict:
     idx = spec.class_proto_index
     c_of, q_of = np.nonzero(idx >= 0)
     as_t = lambda v, dt: torch.as_tensor(v, dtype=dt, device=device)  # noqa: E731
@@ -343,44 +352,100 @@ def fused_proto_logits(features: torch.Tensor, prototypes: torch.Tensor,
 
     Plain head: ``last_layer`` (P, C).  Group head: ``group_projection``
     (C, G, Pc_max) and ``last_layer_group`` (C*G, C).  ``head``: these
-    weights already packed by ``pack_head``; the kernel then reads it
-    instead of packing them anew.  The kernel takes bf16 features."""
-    if features.device.type == "cpu":
-        return proto_plain(features, prototypes, last_layer, spec,
-                           group_projection, last_layer_group)
-    if features.device.type != "cuda":
+    weights already packed by ``pack_head`` (only its kernel tables are
+    read); for a CUDA tensor without it they are packed anew.  Runs the
+    registered op ``scaleprotoseg::fused_proto_logits``, which takes the
+    dense weights (its CPU implementation, ``proto_plain``, reads them),
+    the kernel's tables and the spec's fields one by one.  The kernel
+    takes bf16 features."""
+    if features.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_proto_logits: unsupported device "
                          f"{features.device}")
+    if head is None and features.device.type == "cuda":
+        head = pack_head(prototypes, last_layer, spec, group_projection,
+                         last_layer_group)
+    tables = [getattr(head, k) if head is not None else None
+              for k in KERNEL_TABLES]
+    return _proto_op(features, prototypes, last_layer, group_projection,
+                     last_layer_group, *tables, spec.num_classes,
+                     spec.proto_depth, spec.num_groups, list(spec.class_ids),
+                     [i for b in spec.scale_bounds for i in b])
+
+
+fused_proto_logits.launches = 0
+
+# the ProtoHead fields the kernel reads, in the op's order
+KERNEL_TABLES = ("bank", "steps", "chunk_pn", "table", "glw_pad")
+
+
+@lru_cache(maxsize=64)
+def _spec(num_classes: int, proto_depth: int, num_groups: int,
+          class_ids: tuple, bounds: tuple) -> ProtoSpec:
+    return ProtoSpec(num_classes=num_classes, num_scales=len(bounds) // 2,
+                     proto_depth=proto_depth, class_ids=class_ids,
+                     scale_bounds=tuple(zip(bounds[::2], bounds[1::2])),
+                     num_groups=num_groups)
+
+
+@torch.library.custom_op("scaleprotoseg::fused_proto_logits",
+                         mutates_args=(), device_types="cpu")
+def _proto_op(features: torch.Tensor, prototypes: torch.Tensor,
+              last_layer: Optional[torch.Tensor],
+              group_projection: Optional[torch.Tensor],
+              last_layer_group: Optional[torch.Tensor],
+              bank: Optional[torch.Tensor], steps: Optional[torch.Tensor],
+              chunk_pn: Optional[torch.Tensor], table: Optional[torch.Tensor],
+              glw_pad: Optional[torch.Tensor], num_classes: int,
+              proto_depth: int, num_groups: int, class_ids: List[int],
+              scale_bounds: List[int]) -> torch.Tensor:
+    """K1 as one graph node; on the CPU its plain version from the dense
+    weights (the tables unused)."""
+    spec = _spec(num_classes, proto_depth, num_groups, tuple(class_ids),
+                 tuple(scale_bounds))
+    return proto_plain(features, prototypes, last_layer, spec,
+                       group_projection, last_layer_group)
+
+
+@_proto_op.register_kernel("cuda")
+def _proto_cuda(features, prototypes, last_layer, group_projection,
+                last_layer_group, bank, steps, chunk_pn, table, glw_pad,
+                num_classes, proto_depth, num_groups, class_ids,
+                scale_bounds):
     b, h, w, cf = features.shape
-    if cf != spec.feature_depth or spec.proto_depth != _DEPTH:
+    num_scales = len(scale_bounds) // 2
+    if cf != num_scales * proto_depth or proto_depth != _DEPTH:
         raise ValueError(f"fused_proto_logits: the kernel takes "
-                         f"{spec.num_scales} x {_DEPTH} features, got {cf} "
-                         f"channels at depth {spec.proto_depth}")
+                         f"{num_scales} x {_DEPTH} features, got {cf} "
+                         f"channels at depth {proto_depth}")
     if features.dtype != torch.bfloat16 or not features.is_contiguous():
         raise ValueError("fused_proto_logits: features must be contiguous "
                          f"bf16, got {features.dtype}")
-    if head is None:
-        head = pack_head(prototypes, last_layer, spec, group_projection,
-                         last_layer_group)
-    if head.bank is None:
+    if bank is None:
         raise ValueError(f"fused_proto_logits: the kernel takes at most "
                          f"{_MAX_G} groups and at least one prototype")
     if features.data_ptr() % 16:
         raise ValueError("fused_proto_logits: features must be 16-byte "
                          "aligned")
-    c = spec.num_classes
+    groups = num_groups if group_projection is not None else 0
     n = b * h * w
-    out = torch.empty((n, c), dtype=torch.float32, device=features.device)
+    out = torch.empty((n, num_classes), dtype=torch.float32,
+                      device=features.device)
     stream = torch.cuda.current_stream(features.device).cuda_stream
     status = _launcher()(
-        features.data_ptr(), head.bank.data_ptr(), head.steps.data_ptr(),
-        head.chunk_pn.data_ptr(), head.table.data_ptr(),
-        head.glw_pad.data_ptr(), out.data_ptr(), n, spec.num_scales,
-        head.steps.shape[0], head.columns.shape[0], c, head.groups,
-        head.glw_pad.shape[1], EPSILON, stream)
+        features.data_ptr(), bank.data_ptr(), steps.data_ptr(),
+        chunk_pn.data_ptr(), table.data_ptr(), glw_pad.data_ptr(),
+        out.data_ptr(), n, num_scales, steps.shape[0],
+        bank.shape[0] // (3 * _CHUNK), num_classes, groups, glw_pad.shape[1],
+        EPSILON, stream)
     check(library("proto"), status, "proto_forward")
     fused_proto_logits.launches += 1
-    return out.reshape(b, h, w, c)
+    return out.reshape(b, h, w, num_classes)
 
 
-fused_proto_logits.launches = 0
+@_proto_op.register_fake
+def _proto_fake(features, prototypes, last_layer, group_projection,
+                last_layer_group, bank, steps, chunk_pn, table, glw_pad,
+                num_classes, proto_depth, num_groups, class_ids,
+                scale_bounds):
+    return features.new_empty((*features.shape[:-1], num_classes),
+                              dtype=torch.float32)

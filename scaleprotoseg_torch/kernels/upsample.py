@@ -15,7 +15,8 @@ The taps come from tables built here from the nonzeros of
 ``_bilinear_matrix``, so the weights are bit-equal to the matrix form; the
 labels leave as uint8 (int32 above 255 classes), 16 bytes at a time.
 
-``fused_upsample_argmax`` launches the kernel for a CUDA tensor and runs
+``fused_upsample_argmax`` runs the registered op
+``scaleprotoseg::fused_upsample_argmax``: the kernel for a CUDA tensor,
 ``upsample_argmax_plain`` for a CPU tensor.
 """
 
@@ -117,12 +118,27 @@ def _launcher():
 def fused_upsample_argmax(logits: torch.Tensor, height: int,
                           width: int) -> torch.Tensor:
     """(B, h, w, C) logits -> (B, height, width) labels, uint8 for up to
-    255 classes, else int32."""
-    if logits.device.type == "cpu":
-        return upsample_argmax_plain(logits, height, width)
-    if logits.device.type != "cuda":
+    255 classes, else int32.  Runs the registered op
+    ``scaleprotoseg::fused_upsample_argmax``."""
+    if logits.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_upsample_argmax: unsupported device "
                          f"{logits.device}")
+    return _upsample_op(logits, height, width)
+
+
+fused_upsample_argmax.launches = 0
+
+
+@torch.library.custom_op("scaleprotoseg::fused_upsample_argmax",
+                         mutates_args=(), device_types="cpu")
+def _upsample_op(logits: torch.Tensor, height: int,
+                 width: int) -> torch.Tensor:
+    """K3 as one graph node; on the CPU its plain version."""
+    return upsample_argmax_plain(logits, height, width)
+
+
+@_upsample_op.register_kernel("cuda")
+def _upsample_cuda(logits, height, width):
     if logits.dtype != torch.float32 or not logits.is_contiguous() \
             or logits.dim() != 4:
         raise ValueError("fused_upsample_argmax: logits must be contiguous "
@@ -146,4 +162,7 @@ def fused_upsample_argmax(logits: torch.Tensor, height: int,
     return out
 
 
-fused_upsample_argmax.launches = 0
+@_upsample_op.register_fake
+def _upsample_fake(logits, height, width):
+    return logits.new_empty((logits.shape[0], height, width),
+                            dtype=label_dtype(logits.shape[-1]))

@@ -20,21 +20,11 @@ import torch
 from scaleprotoseg_torch import configlib
 from scaleprotoseg_torch.checkpoints.convert import (load_checkpoint,
                                                      spec_from_meta)
+from scaleprotoseg_torch.device import resolve_device  # noqa: F401
 from scaleprotoseg_torch.models.factory import construct_ppnet
 from scaleprotoseg_torch.models.layers import QuantConvBN, cast_convs
 from scaleprotoseg_torch.models.ppnet import PPNet
 from scaleprotoseg_torch.spec import ProtoSpec
-
-
-def resolve_device(device: Optional[Union[str, torch.device]] = None
-                   ) -> torch.device:
-    """``cuda`` unless the caller names another device; raises when CUDA
-    is asked for (or defaulted to) and absent."""
-    dev = torch.device(device or "cuda")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' "
-                           "(--device cpu) to run on the CPU")
-    return dev
 
 
 def resolve_checkpoint(model_path: str, training_phase: str) -> str:

@@ -116,14 +116,16 @@ class ASPP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xh = x.permute(0, 2, 3, 1).contiguous()        # NHWC
-        branches = [getattr(self, f"c{i}") for i in range(len(self.rates))]
+        branches = self._branches()
         weights = [b.hwio() for b in branches]
         biases = [b.bias for b in branches]
         if self.fast and x.dtype == torch.bfloat16:
-            packed = self._packed.get(
-                list(self.parameters()),
-                lambda: pack_weights(weights, biases)) \
-                if xh.shape[-1] >= KERNEL_MIN_C else None
+            packed = None
+            if "k2_wstack" in self._buffers:       # held for export
+                packed = (self.k2_wstack, self.k2_bias)
+            elif xh.shape[-1] >= KERNEL_MIN_C:
+                packed = self._packed.get(list(self.parameters()),
+                                          self._pack)
             y = aspp_trainable(xh, weights, biases, self.rates,
                                packed).float()
         else:
@@ -131,6 +133,22 @@ class ASPP(nn.Module):
         if self.mode == "sum":
             y = y.reshape(*y.shape[:-1], len(self.rates), -1).sum(-2)
         return y.permute(0, 3, 1, 2)
+
+    def _branches(self) -> list:
+        return [getattr(self, f"c{i}") for i in range(len(self.rates))]
+
+    def _pack(self):
+        branches = self._branches()
+        return pack_weights([b.hwio() for b in branches],
+                            [b.bias for b in branches])
+
+    def packed_buffers(self) -> dict:
+        """K2's weight stack and bias, for ``packed_as_buffers`` (none
+        unless ``fast`` and the input depth reaches ``KERNEL_MIN_C``)."""
+        if not self.fast or self.c0.weight.shape[1] < KERNEL_MIN_C:
+            return {}
+        wstack, bias = self._pack()
+        return {"k2_wstack": wstack, "k2_bias": bias}
 
 
 class DeepLabV2(nn.Module):

@@ -15,7 +15,9 @@ may run in bf16, in one of two ways:
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence
+import contextlib
+from typing import (Any, Callable, Dict, Iterable, Iterator, Optional,
+                    Sequence)
 
 import torch
 import torch.nn as nn
@@ -32,6 +34,13 @@ class FrozenBatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, False, 0.0, self.eps)
+
+
+def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype``, with no cast where it already is: a traced
+    graph (``torch.export``) then holds no cast and no metadata assertion
+    for it, host work on every call of the served program."""
+    return t if t.dtype == dtype else t.to(dtype)
 
 
 class ConvBN(nn.Module):
@@ -54,7 +63,7 @@ class ConvBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.conv
         dt = self.compute_dtype or conv.weight.dtype
-        x = F.conv2d(x.to(dt), conv.weight.to(dt), None, conv.stride,
+        x = F.conv2d(_cast(x, dt), _cast(conv.weight, dt), None, conv.stride,
                      conv.padding, conv.dilation)
         x = self.bn(x)
         return F.relu(x, inplace=True) if self.relu else x
@@ -132,10 +141,22 @@ class QuantConvBN(ConvBN):
                 (k - 1) * conv.dilation[0] // 2,) * 2 or k not in (1, 3):
             raise ValueError("int8 kernels take stride-1 'same' 1x1 and 3x3 "
                              "convs only")
-        packed = self._packed.get(
-            [conv.weight],
-            lambda: pack_int8_weight(conv.weight.permute(2, 3, 1, 0).float()))
+        if "int8_wt" in self._buffers:            # held for export
+            packed = (self.int8_wt, self.int8_sw)
+        else:
+            packed = self._packed.get([conv.weight], self._pack)
         return int8_conv(xh, packed, scale, conv.dilation[0], dt)
+
+    def _pack(self):
+        return pack_int8_weight(self.conv.weight.permute(2, 3, 1, 0).float())
+
+    def packed_buffers(self) -> Dict[str, torch.Tensor]:
+        """The quantized, transposed weight and its per-channel scales,
+        for ``packed_as_buffers``."""
+        if self.plain:
+            return {}
+        wt, sw = self._pack()
+        return {"int8_wt": wt, "int8_sw": sw}
 
 
 def max_pool_ceil() -> nn.MaxPool2d:
@@ -185,3 +206,31 @@ class WeightCache:
                 self._value = build()
             self._key = key
         return self._value
+
+
+@contextlib.contextmanager
+def packed_as_buffers(modules: Iterable[nn.Module]) -> Iterator[None]:
+    """Hold the packed weight form of each of ``modules`` that has one
+    (``packed_buffers()``: K2's stack in ``ASPP``, K1's tables in
+    ``PPNet``, the int8 weights in ``QuantConvBN``) as registered buffers
+    while the block runs, built from the current weights.  The forward
+    then reads them in place of the ``WeightCache``, whose key is a data
+    pointer that a traced forward's fake tensors lack, and a program
+    exported meanwhile (``torch.export``) carries them in its state.  The
+    buffers are removed on exit; the eager caches are untouched."""
+    held = []
+    try:
+        for m in modules:
+            pack = getattr(m, "packed_buffers", None)
+            if pack is None:
+                continue
+            with torch.no_grad():
+                tensors = pack()
+            for name, t in tensors.items():
+                m.register_buffer(name, t.contiguous())
+            held.append((m, list(tensors)))
+        yield
+    finally:
+        for m, names in held:
+            for name in names:
+                delattr(m, name)

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from scaleprotoseg_torch.kernels.proto import (fused_proto_logits,
+from scaleprotoseg_torch.kernels.proto import (KERNEL_TABLES, ProtoHead,
+                                               fused_proto_logits,
                                                group_activations, pack_head)
 from scaleprotoseg_torch.models.layers import WeightCache, set_compute_dtype
 from scaleprotoseg_torch.ops.prototype import (distance_to_similarity,
@@ -227,16 +228,29 @@ class PPNet(nn.Module):
                     *self.group_projection.parameters()]
         return [self.prototype_vectors, self.last_layer.weight]
 
+    def _dense_head(self) -> dict:
+        """``fused_proto_logits``' dense head weights."""
+        if self.grouped:
+            gw, glw = self.group_weights()
+            return dict(last_layer=None, group_projection=gw,
+                        last_layer_group=glw)
+        return dict(last_layer=self.last_layer.weight.t())
+
     def _head_weights(self) -> dict:
         """``fused_proto_logits``' head arguments: the dense weights and
         K1's packed form of them."""
-        if self.grouped:
-            gw, glw = self.group_weights()
-            w = dict(last_layer=None, group_projection=gw,
-                     last_layer_group=glw)
-        else:
-            w = dict(last_layer=self.last_layer.weight.t())
+        w = self._dense_head()
         return dict(w, head=pack_head(self.prototypes(), spec=self.spec, **w))
+
+    def packed_buffers(self) -> dict:
+        """K1's tables, for ``layers.packed_as_buffers`` (none where the
+        head is not the kernel's)."""
+        if self.activation_fn != "log":
+            return {}
+        head = self._head_weights()["head"]
+        if head.bank is None:
+            return {}
+        return {f"k1_{k}": getattr(head, k) for k in KERNEL_TABLES}
 
     def fast_logits(self, x: torch.Tensor) -> torch.Tensor:
         """Backbone + add-on, then the fused prototype head (K1) when the
@@ -245,6 +259,12 @@ class PPNet(nn.Module):
         feats = self.conv_features(x).contiguous()
         if self.activation_fn != "log":
             return self.forward_from_conv_features(feats).logits
-        w = self._head.get(self._head_params(), self._head_weights)
+        if "k1_bank" in self._buffers:            # held for export
+            # the kernel reads only the tables of the packed head
+            tables = {k: self._buffers[f"k1_{k}"] for k in KERNEL_TABLES}
+            w = dict(self._dense_head(),
+                     head=ProtoHead(None, None, None, None, 0, **tables))
+        else:
+            w = self._head.get(self._head_params(), self._head_weights)
         return fused_proto_logits(feats, self.prototypes(), spec=self.spec,
                                   **w)

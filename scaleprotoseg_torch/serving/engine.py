@@ -29,7 +29,7 @@ from typing import Any, Callable, Iterable, Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from scaleprotoseg_torch.model_loading import resolve_device
+from scaleprotoseg_torch.device import resolve_device
 
 
 class ServingEngine:

@@ -812,3 +812,144 @@ def test_find_nearest_on_the_card_matches_the_cpu(dev, gen):
     for g, w in zip(got[1:3], want[1:3]):
         np.testing.assert_array_equal(g[ok], w[ok])
     np.testing.assert_array_equal(got_labels[ok], want_labels[ok])
+
+
+def _op_case(name, gen, dev):
+    """(wrapper call, the same work as a direct ``scaleprotoseg::`` op call,
+    the wrapper whose count a launch raises) at small shapes."""
+    ops = torch.ops.scaleprotoseg
+    t = lambda a, dt=None: torch.from_numpy(a).to(dev, dt)  # noqa: E731
+    if name == "fused_aspp":
+        x = t(gen.random((2, 21, 37, 512), np.float32), torch.bfloat16)
+        ws = [t(gen.standard_normal((3, 3, 512, 64)).astype(np.float32)
+                * 0.02) for _ in range(4)]
+        bs = [t(gen.standard_normal(64).astype(np.float32))
+              for _ in range(4)]
+        return (lambda: kernels.fused_aspp(x, ws, bs),
+                lambda: ops.fused_aspp(x, ws, bs, [6, 12, 18, 24], None,
+                                       None), kernels.fused_aspp)
+    if name == "fused_proto_logits":
+        from scaleprotoseg_torch.kernels.proto import pack_head
+        spec = ProtoSpec.equal_allocation(228, 64, num_classes=19,
+                                          num_groups=3)
+        feats = t(gen.random((2, 13, 17, 256), np.float32), torch.bfloat16)
+        protos = t(gen.random((228, 64), np.float32))
+        mask = (spec.class_proto_index >= 0).astype(np.float32)
+        gw = t(gen.random((19, 3, spec.max_protos_per_class), np.float32)
+               * mask[:, None, :])
+        glw = t(gen.standard_normal((57, 19)).astype(np.float32) * 0.1)
+        head = pack_head(protos, None, spec, gw, glw)
+        bounds = [i for b in spec.scale_bounds for i in b]
+        return (lambda: kernels.fused_proto_logits(feats, protos, None, spec,
+                                                   gw, glw, head=head),
+                lambda: ops.fused_proto_logits(
+                    feats, protos, None, gw, glw, head.bank, head.steps,
+                    head.chunk_pn, head.table, head.glw_pad, 19, 64, 3,
+                    list(spec.class_ids), bounds),
+                kernels.fused_proto_logits)
+    if name == "fused_upsample_argmax":
+        logits = t(gen.standard_normal((2, 9, 11, 19)).astype(np.float32))
+        return (lambda: kernels.fused_upsample_argmax(logits, 65, 81),
+                lambda: ops.fused_upsample_argmax(logits, 65, 81),
+                kernels.fused_upsample_argmax)
+    if name == "int8_mm":
+        a = t(gen.integers(-127, 128, (1000, 256)).astype(np.int8))
+        bt = t(gen.integers(-127, 128, (128, 256)).astype(np.int8))
+        sx = t(np.array(0.02, np.float32))
+        sw = t(gen.random(128, np.float32) * 0.01)
+        return (lambda: kernels.int8_mm(a, bt, sx, sw, torch.bfloat16),
+                lambda: ops.int8_mm(a, bt, sx, sw, torch.bfloat16),
+                kernels.int8_mm)
+    if name == "int8_conv3x3":
+        x = t(gen.integers(-127, 128, (2, 9, 10, 64)).astype(np.int8))
+        wt = t(gen.integers(-127, 128, (9, 128, 64)).astype(np.int8))
+        return (lambda: kernels.int8_conv3x3(x, wt, 2),
+                lambda: ops.int8_conv3x3(x, wt, 2, None, None, None),
+                kernels.int8_conv3x3)
+    x = t(gen.standard_normal(4096).astype(np.float32), torch.bfloat16)
+    if name == "quantize_int8":
+        scale = t(np.array(0.03, np.float32))
+        return (lambda: kernels.quantize_int8(x, scale),
+                lambda: ops.quantize_int8(x, scale, False),
+                kernels.quantize_int8)
+    return (lambda: kernels.int8_absmax(x), lambda: ops.int8_absmax(x),
+            kernels.int8_absmax)
+
+
+@pytest.mark.parametrize("name", ["fused_aspp", "fused_proto_logits",
+                                  "fused_upsample_argmax", "int8_mm",
+                                  "int8_conv3x3", "quantize_int8",
+                                  "int8_absmax"])
+def test_registered_op_launches_the_kernel(dev, gen, name):
+    """Each ``scaleprotoseg::`` op called directly on CUDA tensors is the
+    wrapper's kernel: one launch counted, the same bits."""
+    wrapper, op, counted = _op_case(name, gen, dev)
+    want = wrapper()
+    before = counted.launches
+    got = op()
+    torch.cuda.synchronize()
+    assert counted.launches == before + 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def _tiny_flagship(seed=0, dtype=torch.float32):
+    """The flagship at full widths and tiny depth, seeded weights; the
+    add-on computes in ``dtype``."""
+    from scaleprotoseg_torch.checkpoints.convert import (synthetic_state_dict,
+                                                         to_tensors)
+    from scaleprotoseg_torch.models.deeplab import DeepLabV2
+    from scaleprotoseg_torch.models.ppnet import PPNet
+    spec = ProtoSpec.equal_allocation(228, 64, num_classes=19, num_groups=3)
+    model = PPNet(DeepLabV2(n_out=64, n_blocks=(1, 1, 2, 1)), spec,
+                  grouped=True, dtype=dtype)
+    model.load_state_dict(to_tensors(synthetic_state_dict(model, seed)))
+    return model.eval()
+
+
+def test_fast_artifact_round_trip_on_the_card(dev, gen, tmp_path):
+    """A bf16 fast artifact exported on the card holds K1, K2 and K3 as op
+    nodes; loaded again it launches each once a batch and gives the eager
+    fast path's labels bit for bit."""
+    from scaleprotoseg_torch.models.layers import cast_convs
+    from scaleprotoseg_torch.serving.export import (export_serving,
+                                                    load_artifact,
+                                                    make_serving_fn,
+                                                    save_artifact)
+    model = cast_convs(_tiny_flagship(dtype=torch.bfloat16),
+                       torch.bfloat16).to(dev)
+    model.features.base.aspp.fast = True
+    raw = torch.from_numpy(gen.integers(0, 256, (2, 65, 81, 3)).astype(
+        np.uint8)).to(dev)
+    want = make_serving_fn(model, fast=True, normalize_to=torch.bfloat16)(raw)
+    exported = export_serving(model, height=65, width=81, batch=2,
+                              input_dtype=torch.bfloat16, fast=True,
+                              device_preprocess=True)
+    save_artifact(str(tmp_path), exported, spec=model.spec)
+    served = load_artifact(str(tmp_path))
+    assert served.meta["platforms"] == ["cuda"]
+    kernels.reset_launch_counts()
+    got = served.predict(raw)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["aspp"], counts["proto"], counts["upsample"]) == (1, 1, 1)
+    assert torch.equal(got, want)
+
+
+def test_cpu_exported_plain_artifact_moves_to_the_card(dev, gen, tmp_path):
+    """A float32 plain artifact exported on the CPU for both platforms
+    serves on the card (``move_to_device_pass``) with the labels of the
+    same model's eager forward there."""
+    from scaleprotoseg_torch.serving.export import (export_serving,
+                                                    load_artifact,
+                                                    make_serving_fn,
+                                                    save_artifact)
+    model = _tiny_flagship(seed=1)
+    exported = export_serving(model, height=33, width=33, batch=None,
+                              input_dtype=torch.float32,
+                              platforms=("cpu", "cuda"))
+    save_artifact(str(tmp_path), exported, spec=model.spec)
+    served = load_artifact(str(tmp_path), device="cuda")
+    x = torch.from_numpy(gen.standard_normal((3, 33, 33, 3)).astype(
+        np.float32)).to(dev)
+    want = make_serving_fn(model.to(dev))(x)
+    assert torch.equal(served.predict(x), want)
