@@ -147,7 +147,24 @@ Phases; any failure exits non-zero and prints no result:
    ``imageio.read_png``, every value a Cityscapes label id, equal to the
    plain path's after the label table on >= 99% of pixels; and
    ``run_evaluation`` of ``pruned`` over the 4 val images (a finite mIoU,
-   K2 and K3 once a batch);
+   K2 and K3 once a batch).  Then the ProtoSeg baseline
+   (``baseline_cityscapes``: summed ASPP, 190 prototypes on one scale) at
+   full depth through ``train_wandb.main --gpu-recipe`` without
+   ``--pruned`` on the same data: 10 warm-up, 10 joint and 5 last-layer
+   micro-steps around push, K2's forward and backward launched exactly as
+   the phases imply (the last layer: the forward alone), losses finite,
+   img/s, step ms and idle share per phase; its ``push_final`` served as
+   ``final-group`` is (K1, K2 and K3 on every batch, labels against the
+   plain path, K1 at the pushed bank).  Then resume after SIGTERM: the
+   baseline's joint phase (40 micro-steps, ``iter_size`` 5, a validation
+   every 5, ``det_seed`` bound) through the trainer CLI in processes of
+   its own, twice straight (the two must agree bit for bit), once stopped
+   by SIGTERM once the first validation's state has committed (exit 143,
+   the state committed at the step it stopped) and once relaunched (exit
+   0, the state restored at that step): every checkpoint and metrics row
+   of the relaunch equal to the straight run's, bit for bit; the state's
+   MB, the blocking snapshot's host ms, the commit and restore seconds and
+   the relaunch's launches are printed;
 6. one line per kernel with its times, bound and launches, for the six
    kernels since redesigned the earlier design's recorded times beside
    the new ones, the card's name and power limit, the kernels
@@ -223,6 +240,10 @@ GROUP_WARMUP_STEPS, GROUP_JOINT_STEPS = 10, 10   # a validation at each end
 N_GROUP_SERVE = 8
 PRUNED_STEPS = 10             # last-layer micro-steps of the pruned model
 N_TEST = 4                    # test-split images exported by eval_test
+SINGLE_STEPS = (10, 10, 5)    # the baseline's warm-up, joint, last layer
+SINGLE_VAL_EVERY = 10
+RESUME_STEPS, RESUME_VAL_EVERY = 40, 5   # the resumed joint phase
+RESUME_TIMEOUT_S = 300
 SERVING_KERNELS = ("aspp", "proto", "upsample")
 TRAINING_KERNELS = ("aspp", "aspp_grad_pack", "aspp_grad_weight")
 
@@ -1858,10 +1879,241 @@ def training_phase(dev, smi: str) -> dict:
         torch.cuda.empty_cache()
         group = group_phase(tmp, data, out["final"], batch, dev, smi)
         pruning = pruning_phase(tmp, data, out, artifacts, dev, smi)
+        torch.cuda.empty_cache()
+        single = single_phase(tmp, data, dev, smi)
+        torch.cuda.empty_cache()
+        resume = resume_phase(tmp, data, smi)
         return dict(counts=counts, step_cmp=step_cmp, pushed_cmp=pushed_cmp,
                     profiles=step_profiles,
                     perf={p: out["phases"][p].perf for p in (0, 1)},
-                    push=push_stats, group=group, pruning=pruning)
+                    push=push_stats, group=group, pruning=pruning,
+                    single=single, resume=resume)
+
+
+# ---------------------------------------------------------------------------
+# the single-scale baseline, and resume after SIGTERM
+# ---------------------------------------------------------------------------
+def single_phase(tmp: str, data: str, dev, smi: str) -> dict:
+    """The ProtoSeg baseline (``baseline_cityscapes``: summed ASPP, 190
+    prototypes on one scale) trained at full depth through
+    ``train_wandb.main`` without ``--pruned``: warm-up and joint with K2's
+    forward and backward, push, the last layer with K2's forward alone;
+    ``push_final`` served like ``final-group``."""
+    from scaleprotoseg_torch import train_wandb
+    gin = [f"train.warmup_steps = {SINGLE_STEPS[0]}",
+           f"train.joint_steps = {SINGLE_STEPS[1]}",
+           f"train.finetune_steps = {SINGLE_STEPS[2]}",
+           f"Trainer.val_check_interval = {SINGLE_VAL_EVERY}"]
+    argv = ["baseline_cityscapes", "city_single", "--gpu-recipe",
+            "--data-root", data, "--results-root", tmp]
+    for line in gin:
+        argv += ["--gin", line]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_wandb.main(argv)
+    counts = kernels.launch_counts()
+    log(f"single: main took {time.perf_counter() - t0:.1f} s; launches "
+        f"{counts}")
+    val_batches = math.ceil(N_VAL / B)
+    for phase, steps in enumerate(SINGLE_STEPS):
+        res = out["phases"][phase]
+        bwd = 0 if phase == 2 else steps    # the last layer: forward only
+        want = {"aspp": steps + res.validations * val_batches,
+                "aspp_grad_pack": bwd, "aspp_grad_weight": bwd}
+        if res.steps_done != steps or len(res.losses) != steps or \
+                not all(math.isfinite(v) for v in res.losses):
+            raise AssertionError(f"single phase {phase}: {res.steps_done} "
+                                 f"steps, losses {res.losses}")
+        if res.launches != {**res.launches, **want}:
+            raise AssertionError(f"single phase {phase}: launches "
+                                 f"{res.launches}, want {want}")
+        perf = res.perf
+        log(f"single phase {phase}: {steps} micro-steps, {res.validations} "
+            f"validations; launches {res.launches}; losses first "
+            f"{res.losses[0]:.4f} last {res.losses[-1]:.4f}, all finite; "
+            f"{perf['img_per_s']} img/s, median step {perf['step_ms_median']}"
+            f" ms, device idle share {perf['device_idle_share']} over "
+            f"{perf['steps_timed']} steps past the first 3; batch {B} at "
+            f"513 x 513, full depth, bf16 recipe, on {smi}")
+    if sum(counts[k] for k in TRAINING_KERNELS) != sum(
+            sum(out["phases"][p].launches[k] for k in TRAINING_KERNELS)
+            for p in range(3)):
+        raise AssertionError(f"single: launches outside the phases {counts}")
+    push = out["push"]
+    if push.spec.num_scales != 1:
+        raise AssertionError(f"single: push left {push.spec.num_scales} "
+                             "scales")
+    push_stats = dict(prototypes=int(push.winners.shape[0]),
+                      matched=int((push.winners >= 0).sum()),
+                      pruned=int(push.winners.shape[0] - push.kept.shape[0]))
+    log("single push: " + json.dumps(push_stats))
+    served = serve_checkpoint(tmp, "city_single", "push_final", dev, smi,
+                              "single_serving")
+    return dict(counts=counts, push=push_stats, serve=served,
+                perf={p: out["phases"][p].perf for p in range(3)})
+
+
+def _trainer_cmd(data: str, results: str, name: str) -> list:
+    cmd = [sys.executable, "-m", "scaleprotoseg_torch.train_wandb",
+           "baseline_cityscapes", name, "--gpu-recipe", "--data-root", data,
+           "--results-root", results]
+    for line in ("train.warmup_steps = 0",
+                 f"train.joint_steps = {RESUME_STEPS}",
+                 "train.finetune_steps = 0", "train.push_proto = False",
+                 f"Trainer.val_check_interval = {RESUME_VAL_EVERY}",
+                 "PatchClassificationDataset.det_seed = 11"):
+        cmd += ["--gin", line]
+    return cmd
+
+
+def _run_trainer(data: str, results: str, name: str,
+                 stop_when=None) -> tuple:
+    """The trainer CLI in a process of its own: (exit code, its output,
+    seconds).  ``stop_when(output)``: send SIGTERM once it is true."""
+    out_path = os.path.join(results, f"{name}-{time.time_ns()}.out")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen(_trainer_cmd(data, results, name), cwd=here,
+                                stdout=out, stderr=subprocess.STDOUT)
+        try:
+            if stop_when is not None:
+                while proc.poll() is None:
+                    with open(out_path) as f:
+                        if stop_when(f.read()):
+                            proc.send_signal(15)    # SIGTERM
+                            break
+                    time.sleep(0.02)
+            rc = proc.wait(timeout=RESUME_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(out_path) as f:
+        text = f.read()
+    return rc, text, time.perf_counter() - t0
+
+
+def _logged(text: str, prefix: str) -> list:
+    """The JSON objects the trainer logged after ``prefix``."""
+    return [json.loads(line.split(prefix, 1)[1]) for line in
+            text.splitlines() if prefix in line]
+
+
+def _phase_launches(text: str) -> dict:
+    import ast
+    line = [ln for ln in text.splitlines() if "PHASE 1 (nopush) END" in ln][-1]
+    return ast.literal_eval(line.split("kernel launches ", 1)[1])
+
+
+def _checkpoint_diffs(run_a: str, run_b: str) -> dict:
+    """Per checkpoint of ``run_a``, the largest |a - b| over its tensors
+    (0.0: bit-equal) against ``run_b``'s."""
+    out = {}
+    for name in sorted(os.listdir(os.path.join(run_a, "checkpoints"))):
+        if not name.endswith(".pth"):
+            continue
+        a = torch.load(os.path.join(run_a, "checkpoints", name))
+        b = torch.load(os.path.join(run_b, "checkpoints", name))
+        if set(a) != set(b):
+            raise AssertionError(f"{name}: other tensors")
+        out[name] = max(0.0 if torch.equal(a[k], b[k]) else
+                        (a[k].double() - b[k].double()).abs().max().item()
+                        for k in a)
+    return out
+
+
+def _metric_rows(run: str) -> list:
+    import csv
+    with open(os.path.join(run, "metrics.csv"), newline="") as f:
+        return [{k: v for k, v in r.items() if k != "time"}
+                for r in csv.DictReader(f)]
+
+
+def resume_phase(tmp: str, data: str, smi: str) -> dict:
+    """The baseline's joint phase at full depth (``RESUME_STEPS``
+    micro-steps, ``iter_size`` 5, a validation every
+    ``RESUME_VAL_EVERY``, ``det_seed`` bound) through the trainer CLI in
+    processes of its own: twice straight, once stopped by SIGTERM past
+    its first validation (exit 143, the state committed), once relaunched
+    (exit 0).  The relaunch's checkpoints and metrics rows must equal the
+    straight run's bit for bit, and the two straight runs each other's."""
+    results = os.path.join(tmp, "resume")
+    os.makedirs(results)
+    runs = {}
+    for name in ("straight_a", "straight_b"):
+        rc, text, secs = _run_trainer(data, results, name)
+        if rc != 0:
+            raise AssertionError(f"resume: {name} exited {rc}:\n"
+                                 + text[-3000:])
+        runs[name] = text
+        log(f"resume: {name} exit 0 in {secs:.1f} s")
+    a, b = (os.path.join(results, n) for n in ("straight_a", "straight_b"))
+    repeat = _checkpoint_diffs(a, b)
+    rows_repeat = _metric_rows(a) == _metric_rows(b)
+    log(f"resume: straight run twice, largest |difference| per checkpoint "
+        f"{json.dumps(repeat)}; metrics rows equal: {rows_repeat}")
+
+    # SIGTERM once the first validation's state has committed, which
+    # happens in the background while the next micro-steps run
+    state_dir = os.path.join(results, "killed", "checkpoints", "nopush_state")
+    first_val = f"step {RESUME_VAL_EVERY}/{RESUME_STEPS} "
+    rc, text, secs = _run_trainer(
+        data, results, "killed", stop_when=lambda out: first_val in out and
+        os.path.exists(os.path.join(state_dir, "meta.json")))
+    stopped = [int(ln.split("PREEMPTED at step ")[1].split(":")[0])
+               for ln in text.splitlines() if "PREEMPTED at step " in ln]
+    if rc != 143 or not stopped:
+        raise AssertionError(f"resume: the SIGTERM'd run exited {rc}:\n"
+                             + text[-3000:])
+    saved = _logged(text, "train state saved: ")[-1]
+    with open(os.path.join(state_dir, "meta.json")) as f:
+        meta = json.load(f)
+    if meta["step"] != stopped[0] or saved["step"] != stopped[0] or \
+            stopped[0] <= RESUME_VAL_EVERY:
+        raise AssertionError(f"resume: stopped at {stopped}, state "
+                             f"{meta['step']}")
+    log(f"resume: SIGTERM after the state of step {RESUME_VAL_EVERY} "
+        "committed: "
+        f"exit 143 in {secs:.1f} s, stopped at micro-step {stopped[0]} "
+        f"(accumulation {stopped[0] % 5} of 5); state "
+        f"{saved['bytes'] / 1e6:.1f} MB, blocking snapshot "
+        f"{saved['snapshot_ms']:.1f} ms host time in the step loop, commit "
+        f"{saved['commit_s']:.2f} s; on {smi}")
+    rc, text, secs = _run_trainer(data, results, "killed")
+    if rc != 0:
+        raise AssertionError(f"resume: the relaunch exited {rc}:\n"
+                             + text[-3000:])
+    restored = _logged(text, "train state restored: ")
+    async_saves = _logged(text, "train state saved: ")
+    launches = _phase_launches(text)
+    if not restored or restored[0]["step"] != stopped[0]:
+        raise AssertionError(f"resume: the relaunch restored {restored}")
+    diffs = _checkpoint_diffs(a, os.path.join(results, "killed"))
+    rows_equal = _metric_rows(a) == _metric_rows(
+        os.path.join(results, "killed"))
+    log(f"resume: relaunch exit 0 in {secs:.1f} s, restored step "
+        f"{restored[0]['step']} in {restored[0]['seconds']:.2f} s; its "
+        f"last async save {json.dumps(async_saves[-1])}; launches "
+        f"{launches}; largest |difference| per checkpoint against the "
+        f"straight run {json.dumps(diffs)}; metrics rows equal: "
+        f"{rows_equal}; on {smi}")
+    bitwise = not any(repeat.values()) and rows_repeat
+    if bitwise:
+        if any(diffs.values()) or not rows_equal:
+            raise AssertionError("resume: the relaunched run differs from "
+                                 "the straight run")
+    elif any(d > repeat[k] for k, d in diffs.items()):
+        raise AssertionError("resume: the relaunched run differs from the "
+                             "straight run by more than two straight runs "
+                             "differ")
+    for k in TRAINING_KERNELS:
+        if launches[k] < 1:
+            raise AssertionError(f"resume: {k} not launched after the "
+                                 "relaunch")
+    return dict(launches=launches, stopped=stopped[0], saved=saved,
+                restored=restored[0], straight_repeat=repeat,
+                relaunch_diff=diffs, bitwise=bitwise)
 
 
 def kernel_vs_plain_step(bindings, stem: str, batch, dev):
@@ -2548,6 +2800,7 @@ def main() -> None:
     trained = training_phase(dev, smi)
     quant, evals = served["quant"], served["evals"]
     group, pruning = trained["group"], trained["pruning"]
+    single, resume = trained["single"], trained["resume"]
     art = served["artifact"]["counts"]
     by_path = {name: {"serving": served["counts"][name],
                       "quant8_serving": quant["counts"][name],
@@ -2565,7 +2818,10 @@ def main() -> None:
                           pruning["serve_pruned"]["counts"][name],
                       "threshold_serving": pruning["serve_th"]["counts"][name],
                       "eval_test": pruning["eval_test"]["counts"][name],
-                      "pruned_eval": pruning["eval_valid"]["counts"][name]}
+                      "pruned_eval": pruning["eval_valid"]["counts"][name],
+                      "single_training": single["counts"][name],
+                      "single_serving": single["serve"]["counts"][name],
+                      "resumed_training": resume["launches"][name]}
                for name in results}
     # each kernel's launches in the main path of its slice: the training
     # run for K2's forward and backward, the bf16 serving run for K1 and

@@ -240,3 +240,85 @@ def load_checkpoint(stem: str):
     with open(stem + ".ckpt.json") as f:
         meta = json.load(f)
     return sd, meta
+
+
+def _array_leaves(tree, path=()):
+    """(path, array) of the numpy leaves of nested dicts; other leaves
+    (the optax state's placeholders for another label's parameters) are
+    skipped."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _array_leaves(v, path + (k,))
+    elif isinstance(tree, (np.ndarray, np.generic)):
+        yield path, np.asarray(tree)
+
+
+def _merge(trees) -> Dict:
+    """One nested dict holding the array leaves of ``trees``."""
+    out: Dict = {}
+    for tree in trees:
+        for path, leaf in _array_leaves(tree):
+            node = out
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = leaf
+    return out
+
+
+def train_state_from_jax(params: Dict, batch_stats: Optional[Dict],
+                         opt_state, step: int, spec: ProtoSpec,
+                         names) -> Dict:
+    """The JAX package's train state as the port's
+    (``TrainState.load_state_dict``'s input), for the phase optimizer
+    whose trainable parameters are ``names`` (``PhaseOptimizer.names``).
+
+    Takes numpy trees: ``params`` and ``batch_stats``, and the optax
+    state of the JAX package's phase optimizer (``train/optim.py``
+    ``make_phase_optimizer``), ``apply_if_finite`` around ``MultiSteps``
+    (when ``iter_size`` > 1) around ``multi_transform`` of one
+    ``add_decayed_weights`` -> ``scale_by_adam`` -> ... chain per label,
+    with its named tuples kept (``jax.tree.map(np.asarray, ...)`` keeps
+    them).  Read from it: the non-finite streak, ``MultiSteps``'
+    micro-step counter and gradient running mean ``acc_grads``, each
+    label's Adam ``count``, ``mu`` and ``nu``; the updates done (the
+    schedule's count) is the Adam count."""
+    model = ppnet_params_to_statedict(params, batch_stats, spec,
+                                      log=lambda _: None)
+    streak = getattr(opt_state, "notfinite_count", 0)
+    inner = getattr(opt_state, "inner_state", opt_state)
+    if hasattr(inner, "mini_step"):
+        mini, acc_tree = inner.mini_step, inner.acc_grads
+        inner = inner.inner_opt_state
+    else:
+        mini, acc_tree = 0, None
+    adams = {}
+    for label, masked in inner.inner_states.items():
+        chain = getattr(masked, "inner_state", masked)
+        adams[label] = next(s for s in chain if hasattr(s, "mu"))
+    counts = {int(a.count) for a in adams.values()}
+    if len(counts) != 1:
+        raise ValueError(f"the labels' Adam counts differ: {counts}")
+    count = counts.pop()
+    convert = lambda tree: ppnet_params_to_statedict(  # noqa: E731
+        tree, None, spec, log=lambda _: None)
+    mu = convert(_merge(a.mu for a in adams.values()))
+    nu = convert(_merge(a.nu for a in adams.values()))
+    if set(mu) != set(names):
+        raise ValueError("the JAX optimizer state covers other parameters: "
+                         f"{sorted(set(mu) ^ set(names))[:8]}")
+    acc = convert(_merge([acc_tree])) if acc_tree is not None else None
+    flat = np.concatenate([
+        (acc[n] if acc is not None else np.zeros_like(mu[n]))
+        .astype(np.float32).reshape(-1) for n in names])
+    tensor = lambda a: torch.tensor(np.asarray(a, np.float32))  # noqa: E731
+    return {"step": int(step), "model": to_tensors(model),
+            "optimizer": {
+                "names": list(names),
+                "exp_avg": [tensor(mu[n]) for n in names],
+                "exp_avg_sq": [tensor(nu[n]) for n in names],
+                "step": [torch.tensor(float(count)) for _ in names],
+                "acc": torch.tensor(flat),
+                "mini": torch.tensor(int(mini), dtype=torch.int64),
+                "streak": torch.tensor(int(streak), dtype=torch.int64),
+                "updates": torch.tensor(float(count))},
+            "extra": {}}

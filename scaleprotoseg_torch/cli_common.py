@@ -131,7 +131,8 @@ def _dataset_kwargs(bindings: Bindings, data_root: Optional[str]) -> dict:
     return dict(data_type=q("data_type"), mean=q("mean"), std=q("std"),
                 image_margin_size=q("image_margin_size", 0),
                 window_size=q("window_size"), scales=q("scales", (1.0,)),
-                jitter=q("jitter", False), root=data_root)
+                jitter=q("jitter", False), root=data_root,
+                det_seed=q("det_seed"))
 
 
 def _num_workers(bindings: Bindings, num_workers: Optional[int]) -> int:
@@ -144,7 +145,19 @@ def _num_workers(bindings: Bindings, num_workers: Optional[int]) -> int:
 def make_loaders(bindings: Bindings, batch_size: int,
                  num_workers: Optional[int] = None, seed: int = 0,
                  data_root: Optional[str] = None):
-    """(train_loader, val_loader) per the dataset bindings."""
+    """(train_loader, val_loader) per the dataset bindings.
+    ``PatchClassificationDataModule.loader_backend``: 'threads' (the
+    default) is the threaded ``DataLoader``; the JAX package's
+    process-worker backends are not ported and are refused."""
+    backend = query(bindings, "PatchClassificationDataModule",
+                    "loader_backend", "threads")
+    if backend in ("grain", "grain_processes"):
+        raise NotImplementedError(
+            f"PatchClassificationDataModule.loader_backend = {backend!r}: "
+            "the process-worker loader is not ported yet; use 'threads'")
+    if backend != "threads":
+        raise ValueError(f"unknown loader_backend {backend!r} "
+                         "(threads | grain | grain_processes)")
     num_workers = _num_workers(bindings, num_workers)
     train_key = query(bindings, "PatchClassificationDataModule", "train_key",
                       "train")

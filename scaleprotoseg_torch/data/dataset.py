@@ -9,7 +9,10 @@ rows then columns, a horizontal flip.  The image is resized bilinearly
 with half-pixel centres (cv2's ``INTER_LINEAR`` up to its fixed-point
 rounding) and the label with PIL's NEAREST indices; the resized image is
 padded bottom/right with the mean (label 0), cropped to the window,
-flipped and normalized.
+flipped and normalized.  With ``det_seed`` the draws come from a stream
+of their own per (det_seed, epoch, index), as in the JAX package, so an
+item does not depend on the loader's threads and a resumed run sees the
+crops an uninterrupted one would.
 
 Only the window's pixels of the resized image are computed: each output
 pixel reads its own source taps, as the JAX package's native
@@ -78,15 +81,24 @@ class PatchClassificationDataset:
     with ``push_prototypes`` the whole image, normalized, unaugmented.
 
     ``jitter`` (color jitter, training only) is off in every shipped
-    config and not ported: it is refused."""
+    config and not ported: it is refused.
+
+    ``det_seed``: when set, each item's draws come from
+    ``random.Random(f"{det_seed}/{epoch}/{index}")`` (``set_epoch``
+    sets the epoch; the loader calls it once an epoch), otherwise from
+    the process-global ``random``, as the reference's loader workers
+    draw."""
 
     def __init__(self, split_key: str, data_type: str,
                  mean: Sequence[float], std: Sequence[float],
                  image_margin_size: int = 0,
                  window_size: Optional[Tuple[int, int]] = None,
                  scales: Tuple[float, ...] = (1.0,), jitter: bool = False,
-                 root: Optional[str] = None, push_prototypes: bool = False):
+                 root: Optional[str] = None, push_prototypes: bool = False,
+                 det_seed: Optional[int] = None):
         self.push_prototypes = push_prototypes
+        self.det_seed = det_seed
+        self.epoch = 0
         if jitter:
             raise NotImplementedError("color jitter is not ported yet "
                                       "(PatchClassificationDataset.jitter)")
@@ -108,6 +120,10 @@ class PatchClassificationDataset:
     def __len__(self) -> int:
         return len(self.img_ids)
 
+    def set_epoch(self, epoch: int) -> None:
+        """The epoch of ``det_seed``'s streams (no effect without it)."""
+        self.epoch = int(epoch)
+
     def _load_raw(self, index: int) -> Tuple[np.ndarray, np.ndarray]:
         img_id = self.img_ids[index]
         image = np.load(os.path.join(self.img_dir, img_id + ".npy"))
@@ -127,18 +143,29 @@ class PatchClassificationDataset:
             image = (image.astype(np.float32) / 255.0 - self.mean) / self.std
             return image.astype(np.float32), \
                 convert_targets(label, self.data_type).astype(np.int32)
-        # the reference's draws, in its order, from the global stream
-        in_h, in_w = label.shape
+        resized, start, flip = self.draw(index, label.shape, window)
+        return self.augment(image, convert_targets(label, self.data_type),
+                            window, resized, start, flip)
+
+    def draw(self, index: int, shape: Tuple[int, int],
+             window: Tuple[int, int]
+             ) -> Tuple[Tuple[int, int], Tuple[int, int], bool]:
+        """(resized size, crop start, flip) of item ``index`` of an image
+        of ``shape``: the reference's draws in its order (a uniform scale
+        in ``scales``, the crop start in rows then columns, the flip), from
+        the global stream or, with ``det_seed``, the item's own."""
+        r = random if self.det_seed is None else \
+            random.Random(f"{self.det_seed}/{self.epoch}/{index}")
+        in_h, in_w = shape
         scale = 1.0 if len(self.scales) < 2 else \
-            random.uniform(self.scales[0], self.scales[1])
+            r.uniform(self.scales[0], self.scales[1])
         rs_h, rs_w = int(in_h * scale), int(in_w * scale)
         pad_h = max(window[0] - rs_h, 0)
         pad_w = max(window[1] - rs_w, 0)
-        start_h = random.randint(0, rs_h + pad_h - window[0])
-        start_w = random.randint(0, rs_w + pad_w - window[1])
-        flip = random.random() < 0.5
-        return self.augment(image, convert_targets(label, self.data_type),
-                            window, (rs_h, rs_w), (start_h, start_w), flip)
+        start_h = r.randint(0, rs_h + pad_h - window[0])
+        start_w = r.randint(0, rs_w + pad_w - window[1])
+        flip = r.random() < 0.5
+        return (rs_h, rs_w), (start_h, start_w), flip
 
     def augment(self, image: np.ndarray, label: np.ndarray,
                 window: Tuple[int, int], resized: Tuple[int, int],

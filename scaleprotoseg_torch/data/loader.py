@@ -3,7 +3,10 @@
 Index order as the JAX package's loader: ``random.Random(seed + epoch)``
 shuffles each epoch's indices; batches are assembled by a thread pool
 (numpy's gathers and arithmetic release the GIL) a few batches ahead of
-the consumer and come out as stacked numpy arrays.
+the consumer and come out as stacked numpy arrays.  Each ``__iter__`` is
+one epoch: it first hands the epoch to the dataset's ``set_epoch`` (the
+``det_seed`` streams), and ``fast_forward`` positions the stream where a
+run that drew ``batches_done`` batches would be.
 """
 
 from __future__ import annotations
@@ -26,17 +29,31 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.epoch = 0
+        self._skip = 0
 
     def __len__(self) -> int:
         return -(-len(self.dataset) // self.batch_size)
+
+    def fast_forward(self, batches_done: int) -> None:
+        """Position the stream as if ``batches_done`` batches had been
+        drawn: the epoch, and the batches of it the next ``__iter__``
+        drops.  With a ``det_seed`` dataset a resumed run then sees the
+        batches an uninterrupted run would have."""
+        n = len(self)
+        self.epoch = batches_done // n
+        self._skip = batches_done % n
 
     def _batches(self):
         idx = list(range(len(self.dataset)))
         if self.shuffle:
             random.Random(self.seed + self.epoch).shuffle(idx)
+        set_epoch = getattr(self.dataset, "set_epoch", None)
+        if set_epoch is not None:
+            set_epoch(self.epoch)
         self.epoch += 1
+        skip, self._skip = self._skip, 0
         return [idx[i:i + self.batch_size]
-                for i in range(0, len(idx), self.batch_size)]
+                for i in range(0, len(idx), self.batch_size)][skip:]
 
     def _load(self, batch_idx) -> Tuple[np.ndarray, np.ndarray]:
         items = [self.dataset[i] for i in batch_idx]

@@ -46,6 +46,19 @@ class MetricAccumulator:
                 self.sums[k] += v
         self.n_batches += 1
 
+    def state(self) -> Dict:
+        """The running sums, for a checkpoint (JSON)."""
+        return {"sums": dict(self.sums), "n_batches": self.n_batches,
+                "n_correct": self.n_correct, "n_patches": self.n_patches}
+
+    def load(self, state: Dict) -> None:
+        """Continue from ``state()``'s sums."""
+        self.reset()
+        self.sums.update(state["sums"])
+        self.n_batches = state["n_batches"]
+        self.n_correct = state["n_correct"]
+        self.n_patches = state["n_patches"]
+
     def summary(self) -> Dict[str, float]:
         out = {k: v / max(self.n_batches, 1) for k, v in self.sums.items()}
         if self.n_patches > 0:
@@ -156,6 +169,10 @@ class MetricsLogger:
         self.jsonl_path = os.path.join(model_dir, f"{run_name}.jsonl")
         self.csv_path = os.path.join(model_dir, f"{run_name}.csv")
         self._csv_fields = None
+        if os.path.exists(self.csv_path):
+            # a relaunched run appends under the header already there
+            with open(self.csv_path, newline="") as f:
+                self._csv_fields = next(csv.reader(f), None)
 
     def log(self, metrics: Dict[str, float], step: int):
         record = {"step": int(step), "time": time.time(),

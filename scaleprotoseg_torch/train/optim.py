@@ -145,6 +145,7 @@ class PhaseOptimizer:
                  schedule: Optional[Callable] = None, iter_size: int = 1,
                  guard_nonfinite: int = 0):
         by_label: Dict[str, list] = {label: [] for label in groups}
+        names: Dict[int, str] = {}
         for name, p in named_params:
             label = label_of_path(name)
             p.requires_grad_(label in groups)
@@ -158,11 +159,13 @@ class PhaseOptimizer:
                     # contiguous gradient view element by element
                     p.data = p.data.contiguous()
                 by_label[label].append(p)
+                names[id(p)] = name
         params = [p for ps in by_label.values() for p in ps]
         if not params:
             raise ValueError(f"no parameters carry the labels {sorted(groups)}")
         dev = params[0].device
         self.params = params
+        self.names = [names[id(p)] for p in params]
         self.iter_size = int(iter_size)
         self.guard = int(guard_nonfinite)
         self.schedule = schedule
@@ -223,3 +226,64 @@ class PhaseOptimizer:
         self._updates = self._updates + emit.float()
         g.zero_()
 
+    def state_dict(self) -> Dict:
+        """Everything a micro-step reads besides the parameters, as
+        tensors on the optimizer's device (not copies): per trainable
+        parameter, in ``names`` order, Adam's ``exp_avg``,
+        ``exp_avg_sq`` and ``step``; the ``iter_size`` running mean
+        ``acc``; the device scalars ``mini``, ``streak`` and ``updates``.
+        The gradient buffer is zero between micro-steps and is left
+        out.  Adam makes its state on the first ``step()``: there is no
+        state before it."""
+        per = [self.adam.state[p] for p in self.params]
+        if not all(per):
+            raise ValueError("the optimizer has no state before its first "
+                             "step")
+        return {"names": list(self.names),
+                "exp_avg": [st["exp_avg"] for st in per],
+                "exp_avg_sq": [st["exp_avg_sq"] for st in per],
+                "step": [st["step"] for st in per],
+                "acc": self._acc, "mini": self._mini,
+                "streak": self._streak, "updates": self._updates}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore ``state_dict()``'s contents in place: ``acc`` into the
+        buffer the gradients' running mean lives in, Adam's tensors into
+        its per-parameter state (made on first use, as fused Adam makes
+        it: the moments like the parameter, ``step`` a float32 scalar on
+        its device), and the three device scalars rebound on this
+        optimizer's device.  Raises on other parameter names or
+        shapes."""
+        if list(state["names"]) != self.names:
+            raise ValueError(
+                "optimizer state of other parameters: saved "
+                f"{sorted(set(state['names']) ^ set(self.names))[:8]} "
+                "differ from this phase's trainable parameters")
+        dev = self._acc.device
+        for name, p, m, v, k in zip(self.names, self.params,
+                                    state["exp_avg"], state["exp_avg_sq"],
+                                    state["step"]):
+            if m.shape != p.shape or v.shape != p.shape:
+                raise ValueError(f"optimizer state of {name}: shape "
+                                 f"{tuple(m.shape)}, parameter "
+                                 f"{tuple(p.shape)}")
+            st = self.adam.state[p]
+            if not st:
+                st["step"] = torch.zeros((), dtype=torch.float32,
+                                         device=p.device)
+                st["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+            st["exp_avg"].copy_(m)
+            st["exp_avg_sq"].copy_(v)
+            st["step"].copy_(k)
+        if state["acc"].shape != self._acc.shape:
+            raise ValueError(f"accumulated gradients of "
+                             f"{state['acc'].numel()} values, this phase "
+                             f"has {self._acc.numel()}")
+        self._acc.copy_(state["acc"])
+        self._mini = state["mini"].to(dev, torch.int64).clone()
+        self._streak = state["streak"].to(dev, torch.int64).clone()
+        self._updates = state["updates"].to(dev, torch.float32).clone()

@@ -18,13 +18,29 @@ Knobs read from the ``train`` bindings:
                                      (needs compute_dtype bfloat16)
 
 ``train.remat``, ``train.fast_gradconv`` and ``train.profile_steps`` are
-not ported and are refused, as are Orbax resume and preemption.
+not ported and are refused.
+
+Mid-phase resume, as in the JAX package: the full train state (every
+model tensor, the phase optimizer's Adam moments, ``iter_size``
+accumulation and device counters, the step) is saved without blocking at
+every validation to ``checkpoints/<stage>_state``
+(``checkpoints/state_io.py``).  A phase whose state exists restores it
+before its first step (``resume=True``), carries ``best_acc`` over from
+``<stage>_best``'s sidecar and fast-forwards both loaders, so that with a
+``det_seed`` dataset it continues exactly where the saved run was; a
+finished phase restores at its last step and takes none.  The counter of
+validations without improvement is not saved, as in the JAX package: a
+phase that stopped early trains on when relaunched.  SIGTERM
+(``train/preemption.py``) commits the state after the current micro-step
+and exits 143.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -32,12 +48,17 @@ import torch
 
 from scaleprotoseg_torch import kernels
 from scaleprotoseg_torch.checkpoints.convert import save_checkpoint
+from scaleprotoseg_torch.checkpoints.state_io import (last_save_stats,
+                                                      restore_train_state,
+                                                      save_train_state,
+                                                      wait_for_checkpoints)
 from scaleprotoseg_torch.configlib import Bindings, query
 from scaleprotoseg_torch.ops.prototype import pairwise_l2
 from scaleprotoseg_torch.train.metrics import (BulkFetcher, MetricAccumulator,
                                                MetricsLogger, StepTimer)
 from scaleprotoseg_torch.train.optim import (PhaseOptimizer, phase_groups,
                                              poly_schedule)
+from scaleprotoseg_torch.train.preemption import Preempted, get_guard
 from scaleprotoseg_torch.train.state import TrainState
 from scaleprotoseg_torch.train.steps import (LossWeights, make_eval_step,
                                              make_train_step)
@@ -100,6 +121,7 @@ class PhaseResult:
     losses: List[float]             # every micro-step's loss, in order
     perf: Dict[str, Optional[float]]
     launches: Dict[str, int]        # kernel launches during the phase
+    resumed_at: int = 0             # the restored step (0: a fresh phase)
 
 
 class PhaseTrainer:
@@ -161,7 +183,7 @@ class PhaseTrainer:
                   val_loader, early_stopping_patience: Optional[int] = None,
                   val_every_steps: Optional[int] = None,
                   limit_val_batches: Optional[int] = None,
-                  global_step0: int = 0) -> PhaseResult:
+                  global_step0: int = 0, resume: bool = True) -> PhaseResult:
         hp = self.hp
         iter_size = int(hp["iter_size"])
         groups = phase_groups(self.variant, phase, hp["hp"],
@@ -182,10 +204,26 @@ class PhaseTrainer:
         eval_fn = make_eval_step(hp["weights"], hp["ignore_void_class"])
         stage = self.stage_key(phase)
         val_every = val_every_steps or max(len(train_loader), 1)
+        state_dir = os.path.join(self.checkpoints_dir, f"{stage}_state")
+        acc_train = MetricAccumulator()
+        steps0 = 0
+        t0 = time.perf_counter()
+        if resume and restore_train_state(state_dir, state) is not None:
+            steps0 = state.step
+            restore_s = time.perf_counter() - t0
+            acc_train.load(state.extra.get("train_metrics",
+                                           acc_train.state()))
+            self._resume_streams(stage, steps0, val_every, train_loader,
+                                 val_loader)
+            self.log(f"Resumed phase {phase} at step {steps0} from "
+                     f"{state_dir} (best_acc={self.best_acc:.4f}); train "
+                     "state restored: " + json.dumps(
+                         {"phase": phase, "step": steps0,
+                          "seconds": restore_s}))
         self.log(f"PHASE {phase} ({stage}) START: {max_steps} steps, "
                  f"trainable={sorted(groups)}")
+        preempt = get_guard(log=self.log)
 
-        acc_train = MetricAccumulator()
         fetcher = BulkFetcher(acc_train.update, limit=32)
         losses: List[float] = []
         timer = StepTimer(self.device)
@@ -203,6 +241,9 @@ class PhaseTrainer:
                 timer.end()
                 steps = state.step
                 if steps % val_every and steps < max_steps:
+                    self._check_preempted(preempt, global_step0, state,
+                                          state_dir, fetcher, losses,
+                                          acc_train)
                     continue
                 losses += [m["loss"] for m in fetcher.drain()]
                 timer.close()
@@ -221,6 +262,9 @@ class PhaseTrainer:
                          f"train_loss={train.get('loss', 0):.4f} "
                          f"val_acc={val_acc:.4f}")
                 self._save(f"{stage}_last")
+                state.extra = {}
+                # the commit overlaps the next steps
+                save_train_state(state_dir, state)
                 if val_acc > self.best_acc:
                     self.best_acc = val_acc
                     self._save(f"{stage}_best")
@@ -232,7 +276,20 @@ class PhaseTrainer:
                     self.log("Early stopping triggered")
                     stop = True
                     break
+                # after the validation of this step, so that a relaunch
+                # does not skip it
+                self._check_preempted(preempt, global_step0, state,
+                                      state_dir, fetcher, losses, acc_train)
         losses += [m["loss"] for m in fetcher.drain()]
+        try:
+            wait_for_checkpoints()
+            if validations:
+                self.log("train state saved: " + json.dumps(
+                    {"phase": phase, **last_save_stats()}))
+        except RuntimeError as e:
+            # the run goes on; a later resume restarts from an older step
+            self.log(f"async state checkpoint commit FAILED ({e}); resume "
+                     "would restart from an older step")
         perf = timer.summary(batch_size)
         launches = {k: v - launches0[k]
                     for k, v in kernels.launch_counts().items()}
@@ -240,7 +297,47 @@ class PhaseTrainer:
                  f"{perf}; kernel launches {launches}")
         return PhaseResult(best_acc=self.best_acc, steps_done=state.step,
                            validations=validations, losses=losses,
-                           perf=perf, launches=launches)
+                           perf=perf, launches=launches, resumed_at=steps0)
+
+    def _check_preempted(self, preempt, global_step0: int,
+                         state: TrainState, state_dir: str, fetcher,
+                         losses: List[float], acc_train) -> None:
+        """On a SIGTERM: fetch the metrics held, commit the state with
+        the partial train metrics, raise ``Preempted``."""
+        if not preempt.should_stop(global_step0 + state.step):
+            return
+        losses += [m["loss"] for m in fetcher.drain()]
+        state.extra = {"train_metrics": acc_train.state()}
+        save_train_state(state_dir, state, block=True)
+        self.log("train state saved: " + json.dumps(last_save_stats()))
+        self.log(f"PREEMPTED at step {state.step}: train state committed to "
+                 f"{state_dir}; relaunch the same command to resume")
+        raise Preempted(state.step)
+
+    def _resume_streams(self, stage: str, steps0: int, val_every: int,
+                        train_loader, val_loader) -> None:
+        """After a restore: ``best_acc`` from ``<stage>_best``'s sidecar
+        (so that an early validation does not overwrite a better best),
+        and both loaders where the saved run left them (the val loader one
+        epoch a validation)."""
+        best_path = os.path.join(self.checkpoints_dir,
+                                 f"{stage}_best.ckpt.json")
+        if os.path.exists(best_path):
+            try:
+                with open(best_path) as f:
+                    prev = json.load(f).get("extra", {}).get("best_acc", 0.0)
+                self.best_acc = max(self.best_acc, float(prev))
+            except (OSError, ValueError) as e:
+                self.log(f"WARNING: best-checkpoint metadata unreadable "
+                         f"({e}); tracking restarts at 0, so an early "
+                         f"post-resume validation may overwrite {stage}_best")
+        try:
+            train_loader.fast_forward(steps0)
+            val_loader.fast_forward((steps0 // val_every) * len(val_loader))
+        except (AttributeError, ZeroDivisionError) as e:
+            self.log(f"WARNING: loader fast-forward failed ({e}); the data "
+                     "stream restarts from epoch 0 (resume is not "
+                     "bit-exact)")
 
     def _validate(self, eval_fn, val_loader,
                   limit_val_batches: Optional[int] = None

@@ -1,23 +1,29 @@
-"""Last-layer re-finetune of a pruned model.
+"""The ProtoSeg single-scale baseline trainer, and the last-layer
+re-finetune of a pruned model.
 
-    python -m scaleprotoseg_torch.train_wandb CONFIG RUN --pruned \\
+    python -m scaleprotoseg_torch.train_wandb CONFIG RUN [--pruned] \\
         [--data-root DIR] [--gpu-recipe] [--gin BINDING ...] \\
         [--device cuda|cpu] [--results-root DIR]
 
-The port of the JAX package's ``train_wandb.py``, its ``--pruned`` path
-(``train_pruned``): loads ``<run>/pruned/pruned`` (what ``run_pruning``
-wrote), builds the variant its spec and weights hold, and runs phase 2
-(the last layer; the group last layer in a grouped model) for
-``max(train.finetune_steps, 1)`` micro-steps with the last-layer early
-stopping, in ``<run>/pruned`` (its ``push_{last,best}`` checkpoints and
-metrics there), then saves ``<run>/pruned/checkpoints/push_last``, the
+The port of the JAX package's ``train_wandb.py``.  Without ``--pruned``
+it trains the ``single`` variant (``PPNet``: one scale over the summed
+ASPP, the ``PatchClassificationModule`` bindings, e.g.
+``baseline_cityscapes``) through the prototype-phase pipeline of
+``train_wandb_multiscale``: warm-up, joint, push, last layer, then
+``checkpoints/push_final``.  Relaunching the same command resumes it
+(see ``train_wandb_multiscale``).
+
+``--pruned`` (``train_pruned``) loads ``<run>/pruned/pruned`` (what
+``run_pruning`` wrote), builds the variant its spec and weights hold, and
+runs phase 2 (the last layer; the group last layer in a grouped model)
+for ``max(train.finetune_steps, 1)`` micro-steps with the last-layer
+early stopping, in ``<run>/pruned`` (its ``push_{last,best}`` checkpoints
+and metrics there), then saves ``<run>/pruned/checkpoints/push_last``, the
 checkpoint of the ``pruned`` phase.  CONFIG gives the training bindings
 (batch size, steps, learning rate, the dataset).
 
-Without ``--pruned`` the JAX CLI trains the single-scale ProtoSeg
-baseline (the ``single`` variant), which the port does not have yet:
-that is refused.  The device is ``cuda`` unless ``--device`` names
-another; without a card that is an error.
+The device is ``cuda`` unless ``--device`` names another; without a card
+that is an error.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Dict, List, Optional
 import torch
 
 from scaleprotoseg_torch import cli_common, settings
+from scaleprotoseg_torch import train_wandb_multiscale
 from scaleprotoseg_torch.checkpoints.convert import save_checkpoint
 from scaleprotoseg_torch.model_loading import load_model, resolve_device
 from scaleprotoseg_torch.train.metrics import MetricsLogger, create_logger
@@ -37,12 +44,10 @@ from scaleprotoseg_torch.train.runner import PhaseTrainer, module_hparams
 
 def train(config: str, experiment_name: str, pruned: bool = False,
           **kwargs) -> Dict:
-    if not pruned:
-        raise NotImplementedError(
-            "train_wandb without --pruned trains the single-scale ProtoSeg "
-            "baseline (variant 'single'), which is not ported yet; the port "
-            "runs train_wandb --pruned only")
-    return train_pruned(config, experiment_name, **kwargs)
+    if pruned:
+        return train_pruned(config, experiment_name, **kwargs)
+    return train_wandb_multiscale.train(config, experiment_name,
+                                        variant="single", **kwargs)
 
 
 def train_pruned(config: str, experiment_name: str,

@@ -21,10 +21,20 @@ Push writes its per-prototype image artifacts and bound-box tables to
 ``<run>/prototypes/`` (``push_artifacts``, on by default, as in the JAX
 package; each class's directory is named after the class).
 
+``train(..., variant='single')`` runs the same pipeline on the
+single-scale ProtoSeg baseline (``train_wandb`` without ``--pruned``).
+
+Relaunching the same command resumes: each phase restores its
+``checkpoints/<stage>_state`` (saved at every validation, and on SIGTERM,
+after which the process exits 143), a finished phase takes no step, and
+push runs again on the restored weights.  Bind
+``PatchClassificationDataset.det_seed`` for a resumed run that equals an
+uninterrupted one bit for bit.
+
 The device is ``cuda`` unless ``--device`` names another; without a card
 that is an error.  Not ported yet, and refused: a pretrained backbone from
-the environment, Orbax resume and preemption, the profiler trace, W&B and
-TensorBoard sinks, and more than one device.
+the environment, the profiler trace, W&B and TensorBoard sinks, and more
+than one device.
 """
 
 from __future__ import annotations
@@ -47,20 +57,21 @@ from scaleprotoseg_torch.train.metrics import MetricsLogger, create_logger
 from scaleprotoseg_torch.train.runner import (PhaseResult, PhaseTrainer,
                                               module_hparams)
 
-VARIANT = "multiscale"
+VARIANTS = ("multiscale", "single")
 
 
 def build_model(bindings: Bindings, seed: int,
-                spec: Optional[ProtoSpec] = None):
-    """(model, spec) from the ``construct_PPNet`` bindings (``spec``: a
-    pruned bank in place of the equal allocation); the prototypes come
-    from a generator seeded with ``seed``, the convs from torch's seeded
-    global stream."""
+                spec: Optional[ProtoSpec] = None,
+                variant: str = "multiscale"):
+    """(model, spec) of ``variant`` from the ``construct_PPNet`` bindings
+    (``spec``: a pruned bank in place of the equal allocation); the
+    prototypes come from a generator seeded with ``seed``, the convs from
+    torch's seeded global stream."""
     q = lambda p, d=None: query(bindings, "construct_PPNet", p, d)  # noqa
     if q("pretrained", False):
         raise NotImplementedError("construct_PPNet.pretrained is not ported")
     return construct_ppnet(
-        variant=VARIANT, base_architecture=q("base_architecture"),
+        variant=variant, base_architecture=q("base_architecture"),
         prototype_shape=tuple(q("prototype_shape", (2000, 512, 1, 1))),
         num_classes=q("num_classes", 200),
         prototype_activation_function=q("prototype_activation_function",
@@ -74,9 +85,14 @@ def train(config: str, experiment_name: str, data_root: Optional[str] = None,
           num_workers: Optional[int] = None,
           gin_overrides: Optional[List[str]] = None, gpu_recipe: bool = False,
           device: Optional[str] = None, results_root: Optional[str] = None,
-          push_artifacts: bool = True, log=None) -> Dict:
-    """Run the phases; returns ``{"final": <push_final stem>, "phases":
-    {phase: PhaseResult}, "push": PushResult or None}``."""
+          push_artifacts: bool = True, variant: str = "multiscale",
+          log=None) -> Dict:
+    """Run the phases of ``variant`` ('multiscale' or 'single'); returns
+    ``{"final": <push_final stem>, "phases": {phase: PhaseResult},
+    "push": PushResult or None}``."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r}: the prototype-phase trainer "
+                         f"runs {VARIANTS}")
     dev = resolve_device(device)
     config_file, bindings = cli_common.load_config(config)
     lines = cli_common.apply_overrides(bindings, gin_overrides, gpu_recipe)
@@ -96,14 +112,14 @@ def train(config: str, experiment_name: str, data_root: Optional[str] = None,
     seed = hp["random_seed"]
     cli_common.seed_everything(seed)
 
-    model, spec = build_model(bindings, seed)
+    model, spec = build_model(bindings, seed, variant=variant)
     start = str(hp["start_checkpoint"] or "")
     if start not in ("", "TBD"):
         sd, _ = load_checkpoint(os.path.splitext(start)[0])
         model.load_state_dict(sd, strict=True)
         log(f"Resumed from {start}")
-    mhp = module_hparams(bindings, VARIANT)
-    trainer = PhaseTrainer(model, spec, VARIANT, run, mhp, bindings, dev,
+    mhp = module_hparams(bindings, variant)
+    trainer = PhaseTrainer(model, spec, variant, run, mhp, bindings, dev,
                            logger=MetricsLogger(run), log=log)
     phases: Dict[int, PhaseResult] = {}
     cli_common.run_phases(trainer, bindings, hp, (0, 1), phases,
@@ -122,20 +138,20 @@ def train(config: str, experiment_name: str, data_root: Optional[str] = None,
             # dedup pruned the bank: a model, optimizer and K2 weight
             # cache of the new size
             spec = push.spec
-            model, _ = build_model(bindings, seed, spec)
+            model, _ = build_model(bindings, seed, spec, variant)
             model.load_state_dict(push.state_dict, strict=True)
-            trainer = PhaseTrainer(model, spec, VARIANT, run, mhp, bindings,
+            trainer = PhaseTrainer(model, spec, variant, run, mhp, bindings,
                                    dev, logger=trainer.logger, log=log)
             log(f"push: the model now holds {spec.num_prototypes} "
                 "prototypes")
         save_checkpoint(os.path.join(run, "checkpoints", "push_last"),
-                        _numpy_state(model), spec, extra={"variant": VARIANT})
+                        _numpy_state(model), spec, extra={"variant": variant})
     cli_common.run_phases(trainer, bindings, hp, (2,), phases,
                           num_workers=num_workers, data_root=data_root)
 
     final = os.path.join(run, "checkpoints", "push_final")
     save_checkpoint(final, _numpy_state(model), spec,
-                    extra={"variant": VARIANT})
+                    extra={"variant": variant})
     log(f"Training complete; final checkpoint: {final}.pth")
     return {"final": final, "phases": phases, "push": push}
 

@@ -516,8 +516,8 @@ def test_pruning_clis_on_cpu(tmp_path):
                                  "threshold_save"])
 def test_pruning_clis_default_to_cuda(cli, tmp_path, monkeypatch):
     """Without ``--device`` each CLI asks for the card and raises where
-    there is none; ``train_wandb`` without ``--pruned`` is refused by
-    name."""
+    there is none; so does ``train_wandb`` without ``--pruned`` (the
+    single-scale baseline)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = {"run_pruning": ["scaleproto_cityscapes", "run"],
             "train_wandb": ["scaleproto_cityscapes", "run", "--pruned"],
@@ -529,8 +529,9 @@ def test_pruning_clis_default_to_cuda(cli, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(argv + ["--results-root", str(tmp_path)])
     if cli == "train_wandb":
-        with pytest.raises(NotImplementedError, match="single"):
-            main(["scaleproto_cityscapes", "run", "--device", "cpu"])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["baseline_cityscapes", "run", "--results-root",
+                  str(tmp_path)])
     with pytest.raises(NotImplementedError, match="scale-out"):
         tfind.find_k_nearest_patches_to_prototypes([], None, None,
                                                    mesh=object())
