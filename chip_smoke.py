@@ -156,15 +156,35 @@ Phases; any failure exits non-zero and prints no result:
    img/s, step ms and idle share per phase; its ``push_final`` served as
    ``final-group`` is (K1, K2 and K3 on every batch, labels against the
    plain path, K1 at the pushed bank).  Then resume after SIGTERM: the
-   baseline's joint phase (40 micro-steps, ``iter_size`` 5, a validation
+   baseline's joint phase (20 micro-steps, ``iter_size`` 5, a validation
    every 5, ``det_seed`` bound) through the trainer CLI in processes of
    its own, twice straight (the two must agree bit for bit), once stopped
-   by SIGTERM once the first validation's state has committed (exit 143,
-   the state committed at the step it stopped) and once relaunched (exit
-   0, the state restored at that step): every checkpoint and metrics row
-   of the relaunch equal to the straight run's, bit for bit; the state's
-   MB, the blocking snapshot's host ms, the commit and restore seconds and
-   the relaunch's launches are printed;
+   by SIGTERM to its process group once the first validation's state has
+   committed (exit 143, the state committed at the step it stopped) and
+   once relaunched (exit 0, the state restored at that step): every
+   checkpoint and metrics row of the relaunch equal to the straight
+   run's, bit for bit; the state's MB, the blocking snapshot's host ms,
+   the commit and restore seconds and the relaunch's launches are
+   printed. The training data path, on the same data root: first, before
+   the flagship's trainer, the native augmentation (``native/fastaug.cc``)
+   built with g++ (a failed build fails the script) and held bit for bit
+   against the numpy pipeline on 32 training items (the 513 x 513 window,
+   scales 0.5-1.5, ``det_seed`` draws), the median ms an item of each; the
+   train loader alone (8 workers, batch 2, one untimed epoch and three
+   timed) as threads + numpy, threads + native, processes + native,
+   processes + jitter and threads + jitter: img/s and the first batch's
+   seconds, every pair of streams with the same items bit-equal over the
+   four epochs and after a ``fast_forward``. Then, after the resume phase,
+   the baseline's joint phase (20 micro-steps, a validation every 10,
+   ``det_seed``) through the trainer CLI: jittered on worker processes
+   (``loader_backend = 'grain_processes'``) straight; the same SIGTERM'd
+   to its process group once the first validation's state committed (exit
+   143, its loader workers gone) and relaunched; jittered on threads;
+   unjittered on threads with native and with numpy augmentation
+   (``SPS_NATIVE_AUG=0``). The relaunch ends on the straight run's bits,
+   the processes' run on the threads' run's, the numpy run on the native
+   one's (each checkpoint and metrics row); K2's kernels launch in every
+   run; img/s, step ms and idle share of each run are printed;
 6. one line per kernel with its times, bound and launches, for the six
    kernels since redesigned the earlier design's recorded times beside
    the new ones, the card's name and power limit, the kernels
@@ -242,8 +262,12 @@ PRUNED_STEPS = 10             # last-layer micro-steps of the pruned model
 N_TEST = 4                    # test-split images exported by eval_test
 SINGLE_STEPS = (10, 10, 5)    # the baseline's warm-up, joint, last layer
 SINGLE_VAL_EVERY = 10
-RESUME_STEPS, RESUME_VAL_EVERY = 40, 5   # the resumed joint phase
+RESUME_STEPS, RESUME_VAL_EVERY = 20, 5   # the resumed joint phase
 RESUME_TIMEOUT_S = 300
+DATA_STEPS, DATA_VAL_EVERY = 20, 10      # the data phase's joint runs
+N_FASTAUG = 32                # native vs numpy items at the training crop
+LOADER_EPOCHS = 3             # timed epochs of each loader configuration
+LOADER_WORKERS = 8
 SERVING_KERNELS = ("aspp", "proto", "upsample")
 TRAINING_KERNELS = ("aspp", "aspp_grad_pack", "aspp_grad_weight")
 
@@ -1793,6 +1817,7 @@ def training_phase(dev, smi: str) -> dict:
         data = write_city_root(os.path.join(tmp, "city"), seed=1)
         log(f"train: {N_TRAIN} + {N_VAL} Cityscapes-size images written in "
             f"{time.perf_counter() - t0:.1f} s")
+        loaders = data_loader_phase(data, smi)
         gin = ["train.finetune_steps = 0",
                f"train.warmup_steps = {WARMUP_STEPS}",
                f"train.joint_steps = {JOINT_STEPS}",
@@ -1883,11 +1908,13 @@ def training_phase(dev, smi: str) -> dict:
         single = single_phase(tmp, data, dev, smi)
         torch.cuda.empty_cache()
         resume = resume_phase(tmp, data, smi)
+        data_run = data_trainer_phase(tmp, data, smi, resume)
         return dict(counts=counts, step_cmp=step_cmp, pushed_cmp=pushed_cmp,
                     profiles=step_profiles,
                     perf={p: out["phases"][p].perf for p in (0, 1)},
                     push=push_stats, group=group, pruning=pruning,
-                    single=single, resume=resume)
+                    single=single, resume=resume,
+                    data=dict(loaders=loaders, trainers=data_run))
 
 
 # ---------------------------------------------------------------------------
@@ -1953,45 +1980,81 @@ def single_phase(tmp: str, data: str, dev, smi: str) -> dict:
                 perf={p: out["phases"][p].perf for p in range(3)})
 
 
-def _trainer_cmd(data: str, results: str, name: str) -> list:
+def _trainer_cmd(data: str, results: str, name: str,
+                 steps: int = RESUME_STEPS, val_every: int = RESUME_VAL_EVERY,
+                 gin=()) -> list:
     cmd = [sys.executable, "-m", "scaleprotoseg_torch.train_wandb",
            "baseline_cityscapes", name, "--gpu-recipe", "--data-root", data,
            "--results-root", results]
     for line in ("train.warmup_steps = 0",
-                 f"train.joint_steps = {RESUME_STEPS}",
+                 f"train.joint_steps = {steps}",
                  "train.finetune_steps = 0", "train.push_proto = False",
-                 f"Trainer.val_check_interval = {RESUME_VAL_EVERY}",
-                 "PatchClassificationDataset.det_seed = 11"):
+                 f"Trainer.val_check_interval = {val_every}",
+                 "PatchClassificationDataset.det_seed = 11", *gin):
         cmd += ["--gin", line]
     return cmd
 
 
-def _run_trainer(data: str, results: str, name: str,
-                 stop_when=None) -> tuple:
-    """The trainer CLI in a process of its own: (exit code, its output,
-    seconds).  ``stop_when(output)``: send SIGTERM once it is true."""
+def _children(pid: int) -> list:
+    """(pid, command line) of the live processes whose parent is ``pid``."""
+    out = []
+    for d in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{d}/cmdline") as f:
+                cmd = f.read().replace("\0", " ")
+        except OSError:
+            continue
+        if int(ppid) == pid and state != "Z":
+            out.append((int(d), cmd))
+    return out
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _run_trainer(data: str, results: str, name: str, stop_when=None,
+                 env=None, **cmd_kw) -> tuple:
+    """The trainer CLI in a session of its own: (exit code, its output,
+    seconds, its loader worker processes when it was stopped, those of
+    them alive after it exited).  ``stop_when(output)``: send SIGTERM to
+    its process group, as a scheduler does, once it is true."""
     out_path = os.path.join(results, f"{name}-{time.time_ns()}.out")
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
+    workers = []
     with open(out_path, "w") as out:
-        proc = subprocess.Popen(_trainer_cmd(data, results, name), cwd=here,
-                                stdout=out, stderr=subprocess.STDOUT)
+        proc = subprocess.Popen(_trainer_cmd(data, results, name, **cmd_kw),
+                                cwd=here, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True,
+                                env=None if env is None
+                                else {**os.environ, **env})
         try:
             if stop_when is not None:
                 while proc.poll() is None:
                     with open(out_path) as f:
                         if stop_when(f.read()):
-                            proc.send_signal(15)    # SIGTERM
+                            workers = [p for p, cmd in _children(proc.pid)
+                                       if "spawn_main" in cmd]
+                            os.killpg(proc.pid, 15)     # SIGTERM
                             break
                     time.sleep(0.02)
             rc = proc.wait(timeout=RESUME_TIMEOUT_S)
         finally:
             if proc.poll() is None:
-                proc.kill()
+                os.killpg(proc.pid, 9)
                 proc.wait()
     with open(out_path) as f:
         text = f.read()
-    return rc, text, time.perf_counter() - t0
+    return (rc, text, time.perf_counter() - t0, workers,
+            [p for p in workers if _alive(p)])
 
 
 def _logged(text: str, prefix: str) -> list:
@@ -2004,6 +2067,14 @@ def _phase_launches(text: str) -> dict:
     import ast
     line = [ln for ln in text.splitlines() if "PHASE 1 (nopush) END" in ln][-1]
     return ast.literal_eval(line.split("kernel launches ", 1)[1])
+
+
+def _phase_perf(text: str) -> dict:
+    """The joint phase's img/s, step ms and idle share (``StepTimer``)."""
+    import ast
+    line = [ln for ln in text.splitlines() if "PHASE 1 (nopush) END" in ln][-1]
+    return ast.literal_eval(line.split(" steps; ", 1)[1].split(
+        "; kernel launches", 1)[0])
 
 
 def _checkpoint_diffs(run_a: str, run_b: str) -> dict:
@@ -2042,7 +2113,7 @@ def resume_phase(tmp: str, data: str, smi: str) -> dict:
     os.makedirs(results)
     runs = {}
     for name in ("straight_a", "straight_b"):
-        rc, text, secs = _run_trainer(data, results, name)
+        rc, text, secs, *_ = _run_trainer(data, results, name)
         if rc != 0:
             raise AssertionError(f"resume: {name} exited {rc}:\n"
                                  + text[-3000:])
@@ -2058,7 +2129,7 @@ def resume_phase(tmp: str, data: str, smi: str) -> dict:
     # happens in the background while the next micro-steps run
     state_dir = os.path.join(results, "killed", "checkpoints", "nopush_state")
     first_val = f"step {RESUME_VAL_EVERY}/{RESUME_STEPS} "
-    rc, text, secs = _run_trainer(
+    rc, text, secs, *_ = _run_trainer(
         data, results, "killed", stop_when=lambda out: first_val in out and
         os.path.exists(os.path.join(state_dir, "meta.json")))
     stopped = [int(ln.split("PREEMPTED at step ")[1].split(":")[0])
@@ -2080,7 +2151,7 @@ def resume_phase(tmp: str, data: str, smi: str) -> dict:
         f"{saved['bytes'] / 1e6:.1f} MB, blocking snapshot "
         f"{saved['snapshot_ms']:.1f} ms host time in the step loop, commit "
         f"{saved['commit_s']:.2f} s; on {smi}")
-    rc, text, secs = _run_trainer(data, results, "killed")
+    rc, text, secs, *_ = _run_trainer(data, results, "killed")
     if rc != 0:
         raise AssertionError(f"resume: the relaunch exited {rc}:\n"
                              + text[-3000:])
@@ -2114,6 +2185,230 @@ def resume_phase(tmp: str, data: str, smi: str) -> dict:
     return dict(launches=launches, stopped=stopped[0], saved=saved,
                 restored=restored[0], straight_repeat=repeat,
                 relaunch_diff=diffs, bitwise=bitwise)
+
+
+# ---------------------------------------------------------------------------
+# the training data path: native augmentation, the loaders, color jitter
+# ---------------------------------------------------------------------------
+def _digest(batch) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for a in batch:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _loaders(data: str, backend: str, jitter: bool, native: bool):
+    """``make_loaders`` of the baseline config with ``backend``, jitter
+    and augmentation path, ``det_seed`` 11, batch ``B``; returns (train
+    loader, the augmentation its items take)."""
+    from scaleprotoseg_torch import cli_common
+    _, bindings = cli_common.load_config("baseline_cityscapes")
+    cli_common.apply_overrides(bindings, [
+        f"PatchClassificationDataModule.loader_backend = '{backend}'",
+        f"PatchClassificationDataset.jitter = {jitter}",
+        "PatchClassificationDataset.det_seed = 11"])
+    old = os.environ.get("SPS_NATIVE_AUG")
+    os.environ["SPS_NATIVE_AUG"] = "1" if native else "0"
+    try:
+        tl, _ = cli_common.make_loaders(bindings, B,
+                                        num_workers=LOADER_WORKERS, seed=3,
+                                        data_root=data, log=lambda m: None)
+    finally:
+        if old is None:
+            del os.environ["SPS_NATIVE_AUG"]
+        else:
+            os.environ["SPS_NATIVE_AUG"] = old
+    return tl, tl.dataset.augmentation
+
+
+def time_loader(data: str, backend: str, jitter: bool, native: bool,
+                smi: str) -> dict:
+    """The train loader alone: the first batch's seconds (for processes
+    the workers' start), one epoch untimed, then img/s over
+    ``LOADER_EPOCHS`` epochs; every batch's digest, and the digests of 8
+    batches after ``fast_forward`` to the middle of the next epoch."""
+    loader, aug = _loaders(data, backend, jitter, native)
+    t0 = time.perf_counter()
+    digests, first_s = [], None
+    for epoch in range(1 + LOADER_EPOCHS):
+        if epoch == 1:
+            t1 = time.perf_counter()
+        for batch in loader:
+            digests.append(_digest(batch))
+            if first_s is None:
+                first_s = time.perf_counter() - t0
+    secs = time.perf_counter() - t1
+    n_img = LOADER_EPOCHS * N_TRAIN
+    k = (1 + LOADER_EPOCHS) * len(loader) + len(loader) // 2
+    loader.fast_forward(k)
+    after_ff = []
+    while len(after_ff) < 8:
+        for batch in loader:
+            after_ff.append(_digest(batch))
+            if len(after_ff) == 8:
+                break
+    out = dict(backend=backend, augmentation=aug,
+               loader=type(loader).__name__, first_batch_s=first_s,
+               img_per_s=n_img / secs, images=n_img,
+               workers=loader.num_workers, digests=digests,
+               fast_forward=k, after_ff=after_ff)
+    log(f"data: loader {backend} + {aug}: {out['img_per_s']:.2f} img/s over "
+        f"{n_img} images ({LOADER_EPOCHS} epochs of {N_TRAIN} at batch {B} "
+        f"after one untimed, 513 x 513 crops of 1024 x 2048, "
+        f"{LOADER_WORKERS} workers), first batch after {first_s:.2f} s; "
+        f"host {os.cpu_count()} cores; on {smi}")
+    return out
+
+
+def data_loader_phase(data: str, smi: str) -> dict:
+    """The native library built from ``native/fastaug.cc`` (a failed build
+    fails the script) and held bit for bit against the numpy pipeline on
+    ``N_FASTAUG`` training items (the config's 513 x 513 window, scales
+    0.5-1.5) of the Cityscapes-size root; then the train loader alone in
+    five configurations (threads + numpy, threads + native, processes +
+    native, processes + jitter, threads + jitter): img/s, and the
+    processes' jittered stream equal to the threads' bit for bit over two
+    epochs and after a ``fast_forward``."""
+    from scaleprotoseg_torch import native
+    from scaleprotoseg_torch.data.dataset import PatchClassificationDataset
+    t0 = time.perf_counter()
+    built = native.library_path().exists()
+    lib = native.build()
+    native.load_library()
+    log(f"data: native augmentation {lib.name} "
+        f"{'reused' if built else 'built with g++'} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    kw = dict(data_type="cityscapes", mean=IMAGENET_MEAN, std=IMAGENET_STD,
+              window_size=(513, 513), scales=(0.5, 1.5), det_seed=11,
+              root=data)
+    nat = PatchClassificationDataset("train", **kw)
+    ref = PatchClassificationDataset("train", native=False, **kw)
+    if (nat.augmentation, ref.augmentation) != ("native", "numpy"):
+        raise AssertionError("data: the datasets took "
+                             f"{nat.augmentation} / {ref.augmentation}")
+    ms = {"native": [], "numpy": []}
+    for k in range(N_FASTAUG):
+        epoch, i = divmod(k, len(nat))
+        nat.set_epoch(epoch)
+        ref.set_epoch(epoch)
+        t0 = time.perf_counter()
+        a = nat[i]
+        t1 = time.perf_counter()
+        b = ref[i]
+        ms["native"].append((t1 - t0) * 1e3)
+        ms["numpy"].append((time.perf_counter() - t1) * 1e3)
+        if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+            raise AssertionError(f"data: native item {i} of epoch {epoch} "
+                                 "differs from the numpy pipeline's")
+    item_ms = {k: statistics.median(v) for k, v in ms.items()}
+    log(f"data: native augmentation bit-equal to the numpy pipeline on "
+        f"{N_FASTAUG} items (513 x 513 from 1024 x 2048, scales 0.5-1.5, "
+        f"det_seed draws); median ms an item, load included, one thread: "
+        f"native {item_ms['native']:.2f}, numpy {item_ms['numpy']:.2f}")
+    runs = {}
+    for name, backend, jitter, nat_on in (
+            ("threads_numpy", "threads", False, False),
+            ("threads_native", "threads", False, True),
+            ("processes_native", "grain_processes", False, True),
+            ("processes_jitter", "grain_processes", True, True),
+            ("threads_jitter", "threads", True, True)):
+        runs[name] = time_loader(data, backend, jitter, nat_on, smi)
+    for a, b in (("processes_jitter", "threads_jitter"),
+                 ("processes_native", "threads_native"),
+                 ("threads_native", "threads_numpy")):
+        if runs[a]["digests"] != runs[b]["digests"] or \
+                runs[a]["after_ff"] != runs[b]["after_ff"]:
+            raise AssertionError(f"data: the {a} batch stream differs from "
+                                 f"{b}'s")
+    log(f"data: batch streams bit-equal, processes + jitter = threads + "
+        f"jitter, processes + native = threads + native = threads + numpy, "
+        f"over {1 + LOADER_EPOCHS} epochs and 8 batches after fast_forward("
+        f"{runs['threads_jitter']['fast_forward']})")
+    return dict(item_ms=item_ms, loaders={
+        k: {f: v for f, v in r.items() if f not in ("digests", "after_ff")}
+        for k, r in runs.items()})
+
+
+def data_trainer_phase(tmp: str, data: str, smi: str, resume: dict) -> dict:
+    """The baseline's joint phase at full depth (``DATA_STEPS``
+    micro-steps, a validation every ``DATA_VAL_EVERY``, ``det_seed``)
+    through the trainer CLI: jittered on worker processes straight, the
+    same SIGTERM'd (to its process group) past its first validation and
+    relaunched, jittered on threads; then unjittered on threads, native
+    and numpy.  The processes' and threads' runs, the relaunch and the
+    straight run, and the native and numpy runs must end on the same
+    bits (or, where the resume phase found that two straight runs do not
+    repeat, within their difference); the SIGTERM'd run must exit 143
+    with its state committed and no worker left."""
+    results = os.path.join(tmp, "data")
+    os.makedirs(results)
+    procs = ["PatchClassificationDataModule.loader_backend = "
+             "'grain_processes'"]
+    jitter = ["PatchClassificationDataset.jitter = True"]
+    kw = dict(steps=DATA_STEPS, val_every=DATA_VAL_EVERY)
+    perf, launches = {}, {}
+
+    def straight(name, gin, env=None):
+        rc, text, secs, *_ = _run_trainer(data, results, name, env=env,
+                                          gin=gin, **kw)
+        if rc != 0:
+            raise AssertionError(f"data: {name} exited {rc}:\n"
+                                 + text[-3000:])
+        perf[name], launches[name] = _phase_perf(text), _phase_launches(text)
+        aug = [ln.split("augmentation ", 1)[1] for ln in text.splitlines()
+               if "train loader: " in ln]
+        log(f"data: trainer {name} exit 0 in {secs:.1f} s, train items "
+            f"{aug[-1]}: {json.dumps(perf[name])}; launches "
+            f"{launches[name]}; on {smi}")
+        return text
+
+    straight("procs_jitter", procs + jitter)
+    state_dir = os.path.join(results, "killed", "checkpoints", "nopush_state")
+    first_val = f"step {DATA_VAL_EVERY}/{DATA_STEPS} "
+    rc, text, secs, workers, left = _run_trainer(
+        data, results, "killed", gin=procs + jitter,
+        stop_when=lambda out: first_val in out and
+        os.path.exists(os.path.join(state_dir, "meta.json")), **kw)
+    stopped = [int(ln.split("PREEMPTED at step ")[1].split(":")[0])
+               for ln in text.splitlines() if "PREEMPTED at step " in ln]
+    if rc != 143 or not stopped or not workers or left:
+        raise AssertionError(f"data: the SIGTERM'd run exited {rc}, "
+                             f"stopped {stopped}, workers {workers}, left "
+                             f"alive {left}:\n" + text[-3000:])
+    log(f"data: SIGTERM to the trainer's process group after step "
+        f"{DATA_VAL_EVERY}'s state committed: exit 143 in {secs:.1f} s at "
+        f"micro-step {stopped[0]}; its {len(workers)} loader workers, none "
+        "left")
+    straight("killed", procs + jitter)
+    straight("threads_jitter", jitter)
+    straight("threads_native", [])
+    straight("threads_numpy", [], env={"SPS_NATIVE_AUG": "0"})
+    runs = {n: os.path.join(results, n) for n in perf}
+    diffs = {}
+    for a, b in (("procs_jitter", "killed"), ("procs_jitter",
+                                              "threads_jitter"),
+                 ("threads_native", "threads_numpy")):
+        d = _checkpoint_diffs(runs[a], runs[b])
+        rows = _metric_rows(runs[a]) == _metric_rows(runs[b])
+        diffs[f"{a} vs {b}"] = dict(checkpoints=d, rows_equal=rows)
+        if resume["bitwise"]:
+            bad = any(d.values()) or not rows
+        else:
+            bad = any(v > max(resume["straight_repeat"].values())
+                      for v in d.values())
+        if bad:
+            raise AssertionError(f"data: {a} and {b} end apart: {d}, "
+                                 f"metrics rows equal {rows}")
+    held = "bit for bit" if resume["bitwise"] else \
+        "within two straight runs' difference (resume phase)"
+    log(f"data: largest |difference| per checkpoint {json.dumps(diffs)}, "
+        f"held {held}")
+    for k in TRAINING_KERNELS:
+        if launches["procs_jitter"][k] < 1:
+            raise AssertionError(f"data: {k} not launched")
+    return dict(perf=perf, launches=launches["procs_jitter"], diffs=diffs,
+                stopped=stopped[0], workers=len(workers))
 
 
 def kernel_vs_plain_step(bindings, stem: str, batch, dev):
@@ -2801,6 +3096,7 @@ def main() -> None:
     quant, evals = served["quant"], served["evals"]
     group, pruning = trained["group"], trained["pruning"]
     single, resume = trained["single"], trained["resume"]
+    data_run = trained["data"]["trainers"]
     art = served["artifact"]["counts"]
     by_path = {name: {"serving": served["counts"][name],
                       "quant8_serving": quant["counts"][name],
@@ -2821,7 +3117,8 @@ def main() -> None:
                       "pruned_eval": pruning["eval_valid"]["counts"][name],
                       "single_training": single["counts"][name],
                       "single_serving": single["serve"]["counts"][name],
-                      "resumed_training": resume["launches"][name]}
+                      "resumed_training": resume["launches"][name],
+                      "data_training": data_run["launches"][name]}
                for name in results}
     # each kernel's launches in the main path of its slice: the training
     # run for K2's forward and backward, the bf16 serving run for K1 and

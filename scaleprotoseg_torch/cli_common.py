@@ -24,6 +24,7 @@ from scaleprotoseg_torch import configlib
 from scaleprotoseg_torch.configlib import Bindings, query
 from scaleprotoseg_torch.data.dataset import PatchClassificationDataset
 from scaleprotoseg_torch.data.loader import DataLoader
+from scaleprotoseg_torch.data.worker_loader import WorkerDataLoader
 
 CONFIGS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "configs")
@@ -142,40 +143,53 @@ def _num_workers(bindings: Bindings, num_workers: Optional[int]) -> int:
                  "dataloader_n_jobs", 8)
 
 
+LOADER_BACKENDS = {"threads": DataLoader, "grain": DataLoader,
+                   "grain_processes": WorkerDataLoader}
+
+
 def make_loaders(bindings: Bindings, batch_size: int,
                  num_workers: Optional[int] = None, seed: int = 0,
-                 data_root: Optional[str] = None):
-    """(train_loader, val_loader) per the dataset bindings.
+                 data_root: Optional[str] = None, log=print):
+    """(train_loader, val_loader) per the dataset bindings; the val
+    dataset is ``is_eval`` (never jittered).
     ``PatchClassificationDataModule.loader_backend``: 'threads' (the
-    default) is the threaded ``DataLoader``; the JAX package's
-    process-worker backends are not ported and are refused."""
+    default) is the threaded ``DataLoader``, 'grain_processes' the
+    process-worker ``WorkerDataLoader``; 'grain', the JAX package's grain
+    engine on threads, which yields the threaded loader's batches, runs
+    the threaded ``DataLoader`` (grain is no dependency of the port).
+    ``log`` gets one line per dataset: the backend and the augmentation
+    path its items take."""
     backend = query(bindings, "PatchClassificationDataModule",
                     "loader_backend", "threads")
-    if backend in ("grain", "grain_processes"):
-        raise NotImplementedError(
-            f"PatchClassificationDataModule.loader_backend = {backend!r}: "
-            "the process-worker loader is not ported yet; use 'threads'")
-    if backend != "threads":
+    if backend not in LOADER_BACKENDS:
         raise ValueError(f"unknown loader_backend {backend!r} "
                          "(threads | grain | grain_processes)")
+    cls = LOADER_BACKENDS[backend]
+    if backend == "grain":
+        log("loader_backend 'grain': the port runs its threaded loader, "
+            "which yields the same batches as the JAX package's grain "
+            "thread engine")
     num_workers = _num_workers(bindings, num_workers)
     train_key = query(bindings, "PatchClassificationDataModule", "train_key",
                       "train")
     kw = _dataset_kwargs(bindings, data_root)
     train_ds = PatchClassificationDataset(train_key, **kw)
-    val_ds = PatchClassificationDataset("val", **kw)
-    return (DataLoader(train_ds, batch_size, shuffle=True,
-                       num_workers=num_workers, seed=seed),
-            DataLoader(val_ds, batch_size, shuffle=False,
-                       num_workers=num_workers, seed=seed))
+    val_ds = PatchClassificationDataset("val", is_eval=True, **kw)
+    for name, ds in (("train", train_ds), ("val", val_ds)):
+        log(f"{name} loader: {cls.__name__} ({backend}), {num_workers} "
+            f"workers, augmentation {ds.augmentation}")
+    return (cls(train_ds, batch_size, shuffle=True,
+                num_workers=num_workers, seed=seed),
+            cls(val_ds, batch_size, shuffle=False,
+                num_workers=num_workers, seed=seed))
 
 
 def make_push_loader(bindings: Bindings, batch_size: int = 1,
                      num_workers: Optional[int] = None,
                      data_root: Optional[str] = None) -> DataLoader:
     """Prototype push's loader: the train split at full resolution,
-    normalized and unaugmented, in a fixed order (re-iterable: push reads
-    it twice)."""
+    normalized and unaugmented (never jittered), in a fixed order
+    (re-iterable: push reads it twice)."""
     ds = PatchClassificationDataset("train", push_prototypes=True,
                                     **_dataset_kwargs(bindings, data_root))
     return DataLoader(ds, batch_size, shuffle=False,
@@ -200,7 +214,7 @@ def run_phases(trainer, bindings: Bindings, hp: dict, phases: Iterable[int],
             continue
         tl, vl = make_loaders(bindings, batch[phase], num_workers=num_workers,
                               seed=hp["random_seed"] + phase,
-                              data_root=data_root)
+                              data_root=data_root, log=trainer.log)
         results[phase] = trainer.run_phase(
             phase, steps[phase], tl, vl,
             early_stopping_patience=(

@@ -1,23 +1,28 @@
-"""Training dataset with the reference's augmentation, in numpy alone.
+"""Training dataset with the reference's augmentation.
 
 Reads the preprocessed layout (``all_images.json``, ``.npy`` images under
 ``img_with_margin_<m>/<split>`` and category-index labels under
 ``annotations/<split>``), converts the labels to 0 = void / class + 1, and
 augments as the reference does, drawing the randomness in the same order
 from Python's ``random``: a uniform scale in ``scales``, a crop start in
-rows then columns, a horizontal flip.  The image is resized bilinearly
-with half-pixel centres (cv2's ``INTER_LINEAR`` up to its fixed-point
-rounding) and the label with PIL's NEAREST indices; the resized image is
-padded bottom/right with the mean (label 0), cropped to the window,
-flipped and normalized.  With ``det_seed`` the draws come from a stream
-of their own per (det_seed, epoch, index), as in the JAX package, so an
-item does not depend on the loader's threads and a resumed run sees the
-crops an uninterrupted one would.
+rows then columns, a horizontal flip and, with ``jitter`` on a training
+item, the four color-jitter factors (``data/jitter.py``).  The image is
+resized bilinearly with half-pixel centres (cv2's ``INTER_LINEAR`` up to
+its fixed-point rounding) and the label with PIL's NEAREST indices; the
+resized image is padded bottom/right with the mean (label 0), cropped to
+the window, flipped, jittered and normalized.  With ``det_seed`` the
+draws come from a stream of their own per (det_seed, epoch, index), as in
+the JAX package, so an item does not depend on the loader's workers and a
+resumed run sees the crops an uninterrupted one would.
 
-Only the window's pixels of the resized image are computed: each output
-pixel reads its own source taps, as the JAX package's native
-augmentation does, so a 513 x 513 crop of a 1536 x 3072 resize costs a
-513 x 513 gather.  Batches are NHWC float32 images and int32 labels.
+Two implementations, bit-equal, as in the JAX package: the native one
+(``native/fastaug.cc``, one C++ pass that releases the GIL) for every
+item that is not jittered, unless ``native=False`` or ``SPS_NATIVE_AUG=0``
+opts out; and the numpy one (``resized_window``, then flip, jitter and
+normalize), the reference, which also runs every jittered item.  In both
+only the window's pixels of the resized image are computed: a 513 x 513
+crop of a 1536 x 3072 resize costs a 513 x 513 gather.  Batches are NHWC
+float32 images and int32 labels.
 """
 
 from __future__ import annotations
@@ -25,12 +30,14 @@ from __future__ import annotations
 import json
 import os
 import random
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from scaleprotoseg_torch import native as native_mod
 from scaleprotoseg_torch import settings
-from scaleprotoseg_torch.constants import convert_targets
+from scaleprotoseg_torch.constants import conversion_lut, convert_targets
+from scaleprotoseg_torch.data.jitter import color_jitter, jitter_draws
 from scaleprotoseg_torch.ops.resize import _nearest_index
 
 
@@ -80,8 +87,10 @@ class PatchClassificationDataset:
     augmented alike for training and validation, as the reference does;
     with ``push_prototypes`` the whole image, normalized, unaugmented.
 
-    ``jitter`` (color jitter, training only) is off in every shipped
-    config and not ported: it is refused.
+    ``jitter``: color-jitter training items (never an ``is_eval`` or a
+    push item).  ``native``: ``"auto"`` or True augments through the
+    native library, built on first use (a failed build raises); False,
+    or ``SPS_NATIVE_AUG=0`` in the environment, takes the numpy pipeline.
 
     ``det_seed``: when set, each item's draws come from
     ``random.Random(f"{det_seed}/{epoch}/{index}")`` (``set_epoch``
@@ -95,13 +104,18 @@ class PatchClassificationDataset:
                  window_size: Optional[Tuple[int, int]] = None,
                  scales: Tuple[float, ...] = (1.0,), jitter: bool = False,
                  root: Optional[str] = None, push_prototypes: bool = False,
-                 det_seed: Optional[int] = None):
+                 det_seed: Optional[int] = None, is_eval: bool = False,
+                 native: Union[str, bool] = "auto"):
+        if native not in ("auto", True, False):
+            raise ValueError(f"native = {native!r}: 'auto', True or False")
         self.push_prototypes = push_prototypes
         self.det_seed = det_seed
         self.epoch = 0
-        if jitter:
-            raise NotImplementedError("color jitter is not ported yet "
-                                      "(PatchClassificationDataset.jitter)")
+        self.jitter = jitter
+        self.is_eval = is_eval
+        # push items are never augmented: no library for them
+        self.native = native is not False and not push_prototypes and \
+            native_mod.native_available()
         self.split_key = split_key
         self.data_type = data_type
         self.mean = np.asarray(mean, np.float32)
@@ -116,6 +130,18 @@ class PatchClassificationDataset:
             self.root, f"img_with_margin_{image_margin_size}", split_key)
         with open(os.path.join(self.root, "all_images.json")) as fp:
             self.img_ids = json.load(fp)[split_key]
+
+    @property
+    def augmentation(self) -> str:
+        """The pipeline of the training items: 'numpy+jitter', 'native'
+        or 'numpy'."""
+        if self._jittered:
+            return "numpy+jitter"
+        return "native" if self.native else "numpy"
+
+    @property
+    def _jittered(self) -> bool:
+        return self.jitter and not self.is_eval and not self.push_prototypes
 
     def __len__(self) -> int:
         return len(self.img_ids)
@@ -143,19 +169,32 @@ class PatchClassificationDataset:
             image = (image.astype(np.float32) / 255.0 - self.mean) / self.std
             return image.astype(np.float32), \
                 convert_targets(label, self.data_type).astype(np.int32)
-        resized, start, flip = self.draw(index, label.shape, window)
+        r = self.stream(index)
+        resized, start, flip = self.draw(index, label.shape, window, r)
+        if self.native and not self._jittered:
+            return native_mod.fastaug(
+                image, label, conversion_lut(self.data_type), resized,
+                window, start, flip, self.mean, self.std)
         return self.augment(image, convert_targets(label, self.data_type),
-                            window, resized, start, flip)
+                            window, resized, start, flip,
+                            jitter=jitter_draws(r) if self._jittered else None)
+
+    def stream(self, index: int):
+        """The random stream of item ``index``: the process-global
+        ``random`` or, with ``det_seed``, the item's own."""
+        if self.det_seed is None:
+            return random
+        return random.Random(f"{self.det_seed}/{self.epoch}/{index}")
 
     def draw(self, index: int, shape: Tuple[int, int],
-             window: Tuple[int, int]
+             window: Tuple[int, int], r=None
              ) -> Tuple[Tuple[int, int], Tuple[int, int], bool]:
         """(resized size, crop start, flip) of item ``index`` of an image
         of ``shape``: the reference's draws in its order (a uniform scale
-        in ``scales``, the crop start in rows then columns, the flip), from
-        the global stream or, with ``det_seed``, the item's own."""
-        r = random if self.det_seed is None else \
-            random.Random(f"{self.det_seed}/{self.epoch}/{index}")
+        in ``scales``, the crop start in rows then columns, the flip) from
+        ``r``, by default the item's ``stream``."""
+        if r is None:
+            r = self.stream(index)
         in_h, in_w = shape
         scale = 1.0 if len(self.scales) < 2 else \
             r.uniform(self.scales[0], self.scales[1])
@@ -169,14 +208,19 @@ class PatchClassificationDataset:
 
     def augment(self, image: np.ndarray, label: np.ndarray,
                 window: Tuple[int, int], resized: Tuple[int, int],
-                start: Tuple[int, int], flip: bool
+                start: Tuple[int, int], flip: bool,
+                jitter: Optional[Tuple[float, float, float, float]] = None
                 ) -> Tuple[np.ndarray, np.ndarray]:
-        """Resize, pad, crop, flip and normalize one drawn sample."""
+        """The numpy pipeline: resize, pad, crop, flip, jitter by the
+        factors ``jitter`` (``jitter_draws``) and normalize one drawn
+        sample of ``label`` (already converted)."""
         img, lab = resized_window(image, label, resized, start, window,
                                   self.mean)
         if flip:
             img = img[:, ::-1]
             lab = lab[:, ::-1]
+        if jitter is not None:
+            img = color_jitter(img, jitter)
         img = (img - self.mean) / self.std
         return np.ascontiguousarray(img, np.float32), \
             np.ascontiguousarray(lab, np.int32)

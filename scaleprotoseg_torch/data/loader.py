@@ -2,8 +2,10 @@
 
 Index order as the JAX package's loader: ``random.Random(seed + epoch)``
 shuffles each epoch's indices; batches are assembled by a thread pool
-(numpy's gathers and arithmetic release the GIL) a few batches ahead of
-the consumer and come out as stacked numpy arrays.  Each ``__iter__`` is
+(the native augmentation releases the GIL; the numpy pipeline, which
+jittered items take, mostly holds it: ``worker_loader`` runs it in
+processes) a few batches ahead of the consumer and come out as stacked
+numpy arrays.  Each ``__iter__`` is
 one epoch: it first hands the epoch to the dataset's ``set_epoch`` (the
 ``det_seed`` streams), and ``fast_forward`` positions the stream where a
 run that drew ``batches_done`` batches would be.

@@ -83,7 +83,7 @@ def train_pruned(config: str, experiment_name: str,
     tl, vl = cli_common.make_loaders(bindings, hp["joint_batch_size"],
                                      num_workers=num_workers,
                                      seed=hp["random_seed"],
-                                     data_root=data_root)
+                                     data_root=data_root, log=log)
     res = trainer.run_phase(
         2, max(hp["finetune_steps"], 1), tl, vl,
         early_stopping_patience=hp["early_stopping_patience_last_layer"])

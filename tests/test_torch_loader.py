@@ -1,9 +1,9 @@
 """The port's loader bindings and data stream against the JAX package's.
 
-- ``PatchClassificationDataModule.loader_backend``: 'threads' is the
-  threaded loader; 'grain' and 'grain_processes' are refused by name
-  (``NotImplementedError``), any other value raises the JAX package's
-  ``ValueError``, as the JAX package's ``make_loaders`` does.
+- ``PatchClassificationDataModule.loader_backend``: 'threads' and 'grain'
+  are the threaded loader, 'grain_processes' the process-worker loader
+  (``tests/test_torch_worker_loader.py``); any other value raises the JAX
+  package's ``ValueError``, as the JAX package's ``make_loaders`` does.
 - ``PatchClassificationDataset.det_seed``: the port draws each item's
   scale, crop start and flip from the same per-(det_seed, epoch, index)
   stream as the JAX package, bit for bit; the labels are bit-equal and the
@@ -31,6 +31,7 @@ from scaleprotoseg_torch.configlib import parse_config
 from scaleprotoseg_torch.data.dataset import \
     PatchClassificationDataset as TDataset
 from scaleprotoseg_torch.data.loader import DataLoader as TLoader
+from scaleprotoseg_torch.data.worker_loader import WorkerDataLoader
 
 WINDOW = (33, 33)
 KW = dict(data_type="cityscapes", mean=[0.485, 0.456, 0.406],
@@ -74,14 +75,22 @@ def city_root(tmp_path_factory):
 # ---------------------------------------------------------------------------
 # loader_backend
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("backend,error", [
-    ("grain", NotImplementedError), ("grain_processes", NotImplementedError),
-    ("bogus", ValueError)])
-def test_make_loaders_refuses_unported_backends(city_root, backend, error):
+@pytest.mark.parametrize("backend,want", [
+    ("threads", TLoader), ("grain", TLoader),
+    ("grain_processes", WorkerDataLoader), ("bogus", ValueError)])
+def test_make_loaders_refuses_unported_backends(city_root, backend, want):
+    """Every backend the JAX package knows is ported ('grain' as the
+    threaded loader, which yields its batches); any other is refused with
+    the JAX package's ``ValueError``."""
     bindings = parse_config(BINDINGS + "PatchClassificationDataModule."
                             f"loader_backend = '{backend}'\n")
-    with pytest.raises(error, match=backend):
-        cli_common.make_loaders(bindings, 2, data_root=city_root)
+    if want is ValueError:
+        with pytest.raises(ValueError, match=backend):
+            cli_common.make_loaders(bindings, 2, data_root=city_root)
+        return
+    tl, vl = cli_common.make_loaders(bindings, 2, data_root=city_root,
+                                     log=lambda msg: None)
+    assert type(tl) is want and type(vl) is want
 
 
 def test_make_loaders_threads_backend_and_det_seed(city_root):

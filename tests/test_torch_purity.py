@@ -2,7 +2,8 @@
 
 Checked in a fresh interpreter: every module of ``scaleprotoseg_torch``
 and the ``chip_smoke.py`` script are imported, then ``sys.modules`` must
-hold no ``jax``/``flax`` module and nothing of ``scaleprotoseg_tpu``.
+hold no ``jax``/``flax`` module, nothing of ``scaleprotoseg_tpu``, and
+neither ``cv2`` nor ``grain``, which the GPU machine does not have.
 """
 
 import os
@@ -21,12 +22,13 @@ for name in names:
 import chip_smoke  # noqa: F401
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax",
-                                    "scaleprotoseg_tpu"))
+                                    "scaleprotoseg_tpu", "cv2", "grain"))
 missing = sorted({"scaleprotoseg_torch." + m for m in (
     "ops.simplex", "push.push", "models.group_init",
     "finetune_wandb_group", "push.artifacts", "find_nearest", "prune",
     "run_pruning", "train_wandb", "analysis.threshold_save", "eval_test",
-    "imageio", "helpers")} - set(names))
+    "imageio", "helpers", "native", "data.jitter",
+    "data.worker_loader")} - set(names))
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 20 else 0)
 """

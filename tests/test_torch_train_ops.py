@@ -279,9 +279,3 @@ def test_dataset_matches_jax_python_aug(city_root):
             err = np.abs(got_img - want_img)
             assert err.max() <= 2.5e-2 and err.mean() < 8e-3, \
                 (seed, i, err.max(), err.mean())
-
-
-def test_dataset_refuses_jitter(city_root):
-    with pytest.raises(NotImplementedError, match="jitter"):
-        TDataset("train", data_type="cityscapes",
-                 mean=[0.5] * 3, std=[0.5] * 3, jitter=True, root=city_root)
