@@ -184,7 +184,24 @@ Phases; any failure exits non-zero and prints no result:
    (``SPS_NATIVE_AUG=0``). The relaunch ends on the straight run's bits,
    the processes' run on the threads' run's, the numpy run on the native
    one's (each checkpoint and metrics row); K2's kernels launch in every
-   run; img/s, step ms and idle share of each run are printed;
+   run; img/s, step ms and idle share of each run are printed. Then the
+   trainer's knobs: ``ops.gradconv.conv3x3_dilated`` (``fast_gradconv``'s
+   hybrid backward) against cuDNN's autograd backward at layer4's (256
+   ch, d = 2) and layer5's (512 ch, d = 4) training shapes in bf16, dX
+   and dW each within twice cuDNN's largest error against float32
+   autograd on the same values, forward + backward CUDA-event ms and the
+   device ms of the forward, dX and dW of each (calls queued behind a
+   device sleep, CUDA events around them); then the
+   flagship's joint phase (10 micro-steps, ``det_seed``, one validation)
+   through ``train_wandb_multiscale.main --gpu-recipe`` as is, with
+   ``train.fast_gradconv``, with ``train.remat``, with
+   ``train.profile_steps = 5`` and as is again: every first loss within
+   1e-3 of the first run's, K2's forward once a micro-step (twice under
+   remat) and a validation batch, its backward once a micro-step; img/s,
+   step ms, idle share and peak memory of each run; the profiled run's
+   trace under ``<run>/profile`` read by ``python -m
+   scaleprotoseg_torch.profiling --steps-from 0`` (its top 10 kernels,
+   categories and ``TOTAL`` printed; 5 steps traced, on the device);
 6. one line per kernel with its times, bound and launches, for the six
    kernels since redesigned the earlier design's recorded times beside
    the new ones, the card's name and power limit, the kernels
@@ -236,6 +253,8 @@ from scaleprotoseg_torch.model_loading import (calibrate_quant_scales,
 from scaleprotoseg_torch.models.factory import construct_ppnet
 from scaleprotoseg_torch.ops.prototype import EPSILON
 from scaleprotoseg_torch.ops.resize import _bilinear_matrix
+from scaleprotoseg_torch.profiling import (QUANT_GROUPS, SERVING_GROUPS,
+                                           TRAINING_GROUPS, kernel_group)
 from scaleprotoseg_torch.serving import serve
 from scaleprotoseg_torch.serving.export import load_artifact, make_serving_fn
 from scaleprotoseg_torch.spec import ProtoSpec
@@ -265,6 +284,12 @@ SINGLE_VAL_EVERY = 10
 RESUME_STEPS, RESUME_VAL_EVERY = 20, 5   # the resumed joint phase
 RESUME_TIMEOUT_S = 300
 DATA_STEPS, DATA_VAL_EVERY = 20, 10      # the data phase's joint runs
+KNOB_STEPS, KNOB_PROFILE_STEPS = 10, 5   # the knobs phase's joint runs
+KNOB_RUNS = {"recipe": [], "fast_gradconv": ["train.fast_gradconv = True"],
+             "remat": ["train.remat = True"],
+             "profiled": [f"train.profile_steps = {KNOB_PROFILE_STEPS}"],
+             "recipe_again": []}   # the spread of the runs, in turns
+GRADCONV_SHAPES = {"layer4": (256, 2), "layer5": (512, 4)}  # channels, d
 N_FASTAUG = 32                # native vs numpy items at the training crop
 LOADER_EPOCHS = 3             # timed epochs of each loader configuration
 LOADER_WORKERS = 8
@@ -1909,12 +1934,14 @@ def training_phase(dev, smi: str) -> dict:
         torch.cuda.empty_cache()
         resume = resume_phase(tmp, data, smi)
         data_run = data_trainer_phase(tmp, data, smi, resume)
+        knobs = knobs_phase(tmp, data, smi)
         return dict(counts=counts, step_cmp=step_cmp, pushed_cmp=pushed_cmp,
                     profiles=step_profiles,
                     perf={p: out["phases"][p].perf for p in (0, 1)},
                     push=push_stats, group=group, pruning=pruning,
                     single=single, resume=resume,
-                    data=dict(loaders=loaders, trainers=data_run))
+                    data=dict(loaders=loaders, trainers=data_run),
+                    knobs=knobs)
 
 
 # ---------------------------------------------------------------------------
@@ -2409,6 +2436,190 @@ def data_trainer_phase(tmp: str, data: str, smi: str, resume: dict) -> dict:
             raise AssertionError(f"data: {k} not launched")
     return dict(perf=perf, launches=launches["procs_jitter"], diffs=diffs,
                 stopped=stopped[0], workers=len(workers))
+
+
+# ---------------------------------------------------------------------------
+# the trainer's knobs: fast_gradconv, remat, profile_steps
+# ---------------------------------------------------------------------------
+def queued_device_ms(fn, n: int = 20):
+    """Device ms per call of ``fn``: ``n`` calls enqueued while the card
+    sleeps (``torch.cuda._sleep``), so that it runs them back to back and
+    the CUDA events around them time the card alone; None where enqueueing
+    them outlasted the sleep."""
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(100_000_000)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    ev[2].synchronize()
+    if enqueue_ms >= ev[0].elapsed_time(ev[1]):
+        return None
+    return ev[1].elapsed_time(ev[2]) / n
+
+
+def check_gradconv(smi: str) -> dict:
+    """``ops.gradconv.conv3x3_dilated`` against cuDNN's autograd backward
+    at layer4's and layer5's training shapes (batch 2 at 65 x 65, bf16):
+    dX and dW of each against float32 autograd on the same bf16 values
+    (TF32 off), the hybrid's largest error at most twice cuDNN's; forward
+    + backward CUDA-event ms, and the device ms of each part
+    (``queued_device_ms``; the forward is one call, the same for both).
+    The profiler's device time of such short calls did not repeat from
+    one profiled run to the next on the card, so it is not read here."""
+    from torch.nn.grad import conv2d_input, conv2d_weight
+    from scaleprotoseg_torch.ops.gradconv import (conv3x3_dilated,
+                                                  grad_input, grad_weight)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    for name, (c, d) in GRADCONV_SHAPES.items():
+        cl = dict(memory_format=torch.channels_last)
+        x = torch.randn(B, c, TH, TW, generator=gen, device=dev) \
+            .bfloat16().contiguous(**cl)
+        w = (torch.randn(c, c, 3, 3, generator=gen, device=dev)
+             * (2.0 / (9 * c)) ** 0.5).bfloat16()
+        dy = torch.randn(B, c, TH, TW, generator=gen, device=dev) \
+            .bfloat16().contiguous(**cl)
+        fwd = {"cudnn": lambda a, b: F.conv2d(a, b, None, 1, d, d),
+               "hybrid": lambda a, b: conv3x3_dilated(a, b, d)}
+
+        def grads(f, dtype):
+            a = x.detach().to(dtype, copy=True).requires_grad_()
+            b = w.detach().to(dtype, copy=True).requires_grad_()
+            f(a, b).backward(dy.to(dtype))
+            return a.grad.float(), b.grad.float()
+
+        ref = grads(fwd["cudnn"], torch.float32)
+        err = {}
+        for k, f in fwd.items():
+            got = grads(f, torch.bfloat16)
+            err[k] = {g: ((a - r).abs().max() / r.abs().max()).item()
+                      for g, a, r in zip(("dx", "dw"), got, ref)}
+        if not all(err["hybrid"][g] <= 2 * err["cudnn"][g]
+                   for g in ("dx", "dw")):
+            raise AssertionError(f"gradconv {name}: errors {err}")
+        xr = x.detach().clone().requires_grad_()
+        wr = w.detach().clone().requires_grad_()
+        ms = {k: time_ms(lambda f=f: f(xr, wr).backward(dy))
+              for k, f in fwd.items()}
+        device = {k: queued_device_ms(f) for k, f in {
+            "cudnn/forward": lambda: F.conv2d(x, w, None, 1, d, d),
+            "cudnn/dx": lambda: conv2d_input(x.shape, w, dy, 1, d, d),
+            "cudnn/dw": lambda: conv2d_weight(x, w.shape, dy, 1, d, d),
+            "hybrid/dx": lambda: grad_input(dy, w, d),
+            "hybrid/dw": lambda: grad_weight(x, dy, d)}.items()}
+        gflop = 2 * 9 * c * c * B * TH * TW / 1e9
+        out[name] = dict(channels=c, dilation=d, max_rel_err=err,
+                         fwd_bwd_ms=ms, device_ms=device,
+                         dw_gflop=round(gflop, 2))
+        log(f"gradconv {name} ({c} ch, d = {d}, batch {B} at {TH} x {TW}, "
+            f"bf16): " + json.dumps(out[name]) + f"; on {smi}")
+        del x, w, dy, xr, wr
+    torch.cuda.empty_cache()
+    return out
+
+
+def knobs_phase(tmp: str, data: str, smi: str) -> dict:
+    """The trainer's knobs at full depth: ``check_gradconv``, then the
+    flagship's joint phase (``KNOB_STEPS`` micro-steps from the same
+    seeded weights, ``det_seed``, one validation) through
+    ``train_wandb_multiscale.main --gpu-recipe`` five times: as is, with
+    ``train.fast_gradconv``, with ``train.remat``, with
+    ``train.profile_steps`` and as is again.  Each run's first loss must
+    be the recipe's
+    within 1e-3, K2's forward launch once a micro-step (twice under
+    remat) and a validation batch, its backward kernels once a
+    micro-step; the profiled run's trace must exist under
+    ``<run>/profile`` and ``python -m scaleprotoseg_torch.profiling``
+    must read ``KNOB_PROFILE_STEPS`` steps from it."""
+    import gc
+    from scaleprotoseg_torch import train_wandb_multiscale
+    gradconv = check_gradconv(smi)
+    results = os.path.join(tmp, "knobs")
+    gin = ["train.warmup_steps = 0", f"train.joint_steps = {KNOB_STEPS}",
+           "train.finetune_steps = 0", "train.push_proto = False",
+           f"Trainer.val_check_interval = {KNOB_STEPS}",
+           "PatchClassificationDataset.det_seed = 11"]
+    val_batches = math.ceil(N_VAL / B)
+    runs = {}
+    log(f"knobs: {torch.cuda.memory_allocated() / 2**20:.1f} MB allocated "
+        "before the runs")
+    for name, extra in KNOB_RUNS.items():
+        argv = ["scaleproto_cityscapes", f"knob_{name}", "--gpu-recipe",
+                "--data-root", data, "--results-root", results]
+        for line in gin + extra:
+            argv += ["--gin", line]
+        t0 = time.perf_counter()
+        res = train_wandb_multiscale.main(argv)["phases"][1]
+        secs = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        fwd = 2 if name == "remat" else 1
+        want = {"aspp": fwd * KNOB_STEPS + res.validations * val_batches,
+                "aspp_grad_pack": KNOB_STEPS,
+                "aspp_grad_weight": KNOB_STEPS}
+        if res.steps_done != KNOB_STEPS or \
+                not all(math.isfinite(v) for v in res.losses):
+            raise AssertionError(f"knobs {name}: {res.steps_done} steps, "
+                                 f"losses {res.losses}")
+        if res.launches != {**res.launches, **want}:
+            raise AssertionError(f"knobs {name}: launches {res.launches}, "
+                                 f"want {want}")
+        first = abs(res.losses[0] - runs["recipe"]["losses"][0]) \
+            if runs else 0.0
+        if first > 1e-3:
+            raise AssertionError(f"knobs {name}: first loss "
+                                 f"{res.losses[0]} against the recipe's "
+                                 f"{runs['recipe']['losses'][0]}")
+        runs[name] = dict(losses=res.losses, perf=res.perf,
+                          launches=res.launches, seconds=secs,
+                          first_loss_abs_err=first)
+        perf = res.perf
+        log(f"knobs {name}: {KNOB_STEPS} joint micro-steps in {secs:.1f} s "
+            f"of main; {perf['img_per_s']} img/s, median step "
+            f"{perf['step_ms_median']} ms, device idle share "
+            f"{perf['device_idle_share']}, peak memory "
+            f"{perf['peak_memory_mb']} MB; first loss {res.losses[0]:.6f} "
+            f"(|diff| to the recipe {first:.3g}); launches {res.launches}; "
+            f"batch {B} at 513 x 513, full depth, bf16 recipe, on {smi}")
+    log("knobs: " + json.dumps({k: {
+        "img_per_s": r["perf"]["img_per_s"],
+        "step_ms_median": r["perf"]["step_ms_median"],
+        "peak_memory_mb": r["perf"]["peak_memory_mb"]}
+        for k, r in runs.items()}) + f" on {smi}")
+    trace_dir = os.path.join(results, "knob_profiled", "profile")
+    traces = [n for n in os.listdir(trace_dir)
+              if n.endswith(".pt.trace.json.gz")] \
+        if os.path.isdir(trace_dir) else []
+    if len(traces) != 1:
+        raise AssertionError(f"knobs: traces under {trace_dir}: {traces}")
+    size = os.path.getsize(os.path.join(trace_dir, traces[0])) / 2**20
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    table = subprocess.run(
+        [sys.executable, "-m", "scaleprotoseg_torch.profiling", trace_dir,
+         "--top", "10", "--steps-from", "0"], cwd=here, check=True,
+        capture_output=True, text=True, timeout=300).stdout.splitlines()
+    log(f"knobs: trace {traces[0]} ({size:.1f} MB) tabled in "
+        f"{time.perf_counter() - t0:.1f} s by python -m "
+        "scaleprotoseg_torch.profiling --top 10 --steps-from 0:")
+    for line in table:
+        log("  " + line)
+    total = json.loads(table[-1])
+    if total.get("op") != "TOTAL" or total.get("timeline") != "device" or \
+            total.get("n_steps_traced") != KNOB_PROFILE_STEPS:
+        raise AssertionError(f"knobs: the trace's table ends {total}")
+    categories = [json.loads(ln) for ln in table
+                  if ln.startswith('{"op": "CATEGORY:')]
+    return dict(gradconv=gradconv, runs=runs, total=total,
+                categories=categories, trace_mb=size)
 
 
 def kernel_vs_plain_step(bindings, stem: str, batch, dev):
@@ -3016,15 +3227,6 @@ def profile_train_steps(model, bindings, batch, dev) -> dict:
     return out
 
 
-SERVING_GROUPS = ("aspp_kernel", "proto_kernel", "upsample_argmax_kernel",
-                  "conv", "batch_norm", "elementwise", "other")
-QUANT_GROUPS = ("int8_gemm_kernel", "int8_conv3x3_kernel", "quantize_kernel",
-                "absmax") + SERVING_GROUPS
-TRAINING_GROUPS = ("aspp_kernel", "aspp_grad_pack_kernel",
-                   "aspp_grad_weight_kernel", "split_sum_kernel", "adam",
-                   "conv", "batch_norm", "elementwise", "other")
-
-
 def profile_batch(fn, groups=SERVING_GROUPS, top: int = 12,
                   iters: int = 3) -> dict:
     """Device ms per call by group (a kernel named in ``groups``, else
@@ -3051,14 +3253,7 @@ def profile_batch(fn, groups=SERVING_GROUPS, top: int = 12,
         calls += evt.count
         ms = _device_us(evt) / 1e3 / iters
         key = evt.key
-        low = key.lower()
-        name = next((g for g in groups if g in low), None)
-        if name is None:
-            name = "conv" if any(t in low for t in (
-                "conv", "gemm", "xmma", "fprop", "dgrad", "wgrad", "cutlass",
-                "nvjet")) else "elementwise" if "elementwise" in low \
-                else "other"
-        sums[name] += ms
+        sums[kernel_group(key, groups)] += ms
         per_kernel.append((ms, evt.count // iters, key[:90]))
     per_kernel.sort(reverse=True)
     out = {k: round(v, 4) for k, v in sums.items()}
@@ -3118,7 +3313,9 @@ def main() -> None:
                       "single_training": single["counts"][name],
                       "single_serving": single["serve"]["counts"][name],
                       "resumed_training": resume["launches"][name],
-                      "data_training": data_run["launches"][name]}
+                      "data_training": data_run["launches"][name],
+                      **{f"knob_{k}": r["launches"][name]
+                         for k, r in trained["knobs"]["runs"].items()}}
                for name in results}
     # each kernel's launches in the main path of its slice: the training
     # run for K2's forward and backward, the bf16 serving run for K1 and

@@ -56,7 +56,10 @@ def spec_tensors(spec: ProtoSpec, device: torch.device) -> dict:
 
 
 @lru_cache(maxsize=64)
+@torch.inference_mode(False)
 def _spec_tensors(spec: ProtoSpec, device: torch.device) -> dict:
+    # never inference tensors: a table first made while serving is kept
+    # for the training steps on the same spec, which save it for backward
     idx = spec.class_proto_index
     c_of, q_of = np.nonzero(idx >= 0)
     as_t = lambda v, dt: torch.as_tensor(v, dtype=dt, device=device)  # noqa: E731

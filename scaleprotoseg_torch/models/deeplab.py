@@ -156,12 +156,12 @@ class DeepLabV2(nn.Module):
 
     ``n_blocks=(3, 4, 23, 3)`` is ResNet-101, ``(3, 4, 6, 3)`` ResNet-50.
     Output channels: ``n_out`` for 'sum', ``len(rates) * n_out`` for
-    'concat'."""
+    'concat'.  ``fast_gradconv``: see ``set_fast_gradconv``."""
 
     def __init__(self, n_out: int, n_blocks: Tuple[int, ...] = (3, 4, 23, 3),
                  atrous_rates: Tuple[int, ...] = (6, 12, 18, 24),
                  aspp_mode: str = "concat", fast_aspp: bool = False,
-                 quant8: Quant8 = False):
+                 quant8: Quant8 = False, fast_gradconv: bool = False):
         super().__init__()
         if quant8 not in (False, True, "static"):
             raise ValueError(f"quant8 must be False, True or 'static', got "
@@ -177,6 +177,20 @@ class DeepLabV2(nn.Module):
                                 quant8)
         self.aspp = ASPP(ch[5], n_out, atrous_rates, aspp_mode,
                          fast=fast_aspp)
+        self.set_fast_gradconv(fast_gradconv)
+
+    def set_fast_gradconv(self, on: bool) -> None:
+        """Route the dilated 3x3 convs of layer4 and layer5 (d = 2, 4)
+        through the hybrid backward of ``ops/gradconv.py`` (``on``) or
+        cuDNN's.  The d = 1 convs of layer2/3 keep cuDNN's; parameters
+        and state dict are unchanged."""
+        if on and self.quant8:
+            raise ValueError("fast_gradconv is a training knob; quant8 "
+                             "serving convs take no gradient")
+        for layer in (self.layer4, self.layer5):
+            for block in layer:
+                block.conv3x3.fast_grad = on
+        self.fast_gradconv = on
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4,

@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from scaleprotoseg_torch.ops.gradconv import conv3x3_dilated
 from scaleprotoseg_torch.ops.quant import (dynamic_int8_conv, int8_conv,
                                            pack_int8_weight, static_int8_conv)
 
@@ -45,14 +46,24 @@ def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 class ConvBN(nn.Module):
     """Conv (no bias) -> frozen BN -> optional ReLU; ``conv`` / ``bn``
-    children.  Padding defaults to ``(k - 1) * dilation // 2``."""
+    children.  Padding defaults to ``(k - 1) * dilation // 2``.
+
+    ``fast_grad`` (a 'same' stride-1 3x3 conv only) computes the conv
+    through ``ops.gradconv.conv3x3_dilated``: the same forward, the
+    hybrid backward (``train.fast_gradconv``)."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1,
-                 padding: Optional[int] = None, relu: bool = True):
+                 padding: Optional[int] = None, relu: bool = True,
+                 fast_grad: bool = False):
         super().__init__()
         pad = (kernel_size - 1) * dilation // 2 if padding is None \
             else padding
+        if fast_grad and (kernel_size != 3 or stride != 1 or
+                          pad != dilation):
+            raise ValueError("fast_grad takes 'same' stride-1 3x3 convs "
+                             "only")
+        self.fast_grad = fast_grad
         self.conv = nn.Conv2d(cin, cout, kernel_size, stride, pad,
                               dilation, bias=False)
         # momentum 0.001 is flax's 0.999; the statistics never update here
@@ -63,8 +74,12 @@ class ConvBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.conv
         dt = self.compute_dtype or conv.weight.dtype
-        x = F.conv2d(_cast(x, dt), _cast(conv.weight, dt), None, conv.stride,
-                     conv.padding, conv.dilation)
+        x, w = _cast(x, dt), _cast(conv.weight, dt)
+        if self.fast_grad:
+            x = conv3x3_dilated(x, w, conv.dilation[0])
+        else:
+            x = F.conv2d(x, w, None, conv.stride, conv.padding,
+                         conv.dilation)
         x = self.bn(x)
         return F.relu(x, inplace=True) if self.relu else x
 

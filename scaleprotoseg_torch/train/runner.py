@@ -16,9 +16,22 @@ Knobs read from the ``train`` bindings:
   train.fast_aspp = True             the ASPP through K2's forward kernel
                                      and its tap-packed backward kernels
                                      (needs compute_dtype bfloat16)
+  train.fast_gradconv = True         layer4/5's dilated 3x3 convs through
+                                     the hybrid backward of
+                                     ``ops/gradconv.py`` (same forward)
+  train.remat = True                 the forward computed again in the
+                                     backward (``make_train_step``)
+  train.profile_steps = N            one ``torch.profiler`` trace of N
+                                     micro-steps per trainer, from the
+                                     phase's fourth micro-step, to
+                                     ``<run>/profile``
+                                     (``profiling.StepProfiler``; read it
+                                     with ``python -m
+                                     scaleprotoseg_torch.profiling``)
 
-``train.remat``, ``train.fast_gradconv`` and ``train.profile_steps`` are
-not ported and are refused.
+Each phase's ``perf`` (and its END log line) carries img/s, the median
+step ms, the device's idle share and, on the card, the peak memory
+allocated in the phase (``peak_memory_mb``).
 
 Mid-phase resume, as in the JAX package: the full train state (every
 model tensor, the phase optimizer's Adam moments, ``iter_size``
@@ -54,6 +67,7 @@ from scaleprotoseg_torch.checkpoints.state_io import (last_save_stats,
                                                       wait_for_checkpoints)
 from scaleprotoseg_torch.configlib import Bindings, query
 from scaleprotoseg_torch.ops.prototype import pairwise_l2
+from scaleprotoseg_torch.profiling import StepProfiler
 from scaleprotoseg_torch.train.metrics import (BulkFetcher, MetricAccumulator,
                                                MetricsLogger, StepTimer)
 from scaleprotoseg_torch.train.optim import (PhaseOptimizer, phase_groups,
@@ -131,11 +145,11 @@ class PhaseTrainer:
     def __init__(self, model, spec, variant: str, model_dir: str,
                  hparams: Dict, bindings: Bindings, device: torch.device,
                  logger: Optional[MetricsLogger] = None, log=print):
-        for knob in ("remat", "fast_gradconv", "profile_steps"):
-            if query(bindings, "train", knob, None):
-                raise NotImplementedError(f"train.{knob} is not ported yet")
         dt_name = query(bindings, "train", "compute_dtype", None)
         fast = bool(query(bindings, "train", "fast_aspp", False))
+        self.remat = bool(query(bindings, "train", "remat", False))
+        if query(bindings, "train", "fast_gradconv", False):
+            model.features.base.set_fast_gradconv(True)
         if dt_name:
             model.set_compute_dtype(_DTYPES[dt_name])
         if fast:
@@ -145,8 +159,10 @@ class PhaseTrainer:
                 log("WARNING: train.fast_aspp=True requires "
                     "train.compute_dtype='bfloat16'; the K2 kernels stay "
                     "off")
+        base = model.features.base
         log(f"GPU recipe knobs: compute_dtype={dt_name or 'float32'} "
-            f"fast_aspp={model.features.base.aspp.fast}")
+            f"fast_aspp={base.aspp.fast} "
+            f"fast_gradconv={base.fast_gradconv} remat={self.remat}")
         self.model = model.to(device)
         self.spec = spec
         self.variant = variant
@@ -158,6 +174,9 @@ class PhaseTrainer:
         self.logger = logger or MetricsLogger(model_dir)
         self.log = log
         self.best_acc = 0.0
+        self.profiler = StepProfiler(
+            query(bindings, "train", "profile_steps", 0),
+            os.path.join(model_dir, "profile"), device, log)
 
     def stage_key(self, phase: int) -> str:
         base = {0: "warmup", 1: "nopush", 2: "push"}[min(phase, 2)]
@@ -200,7 +219,7 @@ class PhaseTrainer:
             hp["weights"], hp["ignore_void_class"],
             grad_mask_last_group=(grouped and phase == 1 and
                                   self.model.incorrect_strength == 0),
-            project_group_simplex=grouped)
+            project_group_simplex=grouped, remat=self.remat)
         eval_fn = make_eval_step(hp["weights"], hp["ignore_void_class"])
         stage = self.stage_key(phase)
         val_every = val_every_steps or max(len(train_loader), 1)
@@ -226,7 +245,11 @@ class PhaseTrainer:
 
         fetcher = BulkFetcher(acc_train.update, limit=32)
         losses: List[float] = []
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(self.device)
         timer = StepTimer(self.device)
+        prof = self.profiler
         batch_size = getattr(train_loader, "batch_size", 1)
         launches0 = kernels.launch_counts()
         validations = stale = 0
@@ -235,10 +258,15 @@ class PhaseTrainer:
             for image, target in train_loader:
                 if state.step >= max_steps:
                     break
+                prof.begin(state.step, steps0)
                 timer.begin()
-                x, t = self._to_device(image, target)
-                fetcher.add(step_fn(state, x, t))
+                with prof.span():
+                    x, t = self._to_device(image, target)
+                    fetcher.add(step_fn(state, x, t))
                 timer.end()
+                if prof.due(state.step):
+                    timer.close()   # the trace's export is not timed
+                    prof.stop()
                 steps = state.step
                 if steps % val_every and steps < max_steps:
                     self._check_preempted(preempt, global_step0, state,
@@ -280,6 +308,9 @@ class PhaseTrainer:
                 # does not skip it
                 self._check_preempted(preempt, global_step0, state,
                                       state_dir, fetcher, losses, acc_train)
+        if prof.active:     # the phase ended mid-trace
+            timer.close()
+            prof.stop()
         losses += [m["loss"] for m in fetcher.drain()]
         try:
             wait_for_checkpoints()
@@ -291,6 +322,8 @@ class PhaseTrainer:
             self.log(f"async state checkpoint commit FAILED ({e}); resume "
                      "would restart from an older step")
         perf = timer.summary(batch_size)
+        perf["peak_memory_mb"] = torch.cuda.max_memory_allocated(
+            self.device) / 2**20 if cuda else None
         launches = {k: v - launches0[k]
                     for k, v in kernels.launch_counts().items()}
         self.log(f"PHASE {phase} ({stage}) END: {state.step} steps; "
@@ -306,6 +339,7 @@ class PhaseTrainer:
         the partial train metrics, raise ``Preempted``."""
         if not preempt.should_stop(global_step0 + state.step):
             return
+        self.profiler.discard()
         losses += [m["loss"] for m in fetcher.drain()]
         state.extra = {"train_metrics": acc_train.state()}
         save_train_state(state_dir, state, block=True)

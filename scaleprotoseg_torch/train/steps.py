@@ -14,6 +14,7 @@ import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from scaleprotoseg_torch.losses import losses as L
 from scaleprotoseg_torch.models.ppnet import PPNet, PPNetOutput
@@ -94,7 +95,8 @@ def compute_losses(model: PPNet, out: PPNetOutput, target_full: torch.Tensor,
 def make_train_step(weights: LossWeights, ignore_void: bool = True,
                     class_weights: Optional[torch.Tensor] = None,
                     grad_mask_last_group: bool = False,
-                    project_group_simplex: bool = False
+                    project_group_simplex: bool = False,
+                    remat: bool = False
                     ) -> Callable[[TrainState, torch.Tensor, torch.Tensor],
                                   Metrics]:
     """``step(state, image, target) -> metrics``: one micro-step of
@@ -103,7 +105,14 @@ def make_train_step(weights: LossWeights, ignore_void: bool = True,
     the own-class entries of the group last layer's gradient (the joint
     phase at incorrect_strength 0), ``project_group_simplex`` puts the
     group projections back on the simplex after the update (idempotent
-    on accumulation micro-steps, which update nothing)."""
+    on accumulation micro-steps, which update nothing).
+
+    ``remat``: the model's whole forward runs under non-reentrant
+    ``torch.utils.checkpoint`` and is computed again in the backward, as
+    ``jax.checkpoint`` over ``model.apply`` in the JAX package (BN is
+    frozen in the port, so its ``not train_bn`` condition always holds).
+    The numbers are the plain step's; K2's forward launches twice a
+    micro-step (its packed weights come from the cache both times)."""
 
     def step(state: TrainState, image: torch.Tensor,
              target: torch.Tensor) -> Metrics:
@@ -114,7 +123,8 @@ def make_train_step(weights: LossWeights, ignore_void: bool = True,
                 "round() has zero gradient, so training would silently "
                 "freeze the backbone); reload without quant8 to train")
         model.train()
-        out = model(image)
+        out = checkpoint(model, image, use_reentrant=False) if remat \
+            else model(image)
         loss, metrics = compute_losses(model, out, target, weights,
                                        ignore_void, class_weights)
         loss.backward()

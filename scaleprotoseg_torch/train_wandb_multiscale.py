@@ -32,9 +32,11 @@ push runs again on the restored weights.  Bind
 uninterrupted one bit for bit.
 
 The device is ``cuda`` unless ``--device`` names another; without a card
-that is an error.  Not ported yet, and refused: a pretrained backbone from
-the environment, the profiler trace, W&B and TensorBoard sinks, and more
-than one device.
+that is an error.  ``--gin 'train.profile_steps = N'`` writes one profiler
+trace of N micro-steps to ``<run>/profile`` (``train/runner.py``; read it
+with ``python -m scaleprotoseg_torch.profiling <run>/profile``).  Not
+ported yet, and refused: a pretrained backbone from the environment, W&B
+and TensorBoard sinks, and more than one device.
 """
 
 from __future__ import annotations

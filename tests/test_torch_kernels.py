@@ -582,3 +582,20 @@ def test_upsample_band_plan_covers_every_output_once(hw, out_hw, c):
             assert cols.max() - cols.min() + 1 <= max_cols
             seen[y0:y0 + band, x0:x0 + span] += 1
     assert (seen == 1).all()
+
+
+def test_spec_tables_made_while_serving_serve_training_too():
+    """The spec's device tables are cached per (spec, device); a table
+    first made under ``inference_mode`` (serving) is kept for a training
+    step on the same spec, which saves it for backward: it must not be an
+    inference tensor."""
+    spec = port_spec(ProtoSpec.equal_allocation(24, 16, num_classes=3,
+                                                num_groups=2))
+    with torch.inference_mode():
+        tables = tproto.spec_tensors(spec, torch.device("cpu"))
+    assert not any(t.is_inference() for t in tables.values())
+    act = torch.rand(2, 5, spec.num_active_prototypes, requires_grad=True)
+    gw = torch.rand(spec.num_classes, 2, int(max(spec.class_counts)),
+                    requires_grad=True)
+    tproto.group_activations(act, gw, spec).sum().backward()
+    assert gw.grad is not None and torch.isfinite(gw.grad).all()

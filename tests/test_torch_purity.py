@@ -28,7 +28,7 @@ missing = sorted({"scaleprotoseg_torch." + m for m in (
     "finetune_wandb_group", "push.artifacts", "find_nearest", "prune",
     "run_pruning", "train_wandb", "analysis.threshold_save", "eval_test",
     "imageio", "helpers", "native", "data.jitter",
-    "data.worker_loader")} - set(names))
+    "data.worker_loader", "ops.gradconv", "profiling")} - set(names))
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 20 else 0)
 """

@@ -87,12 +87,12 @@ def _jax_steps(model, spec, variables, phase, x, y, n=2):
     return out, groups
 
 
-def _port_step_fn(tm, phase):
+def _port_step_fn(tm, phase, remat=False):
     opt = toptim.PhaseOptimizer(
         tm.named_parameters(), toptim.phase_groups("multiscale", phase, HP),
         schedule=toptim.poly_schedule(0.9, 10) if phase == 1 else None,
         iter_size=2, guard_nonfinite=50)
-    step = tsteps.make_train_step(tsteps.LossWeights(**WEIGHTS))
+    step = tsteps.make_train_step(tsteps.LossWeights(**WEIGHTS), remat=remat)
     return TrainState(tm, opt), step
 
 
@@ -103,11 +103,18 @@ def _names(tree, spec):
 
 @pytest.mark.parametrize("phase", [0, 1, 2], ids=["warmup", "joint", "last"])
 def test_train_step_matches_jax(phase):
+    check_step_against_jax(phase)
+
+
+def check_step_against_jax(phase, remat=False):
+    """Two micro-steps of the port (``remat``: its forward computed again
+    in the backward) against the JAX package's ``make_train_step``; see
+    the module docstring for the bounds."""
     model, spec, variables, tm = _pair()
     tspec = port_spec(spec)
     x, y = _batch()
     (s1, m1), (s2, m2) = _jax_steps(model, spec, variables, phase, x, y)[0]
-    state, step = _port_step_fn(tm, phase)
+    state, step = _port_step_fn(tm, phase, remat)
     got = []
     for _ in range(2):
         got.append({k: float(v) for k, v in step(
