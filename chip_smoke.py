@@ -202,7 +202,34 @@ Phases; any failure exits non-zero and prints no result:
    trace under ``<run>/profile`` read by ``python -m
    scaleprotoseg_torch.profiling --steps-from 0`` (its top 10 kernels,
    categories and ``TOTAL`` printed; 5 steps traced, on the device);
-6. one line per kernel with its times, bound and launches, for the six
+6. the Pascal VOC-2012 slice (the MSC input pyramid): K2's forward and
+   backward at the pyramid's six maps at C = 2048 (batch 2 at 41 x 41, 21
+   x 21, 31 x 31 of a 321 crop; batch 1 at 65 x 65, 33 x 33, 49 x 49 of
+   the 513 eval input) as at the training shape, K1 at Pascal's group bank
+   (252 prototypes, 21 classes, 4 scales of 63, 3 groups) and the
+   baseline's (210, 1 scale) against the plain head and the float64 one
+   at pushed prototypes, K3 from 65 x 65 x 21 to Pascal's image sizes;
+   a synthetic Pascal root (16 train_aug, 8 train, 8 val, 4 test images
+   of 500 x 375 and the like, raw ids in class blocks with void borders)
+   and a seeded torchvision-layout ResNet-101 ``.pth`` written from its
+   key list; ``scaleproto_pascal`` trained through
+   ``train_wandb_multiscale.main --gpu-recipe`` with
+   ``PRETRAINED_BACKBONE`` at that file (every converted tensor loaded,
+   the frozen BN statistics the file's): 10 warm-up, 10 joint, push, 5
+   last-layer micro-steps, K2 launched 3 times a micro-step and a
+   validation batch (forward, pack and weight gradient in the first two
+   phases), losses finite, img/s, step ms and idle share per phase; the
+   TensorBoard event directory, or its disabled line; one MSC micro-step
+   of the kernel path against the plain path (loss within 1e-3,
+   gradients within 2e-2 relative L2, K2's weights packed once for the
+   three maps); ``group_scaleproto_pascal`` from that ``push_final`` (5 +
+   5 micro-steps); ``run_evaluation`` with Pascal's protocol over the 8
+   val images (confusion matrix equal to a host bincount, labels >= 99%
+   equal to the plain path, K3's plans built printed), ``eval_test
+   --pascal`` over the 4 test images (label ids >= 99% equal to the plain
+   path) and ``final-group`` served in bf16 on 8 images of 513 x 513 as
+   the other checkpoints are;
+7. one line per kernel with its times, bound and launches, for the six
    kernels since redesigned the earlier design's recorded times beside
    the new ones, the card's name and power limit, the kernels
    line (every kernel with its status),
@@ -472,12 +499,12 @@ def build_phase() -> None:
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
-def aspp_case(gen, dev, h: int, w: int, c: int = 2048):
-    """Seeded K2 inputs at (B, h, w, c) -> 4 x 64, the kernel held against
+def aspp_case(gen, dev, h: int, w: int, c: int = 2048, b: int = B):
+    """Seeded K2 inputs at (b, h, w, c) -> 4 x 64, the kernel held against
     the plain form (2 bf16 ulps) and against its own second run (the same
     bits).  Returns (x, ws, bs, packed, got, max_abs_err)."""
     f, rates = 64, RATES
-    x = torch.rand((B, h, w, c), generator=gen, device=dev) \
+    x = torch.rand((b, h, w, c), generator=gen, device=dev) \
         .to(torch.bfloat16)
     std = math.sqrt(2.0 / (9 * c))
     ws = [torch.randn((3, 3, c, f), generator=gen, device=dev) * std
@@ -625,11 +652,11 @@ def check_proto_pruned(feats, protos, spec, kw) -> None:
         f"empty): max |err| {(got - want).abs().max().item():.3g}")
 
 
-def check_proto_rounding(gen, dev, feats, spec, kw) -> None:
+def check_proto_rounding(gen, dev, feats, spec, kw, last=None) -> None:
     """K1 and the fp32 plain head against the float64 head: at pushed
-    prototypes (the group head of ``check_proto``), and the distance error
-    on the sparse probe under an identity plain head (the logits are the
-    activations)."""
+    prototypes (the group head ``kw`` of ``check_proto``, or the plain
+    last layer ``last``), and the distance error on the sparse probe under
+    an identity plain head (the logits are the activations)."""
     n = feats.shape[0] * feats.shape[1] * feats.shape[2]
     pushed = torch.empty((spec.num_prototypes, 64), device=dev)
     at = torch.randint(0, n, (spec.num_prototypes,), generator=gen,
@@ -637,11 +664,11 @@ def check_proto_rounding(gen, dev, feats, spec, kw) -> None:
     flat = feats.reshape(n, -1)
     for s, (lo, hi) in enumerate(spec.scale_bounds):
         pushed[lo:hi] = flat[at[lo:hi], s * 64:(s + 1) * 64].float()
-    want = proto_float64(feats, pushed, None, spec, **kw)
+    want = proto_float64(feats, pushed, last, spec, **kw)
     scale = want.abs().max().item()
-    got = kernels.fused_proto_logits(feats, pushed, None, spec, **kw)
+    got = kernels.fused_proto_logits(feats, pushed, last, spec, **kw)
     err = (got - want).abs().max().item() / scale
-    plain = (proto_plain(feats, pushed, None, spec, **kw) - want).abs() \
+    plain = (proto_plain(feats, pushed, last, spec, **kw) - want).abs() \
         .max().item() / scale
     log(f"proto at pushed prototypes, max |err| against the float64 head "
         f"over its largest logit ({scale:.4g}): kernel {err:.3g}, fp32 plain "
@@ -723,36 +750,37 @@ def valid_tap_flops(h: int, w: int, c: int, f: int,
     return 2.0 * B * taps * c * f
 
 
-def check_aspp_backward(gen, dev) -> list:
-    """K2's backward kernels at the training shapes (batch 2, 65 x 65 x
-    2048 bf16): the pack bit for bit, dW within 1e-3 of the fp32 plain
-    product and deterministic, and the whole Function backward against
-    autograd through the plain form."""
-    c, f = 2048, 64
-    x = torch.rand((B, TH, TW, c), generator=gen, device=dev) \
+def aspp_backward_case(gen, dev, b: int, h: int, w: int, c: int = 2048):
+    """K2's backward kernels on seeded (b, h, w, c) bf16 inputs: the pack
+    bit for bit, dW within 1e-3 of the fp32 plain product and the same
+    bits twice, and the whole Function backward against autograd through
+    the plain form (dx within 2 bf16 ulps, dW and db within 1e-3 of their
+    scale).  Returns the inputs, the packed gradient, dW and the errors."""
+    f = 64
+    x = torch.rand((b, h, w, c), generator=gen, device=dev) \
         .to(torch.bfloat16)
     std = math.sqrt(2.0 / (9 * c))
     ws = [torch.randn((3, 3, c, f), generator=gen, device=dev) * std
           for _ in RATES]
     bs = [torch.randn((f,), generator=gen, device=dev) * 0.1 for _ in RATES]
-    g = torch.randn((B, TH, TW, len(RATES) * f), generator=gen,
+    g = torch.randn((b, h, w, len(RATES) * f), generator=gen,
                     device=dev).to(torch.bfloat16)
     x2d = x.reshape(-1, c)
 
+    shape = f"{b}x{h}x{w}x{c}"
     packed_g = kernels.aspp_grad_pack(g, RATES, f)
     if not torch.equal(packed_g, grad_pack_plain(g, RATES, f)):
-        raise AssertionError("aspp_grad_pack differs from the plain pack")
+        raise AssertionError(f"aspp_grad_pack {shape} differs from the "
+                             "plain pack")
     # as the backward calls it: the zero rows of G skipped, one partial
     # per image
     dw = kernels.aspp_grad_weight(x, packed_g, RATES)
     dw_plain = grad_weight_plain(x2d, packed_g)
     torch.testing.assert_close(dw, dw_plain, rtol=1e-3, atol=1e-3)
     if not torch.equal(dw, kernels.aspp_grad_weight(x, packed_g, RATES)):
-        raise AssertionError("aspp_grad_weight is not deterministic")
+        raise AssertionError(f"aspp_grad_weight {shape} is not "
+                             "deterministic")
     dw_err = (dw - dw_plain).abs().max().item()
-    log(f"aspp_grad_weight: max_abs_err {dw_err:.3g} against the fp32 "
-        f"product, {dw_err / dw_plain.abs().max().item():.3g} of dW's "
-        f"scale; same bits twice")
 
     # the whole backward: the Function against autograd through the plain
     # form on x upcast (36 tap gradients added in fp32, rounded once) and
@@ -774,15 +802,31 @@ def check_aspp_backward(gen, dev) -> list:
     ulps = ((gx - wx).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
             ).max().item()
     if not ulps <= 2:
-        raise AssertionError(f"aspp backward dx: {ulps} bf16 ulps")
+        raise AssertionError(f"aspp backward {shape} dx: {ulps} bf16 ulps")
     rel = []
-    for a, b in zip(got[1:], want[1:]):
-        scale = b.abs().max().item()
-        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3 * scale)
-        rel.append((a - b).abs().max().item() / scale)
-    log(f"aspp backward: dx within {ulps:g} bf16 ulps, dW/db within "
-        f"{max(rel):.3g} of their scale, of autograd through the plain form")
-    del got, want
+    for a, w_ in zip(got[1:], want[1:]):
+        scale = w_.abs().max().item()
+        torch.testing.assert_close(a, w_, rtol=1e-3, atol=1e-3 * scale)
+        rel.append((a - w_).abs().max().item() / scale)
+    return dict(x=x, ws=ws, bs=bs, g=g, packed_g=packed_g, dw=dw,
+                dw_err=dw_err, dw_rel=dw_err / dw_plain.abs().max().item(),
+                dx_ulps=ulps, wb_rel=max(rel))
+
+
+def check_aspp_backward(gen, dev) -> list:
+    """K2's backward kernels at the training shapes (batch 2, 65 x 65 x
+    2048 bf16), held by ``aspp_backward_case``, then timed beside cuDNN
+    and one GEMM of the same product."""
+    c, f = 2048, 64
+    case = aspp_backward_case(gen, dev, B, TH, TW, c)
+    x, ws, bs, g = case["x"], case["ws"], case["bs"], case["g"]
+    packed_g, dw, dw_err = case["packed_g"], case["dw"], case["dw_err"]
+    x2d = x.reshape(-1, c)
+    log(f"aspp_grad_weight: max_abs_err {dw_err:.3g} against the fp32 "
+        f"product, {case['dw_rel']:.3g} of dW's scale; same bits twice")
+    log(f"aspp backward: dx within {case['dx_ulps']:g} bf16 ulps, dW/db "
+        f"within {case['wb_rel']:.3g} of their scale, of autograd through "
+        "the plain form")
 
     # yardsticks: cuDNN's dilated convs, their weight gradient alone and
     # their whole backward, on the same tensors
@@ -1112,29 +1156,43 @@ def head_kw(model) -> dict:
     return dict(last_layer=model.last_layer.weight.t())
 
 
-def plain_path(model):
-    """``fn(x)`` for raw uint8 batches: the labels of the serving fast path
-    with every kernel replaced by its plain version (K2 by ``aspp_plain``,
-    the float32-accumulated ASPP rounded to bf16 as the kernel rounds its
-    output; K1 by ``proto_plain``; K3 by ``upsample_argmax_plain``; the
-    int8 kernels by ``static_int8_conv`` / ``dynamic_int8_conv``)."""
+def plain_labels(model):
+    """``fn(xn, h, w)`` for normalized batches (in the dtype the path under
+    test hands its model: the MSC pyramid resizes that input): the labels
+    of the fast path at (h, w) with every kernel replaced by its plain
+    version (K2 by
+    ``aspp_plain``, the float32-accumulated ASPP rounded to bf16 as the
+    kernel rounds its output; K1 by ``proto_plain``; K3 by
+    ``upsample_argmax_plain``; the int8 kernels by ``static_int8_conv`` /
+    ``dynamic_int8_conv``)."""
     base = model.features.base
     base.aspp.fast = False
     base.aspp.register_forward_hook(
         lambda m, i, out: out.to(torch.bfloat16).float())
     for _, m in quant_sites(model):
         m.plain = True
+
+    @torch.inference_mode()
+    def fn(xn: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        feats = model.conv_features(xn).contiguous()
+        logits = proto_plain(feats, model.prototypes(), spec=model.spec,
+                             **head_kw(model))
+        return upsample_argmax_plain(logits, h, w)
+
+    return fn
+
+
+def plain_path(model):
+    """``fn(x)`` for raw uint8 batches: ``plain_labels`` after the serving
+    path's normalization (float32, then bf16), at the input's size."""
+    labels = plain_labels(model)
     dev = next(model.parameters()).device
     mean = torch.tensor(IMAGENET_MEAN, device=dev)
     std = torch.tensor(IMAGENET_STD, device=dev)
 
-    @torch.inference_mode()
     def fn(x: torch.Tensor) -> torch.Tensor:
-        xn = ((x.float() / 255.0 - mean) / std).to(torch.bfloat16)
-        feats = model.conv_features(xn).contiguous()
-        logits = proto_plain(feats, model.prototypes(), spec=model.spec,
-                             **head_kw(model))
-        return upsample_argmax_plain(logits, x.shape[1], x.shape[2])
+        return labels(((x.float() / 255.0 - mean) / std)
+                      .to(torch.bfloat16), x.shape[1], x.shape[2])
 
     return fn
 
@@ -3092,9 +3150,9 @@ def group_phase(tmp: str, data: str, start: str, batch, dev,
 
 
 def serve_checkpoint(tmp: str, run_name: str, phase: str, dev, smi: str,
-                     tag: str) -> dict:
+                     tag: str, size=(HEIGHT, WIDTH)) -> dict:
     """Phase ``phase`` of run ``run_name`` through ``serve.main`` in bf16 on
-    ``N_GROUP_SERVE`` full-size images (K2, K1 and K3 on every batch), its
+    ``N_GROUP_SERVE`` images of ``size`` (K2, K1 and K3 on every batch), its
     labels against the plain path (>= 99% of pixels), and K1 at its bank
     and head: on random features against the plain head (rtol = atol =
     1e-4), on the served features (pushed prototypes, d ~ 0 there, where
@@ -3104,7 +3162,7 @@ def serve_checkpoint(tmp: str, run_name: str, phase: str, dev, smi: str,
     from scaleprotoseg_torch.model_loading import resolve_checkpoint
     run = os.path.join(tmp, run_name)
     ckpt = resolve_checkpoint(run, phase)
-    img_dir = os.path.join(tmp, "check_images")
+    img_dir = os.path.join(tmp, "check_images_{}x{}".format(*size))
     out_dir = os.path.join(tmp, f"labels_{tag}")
     names = [f"frame_{i:03d}.npy" for i in range(N_GROUP_SERVE)]
     if not os.path.isdir(img_dir):
@@ -3112,7 +3170,7 @@ def serve_checkpoint(tmp: str, run_name: str, phase: str, dev, smi: str,
         rng = np.random.default_rng(3)
         for n in names:
             np.save(os.path.join(img_dir, n),
-                    rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8))
+                    rng.integers(0, 256, (*size, 3), dtype=np.uint8))
     kernels.reset_launch_counts()
     record = serve.main([run_name, phase, "--input", img_dir,
                          "--output", out_dir, "--batch", str(B),
@@ -3140,7 +3198,7 @@ def serve_checkpoint(tmp: str, run_name: str, phase: str, dev, smi: str,
         classes |= set(np.unique(got).tolist())
     agreement = agree / total
     log(f"{tag}: {phase} served {record['images']} images at "
-        f"{record['img_per_s']} img/s (batch {B}, {HEIGHT}x{WIDTH}); "
+        f"{record['img_per_s']} img/s (batch {B}, {size[0]}x{size[1]}); "
         f"launches {counts}; labels agree with the plain path on "
         f"{100 * agreement:.4f}% of {total} pixels ({len(classes)} classes "
         f"predicted); on {smi}")
@@ -3265,6 +3323,529 @@ def profile_batch(fn, groups=SERVING_GROUPS, top: int = 12,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the Pascal VOC-2012 slice: the MSC pyramid, a pretrained backbone read
+# from disk, the TensorBoard sink
+# ---------------------------------------------------------------------------
+PASCAL_SIZES = [(375, 500), (500, 375), (333, 500), (500, 333), (375, 500),
+                (366, 500), (500, 400), (281, 500)]
+PASCAL_SPLITS = {"train_aug": 16, "train": 8, "val": N_EVAL, "test": N_TEST}
+PASCAL_STEPS = (10, 10, 5)            # warm-up, joint, last layer
+PASCAL_GROUP_STEPS = (5, 5)
+PASCAL_VAL_EVERY = 10
+PASCAL_CROP, PASCAL_EVAL = 321, 513
+# the pyramid's backbone grids (the stem's ceil-mode pool): base, 0.5,
+# 0.75 of a 321 crop at batch 2; of the 513 eval input at batch 1
+PYRAMID_SHAPES = ((B, 41, 41), (B, 21, 21), (B, 31, 31),
+                  (1, 65, 65), (1, 33, 33), (1, 49, 49))
+PASCAL_PREDICTED = 3                  # K2 launches a map of a micro-step
+
+
+def write_pascal_root(root: str, seed: int) -> str:
+    """Pascal's preprocessed layout at Pascal's image sizes: uint8 images
+    and raw-id labels (0-20, 255 void) in a seeded grid of class blocks
+    with a void border of 4 pixels, each block a seeded colour of its
+    class plus noise of +-40; ``train`` is the first images of
+    ``train_aug``, ``test`` has images only."""
+    rng = np.random.default_rng(seed)
+    palette = rng.integers(40, 216, (256, 3)).astype(np.int16)
+    index = {}
+    for split, n in PASCAL_SPLITS.items():
+        src = "train_aug" if split == "train" else split
+        img_dir = os.path.join(root, "img_with_margin_0", split)
+        ann_dir = os.path.join(root, "annotations", split)
+        os.makedirs(img_dir)
+        os.makedirs(ann_dir)
+        index[split] = [f"{src}_{i:03d}" for i in range(n)]
+        if split == "train":
+            for name in index[split]:
+                for d in ("img_with_margin_0", "annotations"):
+                    os.link(os.path.join(root, d, src, name + ".npy"),
+                            os.path.join(root, d, split, name + ".npy"))
+            continue
+        for i, name in enumerate(index[split]):
+            h, w = PASCAL_SIZES[i % len(PASCAL_SIZES)]
+            grid = rng.integers(0, 21, (3, 4)).astype(np.uint8)
+            label = np.ascontiguousarray(np.repeat(np.repeat(
+                grid, -(-h // 3), 0), -(-w // 4), 1)[:h, :w])
+            label[:4], label[-4:], label[:, :4], label[:, -4:] = 255, 255, \
+                255, 255
+            noise = rng.integers(-40, 41, (h, w, 3), dtype=np.int16)
+            np.save(os.path.join(img_dir, name + ".npy"),
+                    np.clip(palette[label] + noise, 0, 255).astype(np.uint8))
+            if split != "test":
+                np.save(os.path.join(ann_dir, name + ".npy"), label)
+    with open(os.path.join(root, "all_images.json"), "w") as f:
+        json.dump(index, f)
+    return root
+
+
+RESNET101_LAYERS = ((3, 64), (4, 128), (23, 256), (3, 512))  # n, planes
+
+
+def torchvision_resnet101_keys():
+    """(key, shape) of a torchvision ResNet-101 state dict, in its order:
+    the stem, layer1-4 of 3 / 4 / 23 / 3 bottlenecks (the first of each
+    with its downsample), the classifier."""
+    def bn(name, c):
+        return [(f"{name}.{k}", (c,)) for k in
+                ("weight", "bias", "running_mean", "running_var")] + \
+            [(f"{name}.num_batches_tracked", ())]
+
+    keys = [("conv1.weight", (64, 3, 7, 7))] + bn("bn1", 64)
+    cin = 64
+    for layer, (n, planes) in enumerate(RESNET101_LAYERS, 1):
+        for block in range(n):
+            pre = f"layer{layer}.{block}"
+            keys += [(f"{pre}.conv1.weight", (planes, cin, 1, 1))] + \
+                bn(f"{pre}.bn1", planes) + \
+                [(f"{pre}.conv2.weight", (planes, planes, 3, 3))] + \
+                bn(f"{pre}.bn2", planes) + \
+                [(f"{pre}.conv3.weight", (4 * planes, planes, 1, 1))] + \
+                bn(f"{pre}.bn3", 4 * planes)
+            if block == 0:
+                keys += [(f"{pre}.downsample.0.weight",
+                          (4 * planes, cin, 1, 1))] + \
+                    bn(f"{pre}.downsample.1", 4 * planes)
+            cin = 4 * planes
+    return keys + [("fc.weight", (1000, 2048)), ("fc.bias", (1000,))]
+
+
+def write_torchvision_resnet101(path: str, seed: int) -> dict:
+    """A seeded torchvision-layout ResNet-101 ``.pth`` built from the key
+    list (He-scaled kernels, the last BN of each residual branch at 0.1 so
+    activations stay bounded at full depth, running variances in [0.9,
+    1.1]); returns the state dict."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, shape in torchvision_resnet101_keys():
+        if key.endswith("num_batches_tracked"):
+            v = np.asarray(1000, np.int64)
+        elif key.endswith("running_var"):
+            v = rng.uniform(0.9, 1.1, shape)
+        elif key.endswith(("running_mean", "bias")):
+            v = np.zeros(shape)
+        elif key.endswith("bn3.weight"):
+            v = np.full(shape, 0.1)
+        elif len(shape) == 1:          # the other BN weights
+            v = 1.0 + 0.01 * rng.standard_normal(shape)
+        else:
+            v = rng.standard_normal(shape) * math.sqrt(
+                2.0 / np.prod(shape[1:]))
+        sd[key] = torch.from_numpy(np.asarray(
+            v, np.int64 if v.dtype == np.int64 else np.float32))
+    torch.save(sd, path)
+    return sd
+
+
+def check_aspp_pyramid(gen, dev, smi: str) -> dict:
+    """K2's forward and backward at the pyramid's six maps (C = 2048):
+    forward within 2 bf16 ulps of the plain form and the same bits twice;
+    the backward pair and the Function's backward as ``aspp_backward_case``
+    holds them.  The forward's wrapper ms and device ms at each (CUDA
+    events around calls queued behind a device sleep: the profiler's short
+    sessions late in this long process have come back empty)."""
+    out = {}
+    for b, h, w in PYRAMID_SHAPES:
+        x, ws, bs, packed, _, err = aspp_case(gen, dev, h, w, b=b)
+
+        def fwd():
+            return kernels.fused_aspp(x, ws, bs, RATES, packed)
+
+        fwd_ms, fwd_device_ms = time_ms(fwd), queued_device_ms(fwd)
+        del x, ws, bs, packed, fwd
+        case = aspp_backward_case(gen, dev, b, h, w)
+        out[f"{b}x{h}x{w}"] = dict(
+            forward_max_abs_err=err, forward_ms=fwd_ms,
+            forward_device_ms=fwd_device_ms,
+            dw_rel=case["dw_rel"], dx_ulps=case["dx_ulps"],
+            dw_db_rel=case["wb_rel"])
+        del case
+    log("pascal: K2 at the pyramid's maps (C = 2048; batch x rows x cols), "
+        "forward within 2 bf16 ulps, pack bit-exact, dW within 1e-3, the "
+        f"Function's backward against autograd: {json.dumps(out)} on {smi}")
+    return out
+
+
+def check_proto_pascal(gen, dev, smi: str) -> dict:
+    """K1 at Pascal's banks on random features of the 513 eval grid (65 x
+    65, batch 1): the group head (252 prototypes, 21 classes, 4 scales of
+    63, 3 groups) and the baseline's plain head (210 prototypes, 1
+    scale), each against its plain version (rtol = atol = 1e-4) and at
+    pushed prototypes against the float64 head (``check_proto_rounding``)."""
+    out = {}
+    for name, spec in (("group", ProtoSpec.equal_allocation(
+            252, 64, num_classes=21, num_scales=4, num_groups=3)),
+            ("single", ProtoSpec.equal_allocation(
+                210, 64, num_classes=21, num_scales=1))):
+        c, d = spec.num_classes, spec.feature_depth
+        feats = torch.rand((1, 65, 65, d), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        protos = torch.rand((spec.num_prototypes, 64), generator=gen,
+                            device=dev)
+        if spec.num_groups:
+            gw = torch.rand((c, 3, spec.max_protos_per_class),
+                            generator=gen, device=dev) + 1e-3
+            kw = dict(group_projection=gw / gw.sum(-1, keepdim=True),
+                      last_layer_group=torch.randn(
+                          (c * 3, c), generator=gen, device=dev) *
+                      math.sqrt(2.0 / (c * 3)))
+            last = None
+        else:
+            kw = {}
+            last = torch.randn((spec.num_prototypes, c), generator=gen,
+                               device=dev) * 0.5
+        # packed once, as the model packs its head once
+        head = pack_head(protos, last, spec, **kw)
+        got = kernels.fused_proto_logits(feats, protos, last, spec, **kw,
+                                         head=head)
+        want = proto_plain(feats, protos, last, spec, **kw)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        check_proto_rounding(gen, dev, feats, spec, kw, last)
+        out[name] = dict(prototypes=spec.num_prototypes,
+                         max_abs_err=(got - want).abs().max().item(),
+                         ms=time_ms(lambda: kernels.fused_proto_logits(
+                             feats, protos, last, spec, **kw, head=head)),
+                         plain_ms=time_ms(lambda: proto_plain(
+                             feats, protos, last, spec, **kw)))
+    log(f"pascal: K1 at the group bank 252 / 21 / 4 x 63 / 3 and the "
+        f"baseline bank 210 / 21 / 1 on 1 x 65 x 65 features, against the "
+        f"plain head (rtol = atol = 1e-4; ms: CUDA-event medians of 10): "
+        f"{json.dumps(out)} on {smi}")
+    return out
+
+
+def check_upsample_pascal(gen, dev) -> dict:
+    """K3 from the 513 eval grid (65 x 65 x 21 logits) to Pascal's
+    annotation sizes: labels equal to the plain version's wherever its
+    top-two margin is >= 1e-5."""
+    out = {}
+    lg = torch.randn((1, 65, 65, 21), generator=gen, device=dev)
+    for h, w in sorted(set(PASCAL_SIZES)):
+        got = kernels.fused_upsample_argmax(lg, h, w)
+        want = upsample_argmax_plain(lg, h, w)
+        up = torch.einsum("oh,bhpc->bopc", torch.as_tensor(
+            _bilinear_matrix(h, 65), device=dev), torch.einsum(
+            "bhwc,pw->bhpc", lg, torch.as_tensor(_bilinear_matrix(w, 65),
+                                                 device=dev)))
+        top2 = torch.topk(up, 2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) >= 1e-5
+        diff = got.int() != want.int()
+        if int((diff & decided).sum()):
+            raise AssertionError(f"upsample to {h} x {w}: "
+                                 f"{int((diff & decided).sum())} decided "
+                                 "labels differ")
+        out[f"{h}x{w}"] = int(diff.sum())
+    log(f"pascal: K3 from 65 x 65 x 21 to Pascal's sizes, labels that differ "
+        f"from the plain version (none where the margin is >= 1e-5): "
+        f"{json.dumps(out)}")
+    return out
+
+
+def pascal_step_check(bindings, stem: str, batch, dev) -> dict:
+    """One MSC micro-step from ``stem``, kernel path against plain
+    (``kernel_vs_plain_step``), K2's launches in the kernel path's step
+    and the times its packed weights were built (once: the three maps of
+    one weight version share them)."""
+    from scaleprotoseg_torch.models import deeplab
+    packs = []
+    pack = deeplab.ASPP._pack
+
+    def counted(self):
+        packs.append(1)
+        return pack(self)
+
+    deeplab.ASPP._pack = counted
+    try:
+        kernels.reset_launch_counts()
+        step_cmp, model = kernel_vs_plain_step(bindings, stem, batch, dev)
+        counts = kernels.launch_counts()
+    finally:
+        deeplab.ASPP._pack = pack
+    step_cmp.update(launches={k: counts[k] for k in TRAINING_KERNELS},
+                    packs=len(packs))
+    del model
+    torch.cuda.empty_cache()
+    return step_cmp
+
+
+def pascal_phase(tmp: str, dev, smi: str) -> dict:
+    """The Pascal VOC-2012 slice at full depth and the published widths:
+    kernel checks at the pyramid's shapes and Pascal's banks and sizes;
+    ``scaleproto_pascal`` trained through ``train_wandb_multiscale.main
+    --gpu-recipe`` from a synthetic torchvision ResNet-101 file
+    (``PRETRAINED_BACKBONE``), pushed and finetuned; the group phase of
+    ``group_scaleproto_pascal``; ``run_evaluation`` with Pascal's protocol,
+    ``eval_test --pascal`` and the served ``final-group``, each against the
+    plain path; the TensorBoard sink or its disabled line."""
+    from scaleprotoseg_torch import (cli_common, eval_test,
+                                     finetune_wandb_group,
+                                     train_wandb_multiscale)
+    from scaleprotoseg_torch.kernels import upsample as kup
+    from scaleprotoseg_torch.checkpoints.pretrained import \
+        torchvision_resnet_to_backbone
+    gen = torch.Generator(device=dev).manual_seed(14)
+    out = dict(aspp=check_aspp_pyramid(gen, dev, smi),
+               proto=check_proto_pascal(gen, dev, smi),
+               upsample=check_upsample_pascal(gen, dev))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    data = write_pascal_root(os.path.join(tmp, "pascal"), seed=14)
+    pth = os.path.join(tmp, "resnet101_torchvision.pth")
+    tv = write_torchvision_resnet101(pth, seed=15)
+    log(f"pascal: {PASCAL_SPLITS} images of Pascal sizes and a "
+        f"{os.path.getsize(pth) / 2**20:.1f} MB torchvision-layout "
+        f"ResNet-101 ({len(tv)} tensors) written in "
+        f"{time.perf_counter() - t0:.1f} s on the host of {smi}")
+
+    # the prototype phase from the pretrained file
+    os.environ["PRETRAINED_BACKBONE"] = pth
+    gin = [f"train.warmup_steps = {PASCAL_STEPS[0]}",
+           f"train.joint_steps = {PASCAL_STEPS[1]}",
+           f"train.finetune_steps = {PASCAL_STEPS[2]}",
+           f"Trainer.val_check_interval = {PASCAL_VAL_EVERY}"]
+    argv = ["scaleproto_pascal", "pascal_train", "--gpu-recipe",
+            "--data-root", data, "--results-root", tmp]
+    for line in gin:
+        argv += ["--gin", line]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        trained = train_wandb_multiscale.main(argv)
+    finally:
+        del os.environ["PRETRAINED_BACKBONE"]
+    counts = kernels.launch_counts()
+    log(f"pascal train: main took {time.perf_counter() - t0:.1f} s; "
+        f"launches {counts}; on {smi}")
+    run = os.path.join(tmp, "pascal_train")
+    with open(os.path.join(run, "train.log")) as f:
+        train_log = f.read()
+    n_tensors = len(torchvision_resnet_to_backbone(tv))
+    loaded = f"({n_tensors} of {n_tensors} tensors)"
+    if f"Loaded pretrained backbone weights from {pth} {loaded}" \
+            not in train_log:
+        raise AssertionError(f"pascal: the trainer did not load {pth} "
+                             f"{loaded}")
+    final_sd, _ = load_checkpoint(trained["final"])
+    last = RESNET101_LAYERS[2][0]       # layer3's last bottleneck
+    for tv_key, key in (("bn1.running_var", "layer1.conv1.bn.running_var"),
+                        (f"layer3.{last - 1}.bn2.running_var",
+                         f"layer4.block{last}.conv3x3.bn.running_var")):
+        if not torch.equal(final_sd["features.base." + key], tv[tv_key]):
+            raise AssertionError(f"pascal: push_final's {key} is not the "
+                                 "file's (frozen BN statistics)")
+    log(f"pascal: PRETRAINED_BACKBONE loaded {loaded}; push_final's frozen "
+        "BN statistics are the file's")
+
+    val_batches = math.ceil(PASCAL_SPLITS["val"] / B)
+    perf = {}
+    for phase, steps in enumerate(PASCAL_STEPS):
+        res = trained["phases"][phase]
+        bwd = 0 if phase == 2 else 3 * steps
+        want = {"aspp": 3 * (steps + res.validations * val_batches),
+                "aspp_grad_pack": bwd, "aspp_grad_weight": bwd}
+        if res.steps_done != steps or len(res.losses) != steps or \
+                not all(math.isfinite(v) for v in res.losses):
+            raise AssertionError(f"pascal phase {phase}: {res.steps_done} "
+                                 f"steps, losses {res.losses}")
+        if res.launches != {**res.launches, **want}:
+            raise AssertionError(f"pascal phase {phase}: launches "
+                                 f"{res.launches}, want {want}")
+        perf[phase] = p = res.perf
+        log(f"pascal train phase {phase}: {steps} micro-steps, "
+            f"{res.validations} validations; launches {res.launches} (K2 a "
+            f"micro-step: {(res.launches['aspp'] - 3 * res.validations * val_batches) / steps:g} "
+            f"forward, {res.launches['aspp_grad_pack'] / steps:g} pack, "
+            f"{res.launches['aspp_grad_weight'] / steps:g} weight gradient); "
+            f"losses first {res.losses[0]:.4f} last {res.losses[-1]:.4f}, "
+            f"all finite; {p['img_per_s']} img/s, median step "
+            f"{p['step_ms_median']} ms, device idle share "
+            f"{p['device_idle_share']} over {p['steps_timed']} steps past "
+            f"the first 3, peak {p['peak_memory_mb']} MB; batch {B} at "
+            f"{PASCAL_CROP} x {PASCAL_CROP} with the pyramid, full depth, "
+            f"bf16 recipe, on {smi}")
+    push = trained["push"]
+    out["push"] = dict(prototypes=int(push.winners.shape[0]),
+                       matched=int((push.winners >= 0).sum()),
+                       pruned=int(push.winners.shape[0] -
+                                  push.kept.shape[0]))
+    log("pascal push: " + json.dumps(out["push"]))
+
+    # TensorBoard: the event directory where it imports, else one line
+    try:
+        from torch.utils import tensorboard  # noqa: F401
+        tb = os.path.join(run, "logs", "tb")
+        if not os.listdir(tb):
+            raise AssertionError(f"pascal: {tb} holds no event file")
+        out["tensorboard"] = f"events in {tb}"
+    except ImportError as e:
+        if "TensorBoard logging disabled" not in train_log:
+            raise AssertionError("pascal: no TensorBoard sink and no "
+                                 "disabled line") from e
+        out["tensorboard"] = next(
+            ln for ln in train_log.splitlines()
+            if "TensorBoard logging disabled" in ln).split("] ", 1)[-1]
+    log(f"pascal: TensorBoard: {out['tensorboard']}")
+
+    # one MSC micro-step, kernel path against plain path
+    _, bindings = cli_common.load_config(os.path.join(run, "config.gin"))
+    batch = next(iter(cli_common.make_loaders(bindings, B, seed=5,
+                                              data_root=data)[0]))
+    step_cmp = pascal_step_check(bindings, os.path.join(
+        run, "checkpoints", "nopush_last"), batch, dev)
+    log("pascal: one MSC micro-step, kernel path vs plain path: "
+        + json.dumps(step_cmp) + f" on {smi}")
+    if not (step_cmp["loss_abs_err"] <= 1e-3
+            and step_cmp["aspp_grad_rel_l2"] <= 2e-2
+            and step_cmp["proto_grad_rel_l2"] <= 2e-2
+            and step_cmp["launches"] == dict.fromkeys(TRAINING_KERNELS, 3)
+            and step_cmp["packs"] == 1):
+        raise AssertionError(f"pascal kernel vs plain micro-step {step_cmp}")
+    out["step_cmp"] = step_cmp
+
+    # the group phase
+    argv = ["group_scaleproto_pascal", "pascal_group", "--gpu-recipe",
+            "--start-checkpoint", trained["final"], "--data-root", data,
+            "--results-root", tmp]
+    for line in (f"train.warmup_steps = {PASCAL_GROUP_STEPS[0]}",
+                 f"train.joint_steps = {PASCAL_GROUP_STEPS[1]}",
+                 f"Trainer.val_check_interval = {PASCAL_GROUP_STEPS[0]}"):
+        argv += ["--gin", line]
+    kernels.reset_launch_counts()
+    group = finetune_wandb_group.main(argv)
+    group_counts = kernels.launch_counts()
+    for phase, steps in enumerate(PASCAL_GROUP_STEPS):
+        res = group["phases"][phase]
+        want = 3 * (steps + res.validations * val_batches)
+        if res.steps_done != steps or \
+                not all(math.isfinite(v) for v in res.losses) or \
+                res.launches["aspp"] != want:
+            raise AssertionError(f"pascal group phase {phase}: "
+                                 f"{res.steps_done} steps, K2 "
+                                 f"{res.launches['aspp']} (want {want})")
+        p = res.perf
+        log(f"pascal group phase {phase}: {steps} micro-steps; launches "
+            f"{res.launches}; losses first {res.losses[0]:.4f} last "
+            f"{res.losses[-1]:.4f}, all finite; {p['img_per_s']} img/s, "
+            f"median step {p['step_ms_median']} ms, device idle share "
+            f"{p['device_idle_share']}; on {smi}")
+    grun = os.path.join(tmp, "pascal_group")
+
+    # evaluation with Pascal's protocol, kernel path against plain path
+    names = sorted(p[:-4] for p in os.listdir(
+        os.path.join(data, "annotations", "val")))
+    kup.plan.cache_clear()          # count the plans this evaluation builds
+    kernels.reset_launch_counts()
+    evm.SegEvaluator = RecordingEvaluator
+    t0 = time.perf_counter()
+    try:
+        res = evm.run_evaluation("pascal_group", "final-group",
+                                 batch_size=B, data_type="pascal",
+                                 data_root=data, results_root=tmp)
+    finally:
+        evm.SegEvaluator = SegEvaluator
+    secs = time.perf_counter() - t0
+    eval_counts = kernels.launch_counts()
+    plans = kup.plan.cache_info().misses
+    ev = RecordingEvaluator.last
+    model, _ = load_model(grun, os.path.join(grun, "checkpoints",
+                                             "final-group.pth"),
+                          dtype=torch.bfloat16, fast=False, device=dev)
+    plain = plain_labels(model)
+
+    @torch.inference_mode()
+    def plain_eval(xn, h, w):
+        """The evaluation's own forward (the model's head, not K1) with K2
+        and K3 replaced by their plain versions."""
+        logits = model(xn).logits
+        return upsample_argmax_plain(logits.float().contiguous(), h, w)
+
+    agree = total = 0
+    cm = np.zeros((21, 21), np.int64)
+    sizes = set()
+    for name, pred in zip(names, (p_ for batch_ in ev.preds
+                                  for p_ in batch_)):
+        img = np.load(os.path.join(data, "img_with_margin_0", "val",
+                                   name + ".npy"))
+        ann = eval_targets(np.load(os.path.join(
+            data, "annotations", "val", name + ".npy")), "pascal")
+        sizes.add(ann.shape)
+        x = torch.from_numpy(evm.prepare_image(img, "pascal"))[None].to(dev)
+        want = plain_eval(x, *ann.shape)[0].cpu().numpy()
+        agree += int((pred == want).sum())
+        total += pred.size
+        t = ann.astype(np.int64) - 1
+        valid = t >= 0
+        cm += np.bincount(t[valid] * 21 + pred[valid],
+                          minlength=21 * 21).reshape(21, 21)
+    if not np.array_equal(ev.cm, cm):
+        raise AssertionError("pascal eval: confusion matrix differs from "
+                             "the host bincount")
+    agreement = agree / total
+    batches = len(ev.preds)
+    want = {"upsample": batches, "aspp": 3 * (batches + N_SAMPLES)}
+    if eval_counts != {**eval_counts, **want}:
+        raise AssertionError(f"pascal eval: launches {eval_counts}, want "
+                             f"{want}")
+    log(f"pascal eval: mIoU {res['mean_iou']:.6f}, pixel acc "
+        f"{res['pixel_accuracy']:.6f}, {len(names) / secs:.3f} img/s "
+        f"({len(names)} images in {batches} batches at {PASCAL_EVAL} x "
+        f"{PASCAL_EVAL}, the load and sample renders included); confusion "
+        f"matrix equal to the host bincount; labels agree with the plain "
+        f"path on {100 * agreement:.4f}% of {total} pixels; K3 plans built "
+        f"{plans} for {len(sizes)} annotation sizes; launches {eval_counts} "
+        f"on {smi}")
+    if agreement < 0.99:
+        raise AssertionError(f"pascal eval agreement {agreement} < 0.99")
+    out["eval"] = dict(miou=res["mean_iou"], img_per_s=len(names) / secs,
+                       agreement=agreement, plans=plans,
+                       counts=eval_counts)
+
+    # eval_test --pascal against the plain path
+    test_dir = os.path.join(data, "img_with_margin_0", "test")
+    tnames = sorted(p[:-4] for p in os.listdir(test_dir))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    png_dir = eval_test.main(["pascal_group", "final-group", str(B),
+                              "--pascal", "--data-root", data,
+                              "--results-root", tmp])
+    secs = time.perf_counter() - t0
+    test_counts = kernels.launch_counts()
+    lut = eval_test.train_id_to_source_lut(True)
+    agree = total = 0
+    for name in tnames:
+        img = np.load(os.path.join(test_dir, name + ".npy"))
+        x = torch.from_numpy(evm.prepare_image(img, "pascal"))[None].to(dev)
+        want = lut[plain(x, *img.shape[:2])[0].cpu().numpy()
+                   .astype(np.int64) + 1]
+        png = read_png(os.path.join(png_dir, name + ".png"))
+        if png.shape != img.shape[:2] or png.max() > 20:
+            raise AssertionError(f"pascal eval_test: {name}.png "
+                                 f"{png.shape}, max {png.max()}")
+        agree += int((png == want).sum())
+        total += png.size
+    if test_counts["proto"] < 1 or test_counts["upsample"] < 1 or \
+            test_counts["aspp"] != 3 * test_counts["proto"]:
+        raise AssertionError(f"pascal eval_test launches {test_counts}")
+    agreement = agree / total
+    log(f"pascal eval_test --pascal: {len(tnames)} PNGs in {secs:.2f} s; "
+        f"launches {test_counts}; Pascal label ids agree with the plain "
+        f"path on {100 * agreement:.4f}% of {total} pixels; on {smi}")
+    if agreement < 0.99:
+        raise AssertionError(f"pascal eval_test agreement {agreement} < 0.99")
+    out["eval_test"] = dict(agreement=agreement, counts=test_counts)
+    del model, plain
+    torch.cuda.empty_cache()
+
+    # the served final-group (K1 at its pushed bank inside)
+    out["serve"] = serve_checkpoint(tmp, "pascal_group", "final-group", dev,
+                                    smi, "pascal_serving",
+                                    size=(PASCAL_EVAL, PASCAL_EVAL))
+    out.update(counts=counts, group_counts=group_counts, perf=perf)
+    return out
+
+
 def main() -> None:
     smi = device_phase()
     log(smi)
@@ -3288,6 +3869,10 @@ def main() -> None:
     served = serving_phase(dev, smi)
     torch.cuda.empty_cache()
     trained = training_phase(dev, smi)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        pascal = pascal_phase(tmp, dev, smi)
+    torch.cuda.empty_cache()
     quant, evals = served["quant"], served["evals"]
     group, pruning = trained["group"], trained["pruning"]
     single, resume = trained["single"], trained["resume"]
@@ -3315,8 +3900,22 @@ def main() -> None:
                       "resumed_training": resume["launches"][name],
                       "data_training": data_run["launches"][name],
                       **{f"knob_{k}": r["launches"][name]
-                         for k, r in trained["knobs"]["runs"].items()}}
+                         for k, r in trained["knobs"]["runs"].items()},
+                      "pascal_training": pascal["counts"][name],
+                      "pascal_group_training": pascal["group_counts"][name],
+                      "pascal_eval": pascal["eval"]["counts"][name],
+                      "pascal_eval_test": pascal["eval_test"]["counts"][name],
+                      "pascal_serving": pascal["serve"]["counts"][name]}
                for name in results}
+    # the Pascal slice's own paths: K2's forward and backward in its
+    # training, K1 and K3 in its test export and serving
+    for name, where in (*((k, "pascal_training") for k in TRAINING_KERNELS),
+                        ("proto", "pascal_eval_test"),
+                        ("upsample", "pascal_eval_test"),
+                        ("proto", "pascal_serving"),
+                        ("upsample", "pascal_serving")):
+        if by_path[name][where] < 1:
+            raise AssertionError(f"{name} never launched on {where}")
     # each kernel's launches in the main path of its slice: the training
     # run for K2's forward and backward, the bf16 serving run for K1 and
     # K3, the static quant8 serving run for the int8 kernels and the

@@ -81,3 +81,11 @@ def parse_config_file(path: str) -> Bindings:
 def query(bindings: Bindings, name: str, param: str,
           default: Any = None) -> Any:
     return bindings.get(name, {}).get(param, default)
+
+
+def flat_bindings(bindings: Bindings) -> Dict[str, Any]:
+    """``{"Name.param": value}`` of every binding: the hyperparameters a
+    metrics sink records (the JAX package records the bindings its calls
+    read)."""
+    return {f"{name}.{param}": value for name, params in bindings.items()
+            for param, value in params.items()}

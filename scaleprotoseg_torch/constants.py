@@ -4,11 +4,12 @@ Labels follow the whole package's convention: **0 = void**, class ``c``
 is stored as ``c + 1``; losses and evaluation subtract 1.  The
 preprocessed Cityscapes ``.npy`` annotations hold category indices (the
 official label ids 0-33 with the void ids merged, then license plate);
-``convert_targets`` maps them to 1 + the 19-class train id.  Only
-Cityscapes converts here: the other datasets are not part of the port's
-training yet and are refused by name.  The evaluation reads COCO-Stuff
-and EM labels as they are stored (their ids are final after offline
-preprocessing) and names their classes with the tables below.
+``convert_targets`` maps them to 1 + the 19-class train id.  Pascal
+VOC-2012 stores its raw ids (0-20, 255 void) and converts online too
+(``PASCAL_ID_MAPPING``: k -> k + 1, 255 -> 0).  ADE and EM training are
+not part of the port yet and are refused by name.  The evaluation reads
+COCO-Stuff and EM labels as they are stored (their ids are final after
+offline preprocessing) and names their classes with the tables below.
 """
 
 from __future__ import annotations
@@ -45,6 +46,15 @@ CITYSCAPES_19_EVAL_CATEGORIES = {
           if name in CITYSCAPES_19_NAMES else 0)
     for idx, name in enumerate(CITYSCAPES_CATEGORIES)
 }
+
+# Pascal VOC-2012: raw id k -> k + 1, 255 -> 0 void.
+PASCAL_ID_MAPPING = {255: 0, **{k: k + 1 for k in range(21)}}
+
+PASCAL_CATEGORIES = ["void", "__background__"] + [
+    "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
+    "chair", "cow", "diningtable", "dog", "horse", "motorbike", "person",
+    "pottedplant", "sheep", "sofa", "train", "tvmonitor",
+]
 
 
 # COCO-Stuff: raw id k is class k (stored as k + 1, 255 -> 0 void)
@@ -97,15 +107,17 @@ def mapping_to_lut(mapping: dict, size: int = 256,
 
 
 CITYSCAPES_19_LUT = mapping_to_lut(CITYSCAPES_19_EVAL_CATEGORIES, size=256)
+PASCAL_LUT = mapping_to_lut(PASCAL_ID_MAPPING, size=256)
+_LUTS = {"cityscapes": CITYSCAPES_19_LUT, "pascal": PASCAL_LUT}
 
 
 def conversion_lut(data_type: str) -> np.ndarray:
     """The 256-entry online label conversion of a dataset."""
-    if data_type == "cityscapes":
-        return CITYSCAPES_19_LUT
+    if data_type in _LUTS:
+        return _LUTS[data_type]
     raise NotImplementedError(
         f"data type {data_type!r} is not ported yet; the port reads "
-        "'cityscapes'")
+        f"{sorted(_LUTS)}")
 
 
 def convert_targets(targets: np.ndarray, data_type: str) -> np.ndarray:

@@ -1,13 +1,14 @@
 """Test-split inference and the benchmark server's PNG export.
 
     python -m scaleprotoseg_torch.eval_test MODEL_NAME PHASE [batch_size] \\
-        [--margin M] [--limit N] [--data-root DIR] [--results-root DIR] \\
-        [--fp32] [--device cuda|cpu]
+        [--pascal] [--margin M] [--limit N] [--data-root DIR] \\
+        [--results-root DIR] [--fp32] [--device cuda|cpu]
 
 The port of the JAX package's ``eval_test.py``: the run's checkpoint of
 PHASE over ``img_with_margin_{M}/test/*.npy``, each image's train ids
-mapped back to the Cityscapes label ids (train id -> category name ->
-official id, ``train_id_to_source_lut``) and saved as an 8-bit gray PNG,
+mapped back to the source dataset's label ids (``train_id_to_source_lut``:
+Cityscapes train id -> category name -> official id; Pascal the inverse of
+its +1 shift) and saved as an 8-bit gray PNG,
 ``<run>/evaluation/test/<PHASE>/<name>.png``, without PIL
 (``scaleprotoseg_torch.imageio``).  Images of one shape are batched,
 ``batch_size`` at a time; a chunk of mixed shapes runs one image at a time.
@@ -17,8 +18,10 @@ labels come from K3, the fused upsample + argmax; ``--fp32`` runs the
 float32 forward (TF32 off, no K2 or K1), still through K3.  ``--device
 cpu`` runs the float32 plain path with the JAX package's bilinear upsample
 (``ops.resize.resize_bilinear``) and a first-maximum argmax.  Pascal
-(``--pascal``) resizes each image with cv2 and maps labels with its own
-tables, which the port does not have yet: it is refused.
+(``--pascal``, its data root ``DATA_PATH_PASCAL``) resizes each normalized
+image to 513 x 513 as cv2's ``INTER_LINEAR`` does
+(``eval_valid_multiscale.resize_pascal``) and upsamples the labels to the
+image's own size.
 """
 
 from __future__ import annotations
@@ -34,31 +37,29 @@ from scaleprotoseg_torch import settings
 from scaleprotoseg_torch.constants import (CITYSCAPES_19_EVAL_CATEGORIES,
                                            CITYSCAPES_CATEGORIES,
                                            CITYSCAPES_ID_2_LABEL,
-                                           IMAGENET_MEAN, IMAGENET_STD)
+                                           IMAGENET_MEAN, IMAGENET_STD,
+                                           PASCAL_ID_MAPPING)
 from scaleprotoseg_torch.imageio import save_gray
 from scaleprotoseg_torch.kernels.upsample import fused_upsample_argmax
 from scaleprotoseg_torch.model_loading import (load_model, resolve_checkpoint,
                                                resolve_device)
+from scaleprotoseg_torch.eval_valid_multiscale import resize_pascal
 from scaleprotoseg_torch.ops.resize import resize_bilinear
 from scaleprotoseg_torch.train.metrics import create_logger
 
 
-def _refuse_pascal() -> None:
-    raise NotImplementedError(
-        "eval_test --pascal resizes each image with cv2 to 513 x 513 and "
-        "maps labels with the Pascal tables, which the port does not have "
-        "yet; the port exports Cityscapes")
-
-
 def train_id_to_source_lut(pascal: bool = False) -> np.ndarray:
-    """(256,) int64 LUT over (1 + train id) -> Cityscapes label id; index
-    0 (void) maps to the last void id."""
+    """(256,) int64 LUT over (1 + train id) -> source label id: the
+    Cityscapes label id (index 0, void, maps to the last void id) or the
+    Pascal id (index 0 to 255, void)."""
+    lut = np.zeros(256, np.int64)
     if pascal:
-        _refuse_pascal()
+        for k, v in PASCAL_ID_MAPPING.items():
+            lut[v] = k
+        return lut
     ours2source = {v: k for k, v in CITYSCAPES_19_EVAL_CATEGORIES.items()}
     ours2source[0] = 0
     rev = {v: k for k, v in CITYSCAPES_ID_2_LABEL.items()}
-    lut = np.zeros(256, np.int64)
     for k, v in ours2source.items():
         lut[k] = rev[CITYSCAPES_CATEGORIES[v]]
     return lut
@@ -73,7 +74,9 @@ def make_predict(model, fast: bool, exact_output: bool):
     def predict(x: np.ndarray, h: int, w: int) -> np.ndarray:
         xt = torch.from_numpy(x).to(dev)
         if fast:
-            logits = model.fast_logits(xt.to(torch.bfloat16))
+            # float32 in, as the JAX package feeds its bf16 model: the
+            # first conv rounds it, and the MSC pyramid resizes it first
+            logits = model.fast_logits(xt)
         else:
             logits = model(xt).logits
         if exact_output:
@@ -92,8 +95,6 @@ def run_evaluation(model_name: str, training_phase: str,
                    results_root: Optional[str] = None, fp32: bool = False,
                    device=None) -> str:
     """Export the test split's predictions; returns the output directory."""
-    if pascal:
-        _refuse_pascal()
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -111,12 +112,13 @@ def run_evaluation(model_name: str, training_phase: str,
         device=dev)
     predict = make_predict(model, fast, exact_output=dev.type != "cuda")
 
-    img_dir = os.path.join(data_root or settings.data_path("cityscapes"),
+    data_type = "pascal" if pascal else "cityscapes"
+    img_dir = os.path.join(data_root or settings.data_path(data_type),
                            f"img_with_margin_{margin}", "test")
     files = sorted(p[:-4] for p in os.listdir(img_dir) if p.endswith(".npy"))
     if limit:
         files = files[:limit]
-    lut = train_id_to_source_lut()
+    lut = train_id_to_source_lut(pascal)
     mean = np.asarray(IMAGENET_MEAN, np.float32)
     std = np.asarray(IMAGENET_STD, np.float32)
     for start in range(0, len(files), batch_size):
@@ -128,7 +130,8 @@ def run_evaluation(model_name: str, training_phase: str,
             if margin:
                 img = img[margin:-margin, margin:-margin]
             shapes.append(img.shape[:2])
-            imgs.append((img.astype(np.float32) / 255.0 - mean) / std)
+            x = (img.astype(np.float32) / 255.0 - mean) / std
+            imgs.append(resize_pascal(x) if pascal else x)
         if len(set(shapes)) > 1:
             batches = [([im], [sh], [nm]) for im, sh, nm in
                        zip(imgs, shapes, chunk)]
@@ -150,7 +153,8 @@ def main(argv: Optional[List[str]] = None) -> str:
     p.add_argument("training_phase")
     p.add_argument("batch_size", nargs="?", type=int, default=2)
     p.add_argument("--pascal", action="store_true",
-                   help="Pascal's export (not ported; refused)")
+                   help="Pascal VOC-2012's export: 513 x 513 input, Pascal "
+                   "label ids")
     p.add_argument("--margin", type=int, default=0)
     p.add_argument("--limit", type=int, default=None)
     p.add_argument("--data-root", default=None)

@@ -7,8 +7,10 @@
 
 The port's counterpart of ``scaleprotoseg_tpu/eval_valid_multiscale.py``:
 loads the run's checkpoint, runs full-image inference over the raw val
-``.npy`` files (Cityscapes, COCO-Stuff, EM), upsamples the logits to
-label resolution, and accumulates mIoU and pixel accuracy ignoring void,
+``.npy`` files (Cityscapes, COCO-Stuff, EM; Pascal VOC-2012 resized to
+513 x 513 after normalization, as cv2's ``INTER_LINEAR`` resizes it:
+``ops.resize.resize_linear_cv2``), upsamples the logits to label
+resolution, and accumulates mIoU and pixel accuracy ignoring void,
 with the top-K prototype purity curve over the whole split.  Writes
 ``evaluation/<phase>[-quant8static|-quant8]/{iou_scores.json,
 mean_iou.txt, eval.log, proto_purity.json}``; the sample renders
@@ -27,8 +29,9 @@ float32 plain path.  Quantized evaluations get their own directory, so
 the mIoU difference to the unquantized one is the accuracy cost of int8:
 ``--quant8-static`` calibrates on the first ``--calib-images`` val images
 (float32, one per batch); ``--quant8`` (dynamic) forces the non-K3
-output path.  Pascal and ADE are refused until the other datasets are
-ported (ROADMAP.md Queue 1 item 5).
+output path.  Images are batched only while both the image's and the
+annotation's shapes repeat, so a Pascal split runs mostly at batch 1.
+ADE is refused until its protocol is ported (ROADMAP.md Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -48,16 +51,21 @@ from scaleprotoseg_torch.constants import (CITYSCAPES_19_EVAL_CATEGORIES,
                                            CITYSCAPES_19_LUT,
                                            CITYSCAPES_CATEGORIES,
                                            COCO_ID_2_LABEL, EM_ID_2_LABEL,
-                                           IMAGENET_MEAN, IMAGENET_STD)
+                                           IMAGENET_MEAN, IMAGENET_STD,
+                                           PASCAL_CATEGORIES,
+                                           PASCAL_ID_MAPPING, PASCAL_LUT)
 from scaleprotoseg_torch.eval.miou import SegEvaluator
 from scaleprotoseg_torch.imageio import tab20_bytes, write_png
 from scaleprotoseg_torch.model_loading import (calibrate_quant_scales,
                                                load_model, resolve_checkpoint,
                                                resolve_device)
-from scaleprotoseg_torch.ops.resize import resize_label_nearest_np
+from scaleprotoseg_torch.ops.resize import (resize_label_nearest_np,
+                                            resize_linear_cv2)
 from scaleprotoseg_torch.train.metrics import create_logger
 
 FULL_IMAGE = ("cityscapes", "coco", "em")
+PROTOCOLS = FULL_IMAGE + ("pascal",)
+PASCAL_SIZE = 513      # Pascal's eval input, both sides
 
 
 def class_names(data_type: str, num_classes: int) -> List[str]:
@@ -65,6 +73,11 @@ def class_names(data_type: str, num_classes: int) -> List[str]:
         inv = {v - 1: k for k, v in CITYSCAPES_19_EVAL_CATEGORIES.items()
                if v > 0}
         return [CITYSCAPES_CATEGORIES[inv[i]] for i in range(num_classes)]
+    if data_type == "pascal":
+        inv = {v - 1: k for k, v in PASCAL_ID_MAPPING.items() if v > 0}
+        return [PASCAL_CATEGORIES[inv[i] + 1] if inv[i] + 1 <
+                len(PASCAL_CATEGORIES) else str(i)
+                for i in range(num_classes)]
     if data_type == "em":
         return [EM_ID_2_LABEL[i] for i in range(num_classes)]
     if data_type == "coco":
@@ -73,23 +86,26 @@ def class_names(data_type: str, num_classes: int) -> List[str]:
 
 
 def _check_protocol(data_type: str) -> None:
-    if data_type in ("pascal", "ade"):
+    if data_type == "ade":
         raise NotImplementedError(
-            f"{data_type} evaluation (its cv2 INTER_LINEAR resize is "
-            "ops/resize.resize_linear_cv2) waits for the port of the other "
-            "datasets: their labels, data paths and configs (ROADMAP.md "
-            f"Queue 1 item 5); the port evaluates {FULL_IMAGE}")
-    if data_type not in FULL_IMAGE:
+            "ade evaluation (its short-side-512 cv2 INTER_LINEAR resize "
+            "and --shape-multiple) waits for the port of ADE: its labels, "
+            "data path and configs (ROADMAP.md Queue 1 item 5); the port "
+            f"evaluates {PROTOCOLS}")
+    if data_type not in PROTOCOLS:
         raise ValueError(f"unknown data type {data_type!r}")
 
 
 def eval_targets(ann: np.ndarray, data_type: str) -> np.ndarray:
-    """Stored annotation -> labels (0 = void): Cityscapes converts its
-    category indices online, COCO-Stuff and EM ids are already final."""
+    """Stored annotation -> labels (0 = void): Cityscapes and Pascal
+    convert their stored ids online, COCO-Stuff and EM ids are already
+    final."""
     if ann.ndim == 3:
         ann = ann[..., 0]
     if data_type == "cityscapes":
         ann = CITYSCAPES_19_LUT[ann]
+    elif data_type == "pascal":
+        ann = PASCAL_LUT[ann]
     return ann.astype(np.int32)
 
 
@@ -99,6 +115,24 @@ def normalize(img: np.ndarray) -> np.ndarray:
     x = img.astype(np.float32) / 255.0
     x = (x - np.asarray(IMAGENET_MEAN)) / np.asarray(IMAGENET_STD)
     return x.astype(np.float32)
+
+
+def resize_pascal(x: np.ndarray) -> np.ndarray:
+    """A normalized (H, W, 3) float32 image -> (513, 513, 3), as
+    ``cv2.resize(..., INTER_LINEAR)`` resizes float32: Pascal's eval and
+    test input."""
+    chw = torch.from_numpy(x).permute(2, 0, 1)
+    return resize_linear_cv2(chw, PASCAL_SIZE, PASCAL_SIZE).permute(
+        1, 2, 0).contiguous().numpy()
+
+
+def prepare_image(img: np.ndarray, data_type: str) -> np.ndarray:
+    """The model's input of a uint8 RGB val image: ``normalize``d, and for
+    Pascal ``resize_pascal``d (the JAX package resizes the normalized
+    image in float64 and casts the result: the two differ by float32
+    rounding)."""
+    x = normalize(img)
+    return resize_pascal(x) if data_type == "pascal" else x
 
 
 def run_evaluation(model_name: str, training_phase: str,
@@ -149,7 +183,7 @@ def run_evaluation(model_name: str, training_phase: str,
         if margin:
             img = img[margin:-margin, margin:-margin]
         ann = np.load(os.path.join(ann_dir, name + ".npy"))
-        return normalize(img), eval_targets(ann, data_type)
+        return prepare_image(img, data_type), eval_targets(ann, data_type)
 
     if quant8 == "static":
         calib = (torch.from_numpy(load_one(n)[0][None]).to(dev)
@@ -270,7 +304,8 @@ def _save_sample_artifacts(model, files, img_dir: str, ann_dir: str,
             img = img[margin:-margin, margin:-margin]
         ann = eval_targets(np.load(os.path.join(ann_dir, name + ".npy")),
                            data_type).astype(np.int64)
-        x = torch.from_numpy(normalize(img))[None].to(dev, dtype)
+        x = torch.from_numpy(prepare_image(img, data_type))[None].to(
+            dev, dtype)
         with torch.inference_mode():
             pred = model(x).logits[0].argmax(-1).cpu().numpy()
         target = resize_label_nearest_np(ann, (pred.shape[1], pred.shape[0]))

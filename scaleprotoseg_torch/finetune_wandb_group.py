@@ -21,7 +21,8 @@ layer) -> phase 2 (the group last layer, when ``train.finetune_steps >
 Stages are ``{warmup,nopush,push}-group_{last,best}``.
 
 The device is ``cuda`` unless ``--device`` names another; without a card
-that is an error.
+that is an error.  The metrics also go to TensorBoard (``<run>/logs/tb``)
+where ``torch.utils.tensorboard`` imports.
 """
 
 from __future__ import annotations
@@ -37,11 +38,12 @@ from scaleprotoseg_torch.checkpoints.convert import (bootstrap_group_state,
                                                      load_checkpoint,
                                                      save_checkpoint,
                                                      spec_from_meta)
-from scaleprotoseg_torch.configlib import query
+from scaleprotoseg_torch.configlib import flat_bindings, query
 from scaleprotoseg_torch.model_loading import resolve_device
 from scaleprotoseg_torch.models.factory import construct_ppnet
 from scaleprotoseg_torch.models.group_init import apply_equivariance_init
-from scaleprotoseg_torch.train.metrics import MetricsLogger, create_logger
+from scaleprotoseg_torch.train.metrics import (MetricsLogger, create_logger,
+                                               make_external_sinks)
 from scaleprotoseg_torch.train.runner import (PhaseResult, PhaseTrainer,
                                               module_hparams)
 
@@ -97,9 +99,11 @@ def train(config: str, experiment_name: str,
         apply_equivariance_init(model, spec, equiv_path,
                                 weight=q("equiv_scale_weight", 0.25), log=log)
 
+    logger = MetricsLogger(run, sinks=make_external_sinks(run, log=log))
+    logger.log_hyperparams(flat_bindings(bindings))
     trainer = PhaseTrainer(model, spec, VARIANT, run,
                            module_hparams(bindings, VARIANT), bindings, dev,
-                           logger=MetricsLogger(run), log=log)
+                           logger=logger, log=log)
     phases: Dict[int, PhaseResult] = {}
     cli_common.run_phases(trainer, bindings, hp, (0, 1, 2), phases,
                           num_workers=num_workers, data_root=data_root)
@@ -107,6 +111,7 @@ def train(config: str, experiment_name: str,
     save_checkpoint(final, {k: v.detach().cpu().numpy()
                             for k, v in model.state_dict().items()}, spec,
                     extra={"variant": VARIANT})
+    logger.finish()
     log(f"Group training complete; final checkpoint: {final}.pth")
     return {"final": final, "phases": phases}
 

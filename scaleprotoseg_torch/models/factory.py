@@ -1,9 +1,11 @@
 """Model construction from a run's config bindings.
 
-Covers the DeepLabV2 ResNet backbones of the Cityscapes configs
+Covers the DeepLabV2 ResNet backbones of the Cityscapes and Pascal configs
 (``deeplabv2_resnet{101,50}`` with a summed ASPP and their ``_multiscale``
-concat-ASPP twins); the other backbones, the MSC input pyramid and the
-scale head are not part of the port yet and are refused by name.
+concat-ASPP twins), with the MSC input pyramid of their ``scales``
+binding (1.0 entries dropped, as the JAX package does); the other
+backbones and the scale head are not part of the port yet and are refused
+by name, as is int8 serving (``quant8``) of a model with a pyramid.
 """
 
 from __future__ import annotations
@@ -32,9 +34,9 @@ _BACKBONES = {
 
 
 def build_backbone(base_architecture: str, bindings: Bindings,
-                   quant8=False) -> Tuple[DeepLabV2, int]:
-    """(backbone, output channels) for a named architecture; ``quant8``
-    as ``DeepLabV2``'s."""
+                   quant8=False) -> Tuple[DeepLabV2, int, Tuple[float, ...]]:
+    """(backbone, output channels, MSC pyramid scales) for a named
+    architecture; ``quant8`` as ``DeepLabV2``'s."""
     if base_architecture not in _BACKBONES:
         raise NotImplementedError(
             f"backbone {base_architecture!r} is not ported yet; the port "
@@ -43,15 +45,16 @@ def build_backbone(base_architecture: str, bindings: Bindings,
     n_features = query(bindings, name, "deeplab_n_features")
     if n_features is None:
         raise ValueError(f"{name}.deeplab_n_features is REQUIRED")
-    scales = [s for s in (query(bindings, name, "scales", ()) or ())
-              if s != 1.0]
-    if scales:
-        raise NotImplementedError(f"the MSC input pyramid {scales} is not "
-                                  "ported yet")
+    scales = tuple(float(s) for s in
+                   (query(bindings, name, "scales", ()) or ()) if s != 1.0)
+    if scales and quant8:
+        raise NotImplementedError(
+            f"quant8 serving of a model with the MSC input pyramid {scales} "
+            "is not ported yet")
     backbone = DeepLabV2(n_out=int(n_features), n_blocks=n_blocks,
                          atrous_rates=RATES, aspp_mode=mode, quant8=quant8)
     out_ch = int(n_features) * (len(RATES) if mode == "concat" else 1)
-    return backbone, out_ch
+    return backbone, out_ch, scales
 
 
 def construct_ppnet(variant: str, base_architecture: str,
@@ -82,7 +85,8 @@ def construct_ppnet(variant: str, base_architecture: str,
         if variant == "group" else 0
     if not query(bindings, cls_name, "patch_classification", True):
         raise NotImplementedError("only per-pixel classification exists")
-    backbone, out_ch = build_backbone(base_architecture, bindings, quant8)
+    backbone, out_ch, msc_scales = build_backbone(base_architecture,
+                                                  bindings, quant8)
     if spec is None:
         spec = ProtoSpec.equal_allocation(
             prototype_shape[0], prototype_shape[1], num_classes,
@@ -95,5 +99,5 @@ def construct_ppnet(variant: str, base_architecture: str,
                   activation_fn=prototype_activation_function,
                   grouped=(variant == "group"),
                   incorrect_strength=incorrect_strength,
-                  dtype=dtype, generator=generator)
+                  msc_scales=msc_scales, dtype=dtype, generator=generator)
     return model, spec

@@ -1,9 +1,16 @@
 """PPNet: the prototype segmentation head over a feature backbone.
 
 Pipeline (the public tensors are NHWC, as in the JAX package):
-  backbone -> add-on (sigmoid) -> per-scale L2 prototype distances ->
-  log activation -> last linear layer, or per-class group projection +
-  exp + group last layer.
+  backbone (+ the optional MSC input pyramid) -> add-on (sigmoid) ->
+  per-scale L2 prototype distances -> log activation -> last linear
+  layer, or per-class group projection + exp + group last layer.
+
+The MSC input pyramid (``msc_scales``, Pascal's ``(0.5, 0.75)``) runs the
+backbone on the image and on each ``resize_bilinear_factor(x, p)``, and
+fuses the maps by an elementwise max after resizing each pyramid map to
+the base grid.  In training the model returns one output per map,
+``[base, *pyramid, fused]``, and the losses average over them; otherwise
+it returns the fused map's output alone.
 
 Parameters carry the reference's names and layouts, so a state dict from
 ``checkpoints.convert.ppnet_params_to_statedict`` or the JAX package's
@@ -18,7 +25,7 @@ into the dense (C, G, Pc_max) / (C*G, C) layouts the head computes with.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,6 +37,8 @@ from scaleprotoseg_torch.kernels.proto import (KERNEL_TABLES, ProtoHead,
 from scaleprotoseg_torch.models.layers import WeightCache, set_compute_dtype
 from scaleprotoseg_torch.ops.prototype import (distance_to_similarity,
                                                scale_l2_distances)
+from scaleprotoseg_torch.ops.resize import (resize_bilinear,
+                                            resize_bilinear_factor)
 from scaleprotoseg_torch.ops.simplex import projection_simplex_sort
 from scaleprotoseg_torch.spec import ProtoSpec
 
@@ -80,17 +89,19 @@ class AddOnLayers(nn.Module):
 
 class PPNet(nn.Module):
     """Prototype segmentation model (single-scale, multi-scale and grouped
-    variants of the reference in one module).  The MSC input pyramid and
-    the scale head are not part of this port yet."""
+    variants of the reference in one module, with the optional MSC input
+    pyramid).  The scale head is not part of this port yet."""
 
     def __init__(self, backbone: nn.Module, spec: ProtoSpec,
                  add_on_type: str = "deeplab_simple",
                  activation_fn: str = "log", grouped: bool = False,
                  incorrect_strength: float = -0.5,
+                 msc_scales: Sequence[float] = (),
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.spec = spec
+        self.msc_scales = tuple(msc_scales)
         self.activation_fn = activation_fn
         self.grouped = grouped
         self.incorrect_strength = incorrect_strength
@@ -186,10 +197,34 @@ class PPNet(nn.Module):
     # ------------------------------------------------------------------
     # Forward
     # ------------------------------------------------------------------
-    def conv_features(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) -> post-add-on features (B, Hp, Wp, S*D)."""
-        f = self.features(x.permute(0, 3, 1, 2))
-        return self.add_on_layers(f).permute(0, 2, 3, 1)
+    def backbone_features(self, x: torch.Tensor, train: bool = False
+                          ) -> Union[torch.Tensor, List[torch.Tensor]]:
+        """(B, H, W, 3) -> backbone features (B, S*D, Hp, Wp); with the
+        MSC pyramid the fused map, or in training ``[base, *pyramid,
+        fused]`` (the pyramid in ``msc_scales`` order, the max taken in
+        that order, as the JAX package does)."""
+        base = self.features(x.permute(0, 3, 1, 2))
+        if not self.msc_scales:
+            return base
+        pyramid = [self.features(
+            resize_bilinear_factor(x, p).permute(0, 3, 1, 2))
+            for p in self.msc_scales]
+        hb, wb = base.shape[2], base.shape[3]
+        fused = base
+        for f in pyramid:
+            up = resize_bilinear(f.permute(0, 2, 3, 1), hb, wb)
+            fused = torch.maximum(fused, up.permute(0, 3, 1, 2)
+                                  .to(fused.dtype))
+        return [base, *pyramid, fused] if train else fused
+
+    def conv_features(self, x: torch.Tensor, train: bool = False
+                      ) -> Union[torch.Tensor, List[torch.Tensor]]:
+        """(B, H, W, 3) -> post-add-on features (B, Hp, Wp, S*D); a list
+        of them in training with the MSC pyramid."""
+        feats = self.backbone_features(x, train)
+        if isinstance(feats, list):
+            return [self.add_on_layers(f).permute(0, 2, 3, 1) for f in feats]
+        return self.add_on_layers(feats).permute(0, 2, 3, 1)
 
     def compute_group(self, activations: torch.Tensor) -> torch.Tensor:
         """(..., Pa) -> (..., C, G) group activations."""
@@ -211,13 +246,21 @@ class PPNet(nn.Module):
                            activations=activations,
                            group_activations=group_act)
 
-    def forward(self, x: torch.Tensor) -> PPNetOutput:
-        return self.forward_from_conv_features(self.conv_features(x))
+    def forward(self, x: torch.Tensor, train: Optional[bool] = None
+                ) -> Union[PPNetOutput, List[PPNetOutput]]:
+        """The model's output; ``train`` (default: the module's training
+        mode) returns one output per pyramid map, as ``backbone_features``
+        lists them, when the model has the MSC pyramid."""
+        feats = self.conv_features(
+            x, self.training if train is None else train)
+        if isinstance(feats, list):
+            return [self.forward_from_conv_features(f) for f in feats]
+        return self.forward_from_conv_features(feats)
 
     def push_forward(self, x: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(conv features (B, Hp, Wp, S*D), distances (B, Hp, Wp, Pa)):
-        what prototype push scans."""
+        """(conv features (B, Hp, Wp, S*D), distances (B, Hp, Wp, Pa)) of
+        the fused map: what prototype push scans."""
         f = self.conv_features(x)
         return f, scale_l2_distances(f, self.prototypes(),
                                      self.spec.scale_bounds)

@@ -4,6 +4,9 @@
   grid, in the separable dense-matrix form: ``_bilinear_matrix`` builds
   each (out, in) matrix on a float64 grid and casts it to float32, as the
   JAX package does, so both interpolate with bit-equal weights.
+- Bilinear by a scale factor (``resize_bilinear_factor``), the MSC input
+  pyramid's resize: ``F.interpolate(scale_factor=p)``'s grid, which
+  differs from a size-based resize at odd sizes.
 - Bilinear as the JAX package's ``resize_bilinear`` computes it
   (``jax.image.resize``, linear, no antialias: the eval upsample behind
   ``--exact-output``): ``_linear_weights`` builds each axis's weights in
@@ -98,6 +101,38 @@ def resize_bilinear_matrix(x: torch.Tensor, height: int,
     mx = torch.as_tensor(_bilinear_matrix(width, x.shape[-2]), **kw)
     y = torch.einsum("oh,...hwc->...owc", my, x.float())
     return torch.einsum("pw,...owc->...opc", mx, y)
+
+
+@lru_cache(maxsize=64)
+def _factor_matrix(out_size: int, in_size: int, factor: float) -> np.ndarray:
+    """Dense (out, in) float32 matrix of a resize by ``factor``: output
+    pixel o reads ``(o + 0.5) / factor - 0.5`` (exactly ``1/factor``, not
+    ``in/out``), clipped to the input.  Callers must not write to the
+    cached array."""
+    dst = np.arange(out_size, dtype=np.float64)
+    src = np.clip((dst + 0.5) / factor - 0.5, 0, in_size - 1)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, in_size - 1)
+    t = src - lo
+    m = np.zeros((out_size, in_size), np.float32)
+    m[np.arange(out_size), lo] += (1 - t)
+    m[np.arange(out_size), hi] += t
+    return m
+
+
+def resize_bilinear_factor(x: torch.Tensor, factor: float) -> torch.Tensor:
+    """(..., H, W, C) -> (..., int(H * factor), int(W * factor), C) in
+    ``x``'s dtype: ``F.interpolate(x, scale_factor=factor,
+    align_corners=False, recompute_scale_factor=False)``'s sampling (321
+    -> 160 and 240, 513 -> 256 and 384), as the JAX package's
+    ``resize_bilinear_factor``: the two separable matrices applied in
+    float32."""
+    h, w = x.shape[-3], x.shape[-2]
+    kw = dict(dtype=torch.float32, device=x.device)
+    my = torch.as_tensor(_factor_matrix(int(h * factor), h, factor), **kw)
+    mx = torch.as_tensor(_factor_matrix(int(w * factor), w, factor), **kw)
+    y = torch.einsum("oh,...hwc->...owc", my, x.float())
+    return torch.einsum("pw,...owc->...opc", mx, y).to(x.dtype)
 
 
 @lru_cache(maxsize=512)

@@ -2,10 +2,14 @@
 
 Metric names match the JAX package and the reference
 (``train_/val_{loss,cross_entropy,kld_loss,...}``, ``val_accuracy``,
-``avg_dist_proto``, ``training_stage``).  The external sinks of the JAX
-package (TensorBoard, W&B) are not ported: ``MetricsLogger`` writes
-``<run>/metrics.jsonl`` and ``<run>/metrics.csv`` only, and asking for
-W&B (``USE_WANDB=1``) is refused.
+``avg_dist_proto``, ``training_stage``).  ``MetricsLogger`` writes
+``<run>/metrics.jsonl`` and ``<run>/metrics.csv`` and hands each row to
+its sinks: ``make_external_sinks`` gives the TensorBoard sink
+(``<run>/logs/tb``, one scalar per key, the hyperparameters as the text
+``hparams``) wherever ``torch.utils.tensorboard`` imports, and logs one
+line that it is disabled otherwise; a relaunched run appends to the same
+event directory.  The W&B sink is not ported: asking for it
+(``USE_WANDB=1``) is refused.
 """
 
 from __future__ import annotations
@@ -160,11 +164,43 @@ class StepTimer:
                 if self.cuda and self.window_s else None}
 
 
+class TensorBoardSink:
+    """Scalars to ``<model_dir>/logs/tb`` through
+    ``torch.utils.tensorboard``; raises where it does not import."""
+
+    def __init__(self, model_dir: str):
+        from torch.utils.tensorboard import SummaryWriter
+        self.writer = SummaryWriter(os.path.join(model_dir, "logs", "tb"))
+
+    def log(self, record: Dict[str, float], step: int):
+        for k, v in record.items():
+            self.writer.add_scalar(k, v, global_step=step)
+        self.writer.flush()
+
+    def log_hyperparams(self, params: Dict):
+        self.writer.add_text("hparams", json.dumps(params, default=str))
+
+    def finish(self):
+        self.writer.close()
+
+
+def make_external_sinks(model_dir: str, log=print) -> List:
+    """The TensorBoard sink where it can be made; otherwise one log line
+    that says it is disabled (``MetricsLogger`` refuses W&B)."""
+    try:
+        return [TensorBoardSink(model_dir)]
+    except Exception as e:   # an optional sink: the run goes on without it
+        log(f"TensorBoard logging disabled ({e!r})")
+        return []
+
+
 class MetricsLogger:
-    def __init__(self, model_dir: str, run_name: str = "metrics"):
+    def __init__(self, model_dir: str, run_name: str = "metrics",
+                 sinks: Optional[List] = None):
         if os.environ.get("USE_WANDB", "0") not in ("", "0"):
             raise NotImplementedError("the W&B sink is not ported yet; "
                                       "unset USE_WANDB")
+        self.sinks = list(sinks or [])
         os.makedirs(model_dir, exist_ok=True)
         self.jsonl_path = os.path.join(model_dir, f"{run_name}.jsonl")
         self.csv_path = os.path.join(model_dir, f"{run_name}.csv")
@@ -188,6 +224,18 @@ class MetricsLogger:
             if write_header:
                 w.writeheader()
             w.writerow(record)
+        for sink in self.sinks:
+            sink.log({k: v for k, v in record.items() if k != "time"},
+                     step=int(step))
+
+    def log_hyperparams(self, params: Dict):
+        """Hand the run's bindings to every sink."""
+        for sink in self.sinks:
+            sink.log_hyperparams(params)
+
+    def finish(self):
+        for sink in self.sinks:
+            sink.finish()
 
 
 def create_logger(log_file: str = None):

@@ -11,7 +11,7 @@ come back as device scalars, for the caller to fetch in bulk.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -42,11 +42,36 @@ class LossWeights:
     group_ent: float = 0.0
 
 
-def compute_losses(model: PPNet, out: PPNetOutput, target_full: torch.Tensor,
-                   weights: LossWeights, ignore_void: bool = True,
+def compute_losses(model: PPNet,
+                   outputs: Union[PPNetOutput, List[PPNetOutput]],
+                   target_full: torch.Tensor, weights: LossWeights,
+                   ignore_void: bool = True,
                    class_weights: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Metrics]:
-    """Total loss and metrics of one output against (B, H, W) labels."""
+    """Total loss and metrics against (B, H, W) labels, averaged over the
+    outputs of the MSC pyramid (a list, each against the labels resized
+    to its own grid) with ``n_correct`` and ``n_patches`` summed, as the
+    JAX package does."""
+    if not isinstance(outputs, list):
+        m = _losses_for_output(model, outputs, target_full, weights,
+                               ignore_void, class_weights)
+        return m["loss"], m
+    n = len(outputs)
+    metrics: Metrics = {}
+    for out in outputs:
+        m = _losses_for_output(model, out, target_full, weights, ignore_void,
+                               class_weights)
+        for k, v in m.items():
+            summed = k in ("n_correct", "n_patches")
+            metrics[k] = metrics.get(k, 0.0) + (v if summed else v / n)
+    return metrics["loss"], metrics
+
+
+def _losses_for_output(model: PPNet, out: PPNetOutput,
+                       target_full: torch.Tensor, weights: LossWeights,
+                       ignore_void: bool,
+                       class_weights: Optional[torch.Tensor]) -> Metrics:
+    """Total loss and metrics of one output."""
     spec = model.spec
     target = resize_label_nearest(target_full, out.logits.shape[1],
                                   out.logits.shape[2])
@@ -86,10 +111,9 @@ def compute_losses(model: PPNet, out: PPNetOutput, target_full: torch.Tensor,
     total = w.crs_ent * ce
     for f, v in zip(factors, terms.values()):
         total = total + f * v
-    return total, {"loss": total, "cross_entropy": ce,
-                   "n_correct": correct.sum(),
-                   "n_patches": torch.full((), float(correct.numel()),
-                                           device=ce.device), **terms}
+    return {"loss": total, "cross_entropy": ce, "n_correct": correct.sum(),
+            "n_patches": torch.full((), float(correct.numel()),
+                                    device=ce.device), **terms}
 
 
 def make_train_step(weights: LossWeights, ignore_void: bool = True,

@@ -22,6 +22,9 @@ and metrics there), then saves ``<run>/pruned/checkpoints/push_last``, the
 checkpoint of the ``pruned`` phase.  CONFIG gives the training bindings
 (batch size, steps, learning rate, the dataset).
 
+Both forms also log their metrics to TensorBoard (``<run>/logs/tb``;
+``<run>/pruned/logs/tb``) where ``torch.utils.tensorboard`` imports; the
+baseline reads a pretrained backbone as ``train_wandb_multiscale`` does.
 The device is ``cuda`` unless ``--device`` names another; without a card
 that is an error.
 """
@@ -37,8 +40,10 @@ import torch
 from scaleprotoseg_torch import cli_common, settings
 from scaleprotoseg_torch import train_wandb_multiscale
 from scaleprotoseg_torch.checkpoints.convert import save_checkpoint
+from scaleprotoseg_torch.configlib import flat_bindings
 from scaleprotoseg_torch.model_loading import load_model, resolve_device
-from scaleprotoseg_torch.train.metrics import MetricsLogger, create_logger
+from scaleprotoseg_torch.train.metrics import (MetricsLogger, create_logger,
+                                               make_external_sinks)
 from scaleprotoseg_torch.train.runner import PhaseTrainer, module_hparams
 
 
@@ -77,9 +82,12 @@ def train_pruned(config: str, experiment_name: str,
                              device=dev)
     variant = "group" if model.grouped else (
         "multiscale" if spec.num_scales > 1 else "single")
+    logger = MetricsLogger(pruned_dir,
+                           sinks=make_external_sinks(pruned_dir, log=log))
+    logger.log_hyperparams(flat_bindings(bindings))
     trainer = PhaseTrainer(model, spec, variant, pruned_dir,
                            module_hparams(bindings, variant), bindings, dev,
-                           logger=MetricsLogger(pruned_dir), log=log)
+                           logger=logger, log=log)
     tl, vl = cli_common.make_loaders(bindings, hp["joint_batch_size"],
                                      num_workers=num_workers,
                                      seed=hp["random_seed"],
@@ -90,6 +98,7 @@ def train_pruned(config: str, experiment_name: str,
     final = os.path.join(pruned_dir, "checkpoints", "push_last")
     save_checkpoint(final, {k: v.detach().cpu().numpy()
                             for k, v in model.state_dict().items()}, spec)
+    logger.finish()
     log(f"Pruned finetune complete: {final}.pth")
     return {"final": final, "phases": {2: res}}
 

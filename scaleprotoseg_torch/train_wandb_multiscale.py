@@ -34,9 +34,16 @@ uninterrupted one bit for bit.
 The device is ``cuda`` unless ``--device`` names another; without a card
 that is an error.  ``--gin 'train.profile_steps = N'`` writes one profiler
 trace of N micro-steps to ``<run>/profile`` (``train/runner.py``; read it
-with ``python -m scaleprotoseg_torch.profiling <run>/profile``).  Not
-ported yet, and refused: a pretrained backbone from the environment, W&B
-and TensorBoard sinks, and more than one device.
+with ``python -m scaleprotoseg_torch.profiling <run>/profile``).
+
+A pretrained backbone is read from a file on disk after the model is
+built and before ``train.start_checkpoint``: ``PRETRAINED_BACKBONE``, a
+torchvision-layout ResNet ``.pth``, or ``PRETRAINED_BACKBONE_CKPT``, the
+port's own checkpoint stem (``checkpoints/pretrained.py``).
+``construct_PPNet.pretrained`` loads nothing, as in the JAX package.
+The metrics also go to TensorBoard (``<run>/logs/tb``) where
+``torch.utils.tensorboard`` imports (``train/metrics.py``).  Not ported
+yet, and refused: W&B and more than one device.
 """
 
 from __future__ import annotations
@@ -50,12 +57,15 @@ import torch
 from scaleprotoseg_torch import cli_common, settings
 from scaleprotoseg_torch.checkpoints.convert import (load_checkpoint,
                                                      save_checkpoint)
-from scaleprotoseg_torch.configlib import Bindings, query
+from scaleprotoseg_torch.checkpoints.pretrained import \
+    maybe_load_pretrained_backbone
+from scaleprotoseg_torch.configlib import Bindings, flat_bindings, query
 from scaleprotoseg_torch.model_loading import resolve_device
 from scaleprotoseg_torch.models.factory import construct_ppnet
 from scaleprotoseg_torch.push.push import push_prototypes
 from scaleprotoseg_torch.spec import ProtoSpec
-from scaleprotoseg_torch.train.metrics import MetricsLogger, create_logger
+from scaleprotoseg_torch.train.metrics import (MetricsLogger, create_logger,
+                                               make_external_sinks)
 from scaleprotoseg_torch.train.runner import (PhaseResult, PhaseTrainer,
                                               module_hparams)
 
@@ -70,8 +80,6 @@ def build_model(bindings: Bindings, seed: int,
     prototypes come from a generator seeded with ``seed``, the convs from
     torch's seeded global stream."""
     q = lambda p, d=None: query(bindings, "construct_PPNet", p, d)  # noqa
-    if q("pretrained", False):
-        raise NotImplementedError("construct_PPNet.pretrained is not ported")
     return construct_ppnet(
         variant=variant, base_architecture=q("base_architecture"),
         prototype_shape=tuple(q("prototype_shape", (2000, 512, 1, 1))),
@@ -99,10 +107,6 @@ def train(config: str, experiment_name: str, data_root: Optional[str] = None,
     config_file, bindings = cli_common.load_config(config)
     lines = cli_common.apply_overrides(bindings, gin_overrides, gpu_recipe)
     hp = cli_common.train_hparams(bindings)
-    for env in ("PRETRAINED_BACKBONE", "PRETRAINED_BACKBONE_CKPT"):
-        if os.environ.get(env):
-            raise NotImplementedError(f"{env}: loading a pretrained backbone "
-                                      "is not ported yet")
     run = cli_common.setup_run_dir(results_root or settings.results_dir(),
                                    experiment_name, config_file, lines)
     log = log or create_logger(os.path.join(run, "train.log"))
@@ -115,14 +119,21 @@ def train(config: str, experiment_name: str, data_root: Optional[str] = None,
     cli_common.seed_everything(seed)
 
     model, spec = build_model(bindings, seed, variant=variant)
+    if query(bindings, "construct_PPNet", "pretrained", False):
+        log("construct_PPNet.pretrained = True loads nothing (as in the JAX "
+            "package): backbone weights come only from PRETRAINED_BACKBONE "
+            "or PRETRAINED_BACKBONE_CKPT")
+    maybe_load_pretrained_backbone(model, log)
     start = str(hp["start_checkpoint"] or "")
     if start not in ("", "TBD"):
         sd, _ = load_checkpoint(os.path.splitext(start)[0])
         model.load_state_dict(sd, strict=True)
         log(f"Resumed from {start}")
     mhp = module_hparams(bindings, variant)
+    logger = MetricsLogger(run, sinks=make_external_sinks(run, log=log))
+    logger.log_hyperparams(flat_bindings(bindings))
     trainer = PhaseTrainer(model, spec, variant, run, mhp, bindings, dev,
-                           logger=MetricsLogger(run), log=log)
+                           logger=logger, log=log)
     phases: Dict[int, PhaseResult] = {}
     cli_common.run_phases(trainer, bindings, hp, (0, 1), phases,
                           num_workers=num_workers, data_root=data_root)
@@ -154,6 +165,7 @@ def train(config: str, experiment_name: str, data_root: Optional[str] = None,
     final = os.path.join(run, "checkpoints", "push_final")
     save_checkpoint(final, _numpy_state(model), spec,
                     extra={"variant": variant})
+    logger.finish()
     log(f"Training complete; final checkpoint: {final}.pth")
     return {"final": final, "phases": phases, "push": push}
 

@@ -107,13 +107,16 @@ def test_seg_evaluator_matches_jax(rng, fast):
 def test_class_names_match_jax():
     from scaleprotoseg_tpu.eval_valid_multiscale import class_names as jnames
     from scaleprotoseg_torch.eval_valid_multiscale import class_names
-    for data_type, n in (("cityscapes", 19), ("em", 2), ("coco", 182)):
+    for data_type, n in (("cityscapes", 19), ("em", 2), ("coco", 182),
+                         ("pascal", 21)):
         assert class_names(data_type, n) == jnames(data_type, n)
 
 
 def test_eval_refuses_cv2_protocols(tmp_path):
+    """ADE's short-side-512 protocol is refused by name (Pascal's 513 x 513
+    one is ported: tests/test_torch_pascal.py)."""
     from scaleprotoseg_torch.eval_valid_multiscale import run_evaluation
-    for data_type in ("pascal", "ade"):
+    for data_type in ("ade",):
         with pytest.raises(NotImplementedError, match="cv2"):
             run_evaluation("run", "push_final", data_type=data_type,
                            results_root=str(tmp_path), device="cpu")

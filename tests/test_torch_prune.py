@@ -427,8 +427,9 @@ def test_eval_test_matches_jax_fp32_export(tmp_path, monkeypatch):
         up = np.asarray(jresize(logits, h, w))[0]
         to_id = np.vectorize(inv.get)
         labels_equal_outside_ties(to_id(got), to_id(want), up)
-    with pytest.raises(NotImplementedError, match="Pascal"):
-        teval_test.main(["run", "pruned", "--pascal", "--device", "cpu"])
+    # --pascal's label map (its export: tests/test_torch_pascal.py)
+    np.testing.assert_array_equal(teval_test.train_id_to_source_lut(True),
+                                  jeval_test.train_id_to_source_lut(True))
 
 
 TINY = ["train.warmup_steps = 2", "train.joint_steps = 2",
