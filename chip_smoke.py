@@ -2,8 +2,11 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py coco-push-artifacts   # the push artifact pass at
+                                                # COCO's 2184 prototypes, timed
 
-Phases; any failure exits non-zero and prints no result:
+Phases; any failure exits non-zero and prints no result (the total
+seconds are printed before the kernels line):
 
 1. device: torch / CUDA versions and the card's name and power limit;
 2. build: every kernel from ``scaleprotoseg_torch/csrc``, one ``nvcc``
@@ -45,7 +48,7 @@ Phases; any failure exits non-zero and prints no result:
    least time the card could take;
 4. serving slice: a temporary run directory (the Cityscapes group
    config, seeded synthetic weights for the full-depth ResNet-101
-   flagship, 256 seeded uint8 1024 x 2048 images) served three times
+   flagship, 160 seeded uint8 1024 x 2048 images) served three times
    through ``scaleprotoseg_torch.serving.serve.main`` at batch 2, a timed
    window of several seconds each.  Every serving kernel must launch at
    least once per batch of every run, and the labels must agree with the
@@ -70,7 +73,7 @@ Phases; any failure exits non-zero and prints no result:
    calibrated on the first 8 images with its scales shipped, and a
    ``--dynamic-batch`` float32 plain one); a fresh interpreter loads each
    (timed) and serves it through ``serve.main --artifact`` (bf16 and
-   quant8 over the 256 images, the plain one over the first 8), printing
+   quant8 over the 160 images, the plain one over the first 8), printing
    its launch counts and the modules it imported: K1, K2 and K3 once a
    batch (and the int8 kernels' 54 / 26 / 80 under quant8), no kernel in
    the plain one, no model, config or JAX module imported, labels equal
@@ -149,16 +152,17 @@ Phases; any failure exits non-zero and prints no result:
    ``run_evaluation`` of ``pruned`` over the 4 val images (a finite mIoU,
    K2 and K3 once a batch).  Then the ProtoSeg baseline
    (``baseline_cityscapes``: summed ASPP, 190 prototypes on one scale) at
-   full depth through ``train_wandb.main --gpu-recipe`` without
-   ``--pruned`` on the same data: 10 warm-up, 10 joint and 5 last-layer
-   micro-steps around push, K2's forward and backward launched exactly as
+   full depth through ``train_wandb.train`` with the GPU recipe, without
+   ``--pruned``, on the same data: 10 warm-up, 10 joint and 5 last-layer
+   micro-steps around push (without its artifact pass), K2's forward and backward launched exactly as
    the phases imply (the last layer: the forward alone), losses finite,
    img/s, step ms and idle share per phase; its ``push_final`` served as
    ``final-group`` is (K1, K2 and K3 on every batch, labels against the
    plain path, K1 at the pushed bank).  Then resume after SIGTERM: the
-   baseline's joint phase (20 micro-steps, ``iter_size`` 5, a validation
-   every 5, ``det_seed`` bound) through the trainer CLI in processes of
-   its own, twice straight (the two must agree bit for bit), once stopped
+   baseline's joint phase at ResNet-50 depth, as every trainer process
+   of this and the data phase runs it (20 micro-steps, ``iter_size`` 5, a
+   validation every 5, ``det_seed`` bound) through the trainer CLI in
+   processes of its own, twice straight (the two must agree bit for bit), once stopped
    by SIGTERM to its process group once the first validation's state has
    committed (exit 143, the state committed at the step it stopped) and
    once relaunched (exit 0, the state restored at that step): every
@@ -170,11 +174,11 @@ Phases; any failure exits non-zero and prints no result:
    built with g++ (a failed build fails the script) and held bit for bit
    against the numpy pipeline on 32 training items (the 513 x 513 window,
    scales 0.5-1.5, ``det_seed`` draws), the median ms an item of each; the
-   train loader alone (8 workers, batch 2, one untimed epoch and three
+   train loader alone (8 workers, batch 2, one untimed epoch and two
    timed) as threads + numpy, threads + native, processes + native,
    processes + jitter and threads + jitter: img/s and the first batch's
    seconds, every pair of streams with the same items bit-equal over the
-   four epochs and after a ``fast_forward``. Then, after the resume phase,
+   three epochs and after a ``fast_forward``. Then, after the resume phase,
    the baseline's joint phase (20 micro-steps, a validation every 10,
    ``det_seed``) through the trainer CLI: jittered on worker processes
    (``loader_backend = 'grain_processes'``) straight; the same SIGTERM'd
@@ -229,7 +233,40 @@ Phases; any failure exits non-zero and prints no result:
    --pascal`` over the 4 test images (label ids >= 99% equal to the plain
    path) and ``final-group`` served in bf16 on 8 images of 513 x 513 as
    the other checkpoints are;
-7. one line per kernel with its times, bound and launches, for the six
+7. the MSC model in int8 and as an artifact (Pascal's ``final-group`` of
+   phase 6, full depth): ``int8_mm`` and ``int8_conv3x3`` at layer4/5's
+   shapes on the pyramid's smallest map (1 x 33 x 33) against their plain
+   versions (int32 bit for bit, dequantized bf16 within 1 ulp); 16 images
+   of 513 x 513 served through ``serve.main`` in bf16, with
+   ``--quant8-static --calib-images 8`` and with ``--quant8`` (launches a
+   batch exact: each of the three maps runs layer4/5's 54 / 26 / 80 int8
+   launches, static K2 once a map and K1 and K3 once, dynamic none of
+   K1-K3), the static labels >= 99% equal to the plain quant8 path, their
+   agreement with bf16 reported; ``run_evaluation`` with Pascal's protocol
+   in static quant8; then the bf16 fast, static quant8 fast and
+   ``--dynamic-batch`` plain artifacts written by ``serve.main --export``
+   (export, save seconds, MB, the program's nodes and frame) and served by
+   ``serve.main --artifact`` in a fresh interpreter (load seconds, img/s
+   beside the run dir's, launches, labels >= 99.99% equal to the run-dir
+   serve's, no model module imported), and the host ms to enqueue a batch
+   at five call depths through ``predict`` and through the module alone;
+8. COCO-Stuff at full width (182 classes, ResNet-101): K1 at its banks
+   (2184 over 4 scales and over 1, 2054 with 2052 active grouped and
+   plain; its packed chunks, steps and passes) against the plain head
+   and the float64 one at pushed prototypes, K3 at 182 classes from
+   COCO's grids to its sizes and to 321 and 513; a synthetic COCO-Stuff
+   root (20 train, 8 val images of 480 x 640 and the like, final labels
+   0-182 in class blocks); ``baseline_coco`` (the multiscale model)
+   through ``train_wandb_multiscale.train --gpu-recipe`` at batch 10 on
+   321 crops, without the push artifacts (6 warm-up, 8 joint, push, 5
+   last-layer micro-steps; K2's forward, pack and weight gradient 3 times
+   a micro-step); a micro-step of the kernel path against the plain path;
+   ``group_scaleproto_coco`` from its ``push_final`` (5 + 5); 6 joint
+   micro-steps of ``scaleproto_coco`` (the single-scale model) through
+   ``train_wandb.main``; ``run_evaluation`` of ``final-group`` at batch 1
+   over the 8 val images and ``final-group`` served on 8 images of 480 x
+   640, each >= 99.9% equal to the plain path;
+9. one line per kernel with its times, bound and launches, for the six
    kernels since redesigned the earlier design's recorded times beside
    the new ones, the card's name and power limit, the kernels
    line (every kernel with its status),
@@ -271,8 +308,9 @@ from scaleprotoseg_torch.kernels.int8 import (absmax_plain,
                                               int8_conv3x3_plain,
                                               int8_mm_plain,
                                               quantize_int8_plain)
-from scaleprotoseg_torch.kernels.proto import (distance_error, pack_head,
-                                               proto_float64, proto_plain)
+from scaleprotoseg_torch.kernels.proto import (OPEN, distance_error,
+                                               pack_head, proto_float64,
+                                               proto_plain)
 from scaleprotoseg_torch.kernels.upsample import (fused_upsample_argmax,
                                                   upsample_argmax_plain)
 from scaleprotoseg_torch.model_loading import (calibrate_quant_scales,
@@ -298,7 +336,7 @@ B, HEIGHT, WIDTH = 2, 1024, 2048
 FH, FW = 129, 257             # output-stride-8 grid of 1024 x 2048
 TH = TW = 65                  # output-stride-8 grid of a 513 x 513 crop
 RATES = (6, 12, 18, 24)
-N_IMAGES = 256                # ~5 s of serving per run at ~50 img/s
+N_IMAGES = 160                # ~3 s of serving per run at ~50 img/s
 SERVE_RUNS = 3
 N_TRAIN, N_VAL = 24, 4
 WARMUP_STEPS, JOINT_STEPS, VAL_EVERY = 20, 40, 20
@@ -309,6 +347,11 @@ N_TEST = 4                    # test-split images exported by eval_test
 SINGLE_STEPS = (10, 10, 5)    # the baseline's warm-up, joint, last layer
 SINGLE_VAL_EVERY = 10
 RESUME_STEPS, RESUME_VAL_EVERY = 20, 5   # the resumed joint phase
+# the resume and data phases' trainer processes run the baseline at
+# ResNet-50 depth (the widths kept): nine processes, each paying its
+# start-up, the model's build and its states' writes
+TRAINER_DEPTH = ("construct_PPNet.base_architecture = 'deeplabv2_resnet50'",
+                 "deeplabv2_resnet50_features.deeplab_n_features = 64")
 RESUME_TIMEOUT_S = 300
 DATA_STEPS, DATA_VAL_EVERY = 20, 10      # the data phase's joint runs
 KNOB_STEPS, KNOB_PROFILE_STEPS = 10, 5   # the knobs phase's joint runs
@@ -318,7 +361,7 @@ KNOB_RUNS = {"recipe": [], "fast_gradconv": ["train.fast_gradconv = True"],
              "recipe_again": []}   # the spread of the runs, in turns
 GRADCONV_SHAPES = {"layer4": (256, 2), "layer5": (512, 4)}  # channels, d
 N_FASTAUG = 32                # native vs numpy items at the training crop
-LOADER_EPOCHS = 3             # timed epochs of each loader configuration
+LOADER_EPOCHS = 2             # timed epochs of each loader configuration
 LOADER_WORKERS = 8
 SERVING_KERNELS = ("aspp", "proto", "upsample")
 TRAINING_KERNELS = ("aspp", "aspp_grad_pack", "aspp_grad_weight")
@@ -658,7 +701,8 @@ def check_proto_rounding(gen, dev, feats, spec, kw, last=None) -> None:
     last layer ``last``), and the distance error on the sparse probe under
     an identity plain head (the logits are the activations)."""
     n = feats.shape[0] * feats.shape[1] * feats.shape[2]
-    pushed = torch.empty((spec.num_prototypes, 64), device=dev)
+    # dangling rows (past the scales' bounds) stay zero
+    pushed = torch.zeros((spec.num_prototypes, 64), device=dev)
     at = torch.randint(0, n, (spec.num_prototypes,), generator=gen,
                        device=dev)
     flat = feats.reshape(n, -1)
@@ -1602,7 +1646,7 @@ def artifact_phase(tmp: str, img_dir: str, bf16_dir: str, q8_dir: str,
     batch 2 with the normalization inside, static quant8 fast with its
     scales, a ``--dynamic-batch`` plain one), served by ``serve.main
     --artifact`` in a fresh interpreter (the bf16 and quant8 ones over the
-    256 images, the plain one over the first 8), their labels against the
+    160 images, the plain one over the first 8), their labels against the
     run-dir serve's, their launches and the modules imported; then one
     ``--canvas`` run over a full-size and a smaller image."""
     names = sorted(os.listdir(img_dir))
@@ -1638,10 +1682,12 @@ def artifact_phase(tmp: str, img_dir: str, bf16_dir: str, q8_dir: str,
                           save_s=spans["save_artifact"][0], mb=mb,
                           files={f: os.path.getsize(os.path.join(path, f))
                                  for f in sorted(os.listdir(path))})
+        arts[name]["frame"] = program_frame(path)
         log(f"artifact {name}: serve --export {cli_s:.2f} s (export_serving "
             f"{arts[name]['export_s']:.2f} s, save_artifact "
             f"{arts[name]['save_s']:.2f} s), {mb:.1f} MB {arts[name]['files']}"
-            f"; input {meta['input']}; on {smi}")
+            f"; input {meta['input']}; program "
+            f"{json.dumps(arts[name]['frame'])}; on {smi}")
         torch.cuda.empty_cache()
 
     # the plain artifact's reference: the run-dir serve of the same images
@@ -2008,21 +2054,22 @@ def training_phase(dev, smi: str) -> dict:
 def single_phase(tmp: str, data: str, dev, smi: str) -> dict:
     """The ProtoSeg baseline (``baseline_cityscapes``: summed ASPP, 190
     prototypes on one scale) trained at full depth through
-    ``train_wandb.main`` without ``--pruned``: warm-up and joint with K2's
-    forward and backward, push, the last layer with K2's forward alone;
-    ``push_final`` served like ``final-group``."""
+    ``train_wandb.train`` without ``--pruned``: warm-up and joint with K2's
+    forward and backward, push (without its artifact pass), the last layer
+    with K2's forward alone; ``push_final`` served like ``final-group``."""
     from scaleprotoseg_torch import train_wandb
     gin = [f"train.warmup_steps = {SINGLE_STEPS[0]}",
            f"train.joint_steps = {SINGLE_STEPS[1]}",
            f"train.finetune_steps = {SINGLE_STEPS[2]}",
            f"Trainer.val_check_interval = {SINGLE_VAL_EVERY}"]
-    argv = ["baseline_cityscapes", "city_single", "--gpu-recipe",
-            "--data-root", data, "--results-root", tmp]
-    for line in gin:
-        argv += ["--gin", line]
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    out = train_wandb.main(argv)
+    # push without its artifact pass (~30 s; the flagship's run writes
+    # and checks the artifacts)
+    out = train_wandb.train("baseline_cityscapes", "city_single",
+                            data_root=data, gin_overrides=gin,
+                            gpu_recipe=True, results_root=tmp,
+                            push_artifacts=False)
     counts = kernels.launch_counts()
     log(f"single: main took {time.perf_counter() - t0:.1f} s; launches "
         f"{counts}")
@@ -2075,7 +2122,8 @@ def _trainer_cmd(data: str, results: str, name: str,
                  f"train.joint_steps = {steps}",
                  "train.finetune_steps = 0", "train.push_proto = False",
                  f"Trainer.val_check_interval = {val_every}",
-                 "PatchClassificationDataset.det_seed = 11", *gin):
+                 "PatchClassificationDataset.det_seed = 11", *TRAINER_DEPTH,
+                 *gin):
         cmd += ["--gin", line]
     return cmd
 
@@ -2187,7 +2235,7 @@ def _metric_rows(run: str) -> list:
 
 
 def resume_phase(tmp: str, data: str, smi: str) -> dict:
-    """The baseline's joint phase at full depth (``RESUME_STEPS``
+    """The baseline's joint phase at ResNet-50 depth (``RESUME_STEPS``
     micro-steps, ``iter_size`` 5, a validation every
     ``RESUME_VAL_EVERY``, ``det_seed`` bound) through the trainer CLI in
     processes of its own: twice straight, once stopped by SIGTERM past
@@ -2416,7 +2464,7 @@ def data_loader_phase(data: str, smi: str) -> dict:
 
 
 def data_trainer_phase(tmp: str, data: str, smi: str, resume: dict) -> dict:
-    """The baseline's joint phase at full depth (``DATA_STEPS``
+    """The baseline's joint phase at ResNet-50 depth (``DATA_STEPS``
     micro-steps, a validation every ``DATA_VAL_EVERY``, ``det_seed``)
     through the trainer CLI: jittered on worker processes straight, the
     same SIGTERM'd (to its process group) past its first validation and
@@ -3846,7 +3894,754 @@ def pascal_phase(tmp: str, dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# MSC models in int8 and as a deployable artifact (Pascal's final-group)
+# ---------------------------------------------------------------------------
+N_MSC = 16                            # 513 x 513 images served
+MSC_MAPS = 3              # backbone passes a batch: base, 0.5, 0.75
+# the 1x1 and dilated 3x3 convs of layer4/5 at the pyramid's smallest map
+# of a 513 input (the 0.5 copy: 33 x 33 at batch 1)
+MSC_SMALL = (1, 33, 33)
+
+
+def write_images(img_dir: str, n: int, size, seed: int) -> list:
+    """``n`` seeded uint8 RGB images of ``size`` as ``.npy`` files."""
+    os.makedirs(img_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    names = [f"frame_{i:03d}.npy" for i in range(n)]
+    for name in names:
+        np.save(os.path.join(img_dir, name),
+                rng.integers(0, 256, (*size, 3), dtype=np.uint8))
+    return names
+
+
+def check_int8_pyramid(gen, dev, smi: str) -> dict:
+    """``int8_mm`` at layer4/5's 1x1 shapes and ``int8_conv3x3`` at their
+    dilated 3x3 shapes on the pyramid's smallest map (33 x 33, 1089 rows):
+    int32 bit for bit against the plain versions, the dequantized bf16
+    within 1 bf16 ulp of the float32 dequantization; wrapper ms beside the
+    plain versions'."""
+    b, h, w = MSC_SMALL
+    px = b * h * w
+    out = {}
+    for kk, nn, _ in path_1x1_shapes():
+        xa, wt = _int8(gen, (px, kk), dev), _int8(gen, (nn, kk), dev)
+        sx, sw = _scales(gen, nn, dev)
+        want = int8_mm_plain(xa, wt)
+        if not torch.equal(kernels.int8_mm(xa, wt), want):
+            raise AssertionError(f"int8_mm int32 differs at {px}x{kk}x{nn}")
+        deq = kernels.int8_mm(xa, wt, sx, sw, torch.bfloat16)
+        if not _bf16_within_one_ulp(deq, want.float() * (sx * sw)):
+            raise AssertionError(f"int8_mm epilogue > 1 bf16 ulp at "
+                                 f"{px}x{kk}x{nn}")
+        out[f"int8_mm {px}x{kk}x{nn}"] = dict(
+            ms=round(time_ms(lambda: kernels.int8_mm(
+                xa, wt, sx, sw, torch.bfloat16)), 4),
+            plain_ms=round(time_ms(lambda: int8_mm_plain(
+                xa, wt, sx, sw, torch.bfloat16)), 4))
+    for layer in ("layer4", "layer5"):
+        _, _, c, _, dil = N_BLOCKS[layer]
+        x, wt = _int8(gen, (b, h, w, c), dev), _int8(gen, (9, c, c), dev)
+        sx, sw = _scales(gen, c, dev)
+        want = int8_conv3x3_plain(x, wt, dil)
+        got = kernels.int8_conv3x3(x, wt, dil)
+        if not (torch.equal(got, want) and
+                torch.equal(got, kernels.int8_conv3x3(x, wt, dil))):
+            raise AssertionError(f"int8_conv3x3 differs at {layer}'s "
+                                 f"{b}x{h}x{w}x{c}, d = {dil}")
+        deq = kernels.int8_conv3x3(x, wt, dil, sx, sw, torch.bfloat16)
+        if not _bf16_within_one_ulp(deq, want.float() * (sx * sw)):
+            raise AssertionError(f"int8_conv3x3 epilogue > 1 bf16 ulp at "
+                                 f"{layer}'s {b}x{h}x{w}x{c}")
+        out[f"int8_conv3x3 {layer} {b}x{h}x{w}x{c} d{dil}"] = dict(
+            ms=round(time_ms(lambda: kernels.int8_conv3x3(
+                x, wt, dil, sx, sw, torch.bfloat16)), 4),
+            plain_ms=round(time_ms(lambda: int8_conv3x3_plain(
+                x, wt, dil, sx, sw, torch.bfloat16)), 4))
+    log(f"msc int8: the pyramid's smallest map ({b} x {h} x {w}, {px} rows) "
+        f"at layer4/5's shapes, int32 bit for bit and dequantized bf16 "
+        f"within 1 ulp; wrapper ms (CUDA-event medians of 10): "
+        f"{json.dumps(out)} on {smi}")
+    return out
+
+
+def msc_serve(run_args: list, img_dir: str, out_dir: str, flags=()) -> dict:
+    """One run through ``serve.main`` of an MSC checkpoint, launch counts
+    from zero."""
+    kernels.reset_launch_counts()
+    record = serve.main([*run_args, "--input", img_dir, "--output", out_dir,
+                         "--raw-output", *flags])
+    return dict(record, counts=kernels.launch_counts())
+
+
+def msc_quant8_phase(tmp: str, dev, smi: str) -> dict:
+    """Pascal's full-depth ``final-group`` (the pyramid (0.5, 0.75))
+    served through ``serve.main`` on ``N_MSC`` images of 513 x 513 in
+    bf16, with ``--quant8-static --calib-images 8`` and with ``--quant8``:
+    the launches a batch (each map runs layer4/5's int8 convs; static runs
+    K2 once a map, K1 and K3 once; dynamic none of them), the static
+    labels against the plain quant8 path (the same calibration, every
+    kernel replaced by its plain version; >= 99%), beside the bf16 labels
+    (reported); the int8 kernels at the pyramid's smallest map; and
+    ``run_evaluation`` with Pascal's protocol and ``quant8='static'``."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    small = check_int8_pyramid(gen, dev, smi)
+    run = os.path.join(tmp, "pascal_group")
+    ckpt = os.path.join(run, "checkpoints", "final-group.ckpt")
+    img_dir = os.path.join(tmp, "msc_images")
+    names = write_images(img_dir, N_MSC, (PASCAL_EVAL, PASCAL_EVAL), seed=16)
+    run_args = ["pascal_group", "final-group", "--results-root", tmp,
+                "--batch", str(B), "--workers", "4"]
+    batches = 1 + math.ceil(N_MSC / B)      # the warm-up and the pass
+    dirs = {k: os.path.join(tmp, f"labels_msc_{k}")
+            for k in ("bf16", "static", "dynamic")}
+    runs = {"bf16": msc_serve(run_args, img_dir, dirs["bf16"]),
+            "static": msc_serve(run_args, img_dir, dirs["static"],
+                                ["--quant8-static", "--calib-images",
+                                 str(N_CALIB)]),
+            "dynamic": msc_serve(run_args, img_dir, dirs["dynamic"],
+                                 ["--quant8"])}
+    int8 = {k: MSC_MAPS * v * batches for k, v in PER_BATCH.items()}
+    want = {
+        "bf16": dict(aspp=MSC_MAPS * batches, proto=batches,
+                     upsample=batches),
+        # calibration runs the float forward: K2 on each map of each
+        # calibration image too
+        "static": dict(int8, int8_absmax=0, proto=batches, upsample=batches,
+                       aspp=MSC_MAPS * (batches + N_CALIB)),
+        "dynamic": dict(int8, int8_absmax=int8["quantize_int8"], aspp=0,
+                        proto=0, upsample=0)}
+    for kind, r in runs.items():
+        if r["counts"] != {**r["counts"], **want[kind]} or \
+                r["images"] != N_MSC or \
+                r["quant8"] != {"bf16": False, "static": "static",
+                                "dynamic": True}[kind]:
+            raise AssertionError(f"msc {kind}: launches {r['counts']}, want "
+                                 f"{want[kind]}; record {r}")
+        log(f"msc serve {kind}: {r['img_per_s']} img/s ({N_MSC} images of "
+            f"{PASCAL_EVAL} x {PASCAL_EVAL}, batch {B}, {batches} batches "
+            f"with the warm-up, full depth, pyramid (0.5, 0.75)); device "
+            f"idle share {r['device_idle_share']}; launches {r['counts']} "
+            f"(a batch: K2 {r['counts']['aspp'] / batches:g}, int8_mm "
+            f"{r['counts']['int8_mm'] / batches:g}, int8_conv3x3 "
+            f"{r['counts']['int8_conv3x3'] / batches:g}, quantize_int8 "
+            f"{r['counts']['quantize_int8'] / batches:g}); on {smi}")
+
+    # the plain quant8 path: the same calibration, every kernel replaced
+    pre = serve._make_preprocess(img_dir, normalize=True)
+    model, _ = load_model(run, ckpt, dtype=torch.bfloat16, fast=False,
+                          device=dev, quant8="static")
+    calibrate_quant_scales(model, (
+        torch.from_numpy(pre(n))[None].to(dev, torch.bfloat16)
+        for n in names[:N_CALIB]))
+    plain = plain_path(model)
+    kernels.reset_launch_counts()
+    agree = total = 0
+    for i in range(0, N_MSC, B):
+        x = np.stack([np.load(os.path.join(img_dir, n))
+                      for n in names[i:i + B]])
+        want_l = plain(torch.from_numpy(x).to(dev)).cpu().numpy()
+        got = _labels(dirs["static"], names[i:i + B])
+        agree += int((got == want_l).sum())
+        total += got.size
+    if any(kernels.launch_counts().values()):
+        raise AssertionError(f"the plain quant8 path launched kernels: "
+                             f"{kernels.launch_counts()}")
+    agreement = agree / total
+    vs_bf16, _ = _agreement(dirs["static"], dirs["bf16"], names)
+    dyn_vs_bf16, _ = _agreement(dirs["dynamic"], dirs["bf16"], names)
+    classes = len(np.unique(_labels(dirs["static"], names)))
+    log(f"msc quant8: static labels agree with the plain quant8 path on "
+        f"{100 * agreement:.4f}% of {total} pixels ({classes} distinct "
+        f"labels); with the bf16 labels on {100 * vs_bf16:.4f}% (static) "
+        f"and {100 * dyn_vs_bf16:.4f}% (dynamic), reported, not gated; on "
+        f"{smi}")
+    if agreement < 0.99:
+        raise AssertionError(f"msc quant8 agreement {agreement} < 0.99")
+    del model, plain
+    torch.cuda.empty_cache()
+
+    # Pascal's evaluation protocol in static quant8
+    data = os.path.join(tmp, "pascal")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = evm.run_evaluation("pascal_group", "final-group", batch_size=B,
+                             data_type="pascal", data_root=data,
+                             results_root=tmp, quant8="static")
+    secs = time.perf_counter() - t0
+    eval_counts = kernels.launch_counts()
+    out_dir = os.path.join(run, "evaluation", "final-group-quant8static")
+    if not os.path.exists(os.path.join(out_dir, "iou_scores.json")) or \
+            not math.isfinite(res["mean_iou"]) or \
+            min(eval_counts[k] for k in ("int8_mm", "int8_conv3x3",
+                                         "upsample", "aspp")) < 1:
+        raise AssertionError(f"msc eval quant8: {res} launches "
+                             f"{eval_counts}")
+    log(f"msc eval --quant8-static (Pascal protocol, {N_EVAL} val images at "
+        f"{PASCAL_EVAL} x {PASCAL_EVAL}): mIoU {res['mean_iou']:.6f}, pixel "
+        f"acc {res['pixel_accuracy']:.6f}, {N_EVAL / secs:.3f} img/s; "
+        f"launches {eval_counts}; written to {os.path.basename(out_dir)}; "
+        f"on {smi}")
+    return dict(small=small, runs=runs, dirs=dirs, names=names,
+                img_dir=img_dir, agreement=agreement, vs_bf16=vs_bf16,
+                counts={k: r["counts"] for k, r in runs.items()},
+                eval_counts=eval_counts)
+
+
+def program_frame(path: str) -> dict:
+    """The size of a saved program's forward frame: its op nodes, and the
+    locals and stack slots of the Python function ``torch.export`` made
+    of it (what ``serving.export._roomy_call`` makes room for)."""
+    exported = torch.export.load(os.path.join(path, "module.pt2"))
+    code = type(exported.module()).forward.__code__
+    return dict(nodes=sum(n.op == "call_function"
+                          for n in exported.graph.nodes),
+                locals=code.co_nlocals, stack=code.co_stacksize)
+
+
+def msc_artifact_phase(tmp: str, msc: dict, dev, smi: str) -> dict:
+    """The artifacts of Pascal's MSC ``final-group`` written through
+    ``serve.main --export`` (bf16 fast at batch 2 with the normalization
+    inside, static quant8 fast with its scales, ``--dynamic-batch``
+    plain), served by ``serve.main --artifact`` in a fresh interpreter (the
+    fast ones over the ``N_MSC`` images, the plain one over the first 8):
+    launches (K2 once a map, K1 and K3 once a batch), labels against the
+    run-dir serve's (>= 99.99%), export, save and load seconds, MB, img/s
+    beside the run dir's; the program's frame against the roomy frame
+    (``serving.export._roomy_call``): the enqueue ms through ``predict``
+    and through the module alone at five call depths."""
+    img_dir, names = msc["img_dir"], msc["names"]
+    few = os.path.join(tmp, "msc_images_8")
+    os.makedirs(few)
+    for n in names[:N_CALIB]:
+        os.symlink(os.path.join(img_dir, n), os.path.join(few, n))
+    run_args = ["pascal_group", "final-group", "--results-root", tmp,
+                "--batch", str(B), "--workers", "4"]
+    arts = {}
+    for name, flags in ARTIFACTS.items():
+        path = os.path.join(tmp, f"msc_artifact_{name}")
+        spans = {}
+        restore = time_exports(spans)
+        t0 = time.perf_counter()
+        try:
+            rec = serve.main([*run_args, "--input", few, "--export", path,
+                              *flags])
+        finally:
+            restore()
+        cli_s = time.perf_counter() - t0
+        want = [None if name == "dynamic_batch" else B, PASCAL_EVAL,
+                PASCAL_EVAL, 3]
+        if rec["input"] != want:
+            raise AssertionError(f"msc artifact {name}: {rec}")
+        mb = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path)) / 2 ** 20
+        arts[name] = dict(path=path, cli_s=cli_s,
+                          export_s=spans["export_serving"][0],
+                          save_s=spans["save_artifact"][0], mb=mb,
+                          frame=program_frame(path))
+        log(f"msc artifact {name}: serve --export {cli_s:.2f} s "
+            f"(export_serving {arts[name]['export_s']:.2f} s, save_artifact "
+            f"{arts[name]['save_s']:.2f} s), {mb:.1f} MB; program "
+            f"{json.dumps(arts[name]['frame'])}; on {smi}")
+        torch.cuda.empty_cache()
+
+    plain_dir = os.path.join(tmp, "labels_msc_f32")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        serve.main([*run_args, "--input", few, "--output", plain_dir,
+                    "--raw-output", "--no-fast"])
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+
+    out_dirs = {n: os.path.join(tmp, f"labels_msc_art_{n}") for n in arts}
+    jobs = [(n, arts[n]["path"], few if n == "dynamic_batch" else img_dir,
+             out_dirs[n]) for n in arts]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", ARTIFACT_SERVE, json.dumps(jobs)], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+        text=True, timeout=900)
+    if proc.returncode:
+        raise AssertionError(f"msc artifact serving failed (exit "
+                             f"{proc.returncode}):\n{proc.stderr[-6000:]}")
+    served = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"msc artifact: the fresh interpreter took "
+        f"{time.perf_counter() - t0:.1f} s; model, config or JAX modules "
+        f"imported: {served['modules']}")
+    if served["modules"]:
+        raise AssertionError(f"serving an artifact imported "
+                             f"{served['modules']}")
+    batches = 1 + math.ceil(N_MSC / B)
+    refs = {"bf16": (msc["dirs"]["bf16"], names),
+            "quant8": (msc["dirs"]["static"], names),
+            "dynamic_batch": (plain_dir, names[:N_CALIB])}
+    rates = {"bf16": msc["runs"]["bf16"]["img_per_s"],
+             "quant8": msc["runs"]["static"]["img_per_s"]}
+    for name, (want_dir, want_names) in refs.items():
+        r = served[name]
+        want = dict.fromkeys(kernels.WRAPPERS, 0)
+        if name != "dynamic_batch":
+            want.update(aspp=MSC_MAPS * batches, proto=batches,
+                        upsample=batches)
+        if name == "quant8":
+            want.update({k: MSC_MAPS * v * batches
+                         for k, v in PER_BATCH.items()})
+        if r["counts"] != want or r["images"] != len(want_names):
+            raise AssertionError(f"msc artifact {name}: launches "
+                                 f"{r['counts']}, want {want}; record {r}")
+        agreement, total = _agreement(out_dirs[name], want_dir, want_names)
+        r.update(agreement=agreement, pixels=total)
+        log(f"msc artifact {name}: loaded in {r['load_s']:.2f} s in a fresh "
+            f"interpreter; labels equal to the run-dir serve's on "
+            f"{100 * agreement:.4f}% of {total} pixels"
+            f"{' (bit-equal)' if agreement == 1.0 else ''}; "
+            f"{r['img_per_s']} img/s (run dir {rates.get(name, 'n/a')}), "
+            f"device idle share {r['device_idle_share']}; launches "
+            f"{r['counts']} on {smi}")
+        if agreement < 0.9999:
+            raise AssertionError(f"msc artifact {name}: labels agree on "
+                                 f"{agreement} < 0.9999")
+    # the roomy frame at three times the flagship's nodes
+    x = torch.from_numpy(np.stack([np.load(os.path.join(img_dir, n))
+                                   for n in names[:B]])).to(dev)
+    model = load_artifact(arts["quant8"]["path"])
+    depth = {"quant8": enqueue_by_depth(model, x, depths=(0, 7, 20))}
+    del model
+    torch.cuda.empty_cache()
+    log(f"msc artifact: host ms to enqueue one static quant8 batch (the "
+        f"largest program) at call depths 0, 7, 20, through predict (the "
+        f"roomy frame) and through the program's module alone: "
+        f"{json.dumps(depth)} on {smi}")
+    return dict(exports=arts, served=served, by_depth=depth, counts={
+        "bf16": served["bf16"]["counts"],
+        "quant8": served["quant8"]["counts"]})
+
+
+# ---------------------------------------------------------------------------
+# COCO-Stuff training, evaluation and serving at full width
+# ---------------------------------------------------------------------------
+COCO_SIZES = [(480, 640), (640, 480), (427, 640), (480, 640), (640, 427)]
+COCO_SPLITS = {"train": 20, "val": N_EVAL}
+COCO_BATCH, COCO_CROP = 10, 321       # the configs' batch and window
+# warm-up, joint, last layer: a phase's timing starts past its first 3
+COCO_STEPS = (6, 8, 5)
+COCO_GROUP_STEPS = (5, 5)
+COCO_SINGLE_STEPS = 6                 # joint micro-steps of scaleproto_coco
+COCO_CLASSES = 182
+# the logit grids of COCO's image sizes (the stem's ceil-mode pool)
+COCO_GRIDS = {(480, 640): (61, 81), (640, 480): (81, 61),
+              (427, 640): (54, 81)}
+
+
+def write_coco_root(root: str, seed: int) -> str:
+    """COCO-Stuff's preprocessed layout at COCO's image sizes: uint8
+    images and final labels (0 void, class c stored as c + 1, 1-182) in a
+    seeded 4 x 6 grid of class blocks, each block a seeded colour of its
+    class plus noise of +-40."""
+    rng = np.random.default_rng(seed)
+    palette = rng.integers(40, 216, (256, 3)).astype(np.int16)
+    index = {}
+    for split, n in COCO_SPLITS.items():
+        img_dir = os.path.join(root, "img_with_margin_0", split)
+        ann_dir = os.path.join(root, "annotations", split)
+        os.makedirs(img_dir)
+        os.makedirs(ann_dir)
+        index[split] = [f"{split}_{i:03d}" for i in range(n)]
+        for i, name in enumerate(index[split]):
+            h, w = COCO_SIZES[i % len(COCO_SIZES)]
+            grid = rng.integers(0, COCO_CLASSES + 1, (4, 6)).astype(np.uint8)
+            label = np.ascontiguousarray(np.repeat(np.repeat(
+                grid, -(-h // 4), 0), -(-w // 6), 1)[:h, :w])
+            noise = rng.integers(-40, 41, (h, w, 3), dtype=np.int16)
+            np.save(os.path.join(img_dir, name + ".npy"),
+                    np.clip(palette[label] + noise, 0, 255).astype(np.uint8))
+            np.save(os.path.join(ann_dir, name + ".npy"), label)
+    with open(os.path.join(root, "all_images.json"), "w") as f:
+        json.dump(index, f)
+    return root
+
+
+def check_proto_coco(gen, dev, smi: str) -> dict:
+    """K1 at COCO-Stuff's banks over 182 classes on random features of
+    the 480 x 640 grid (61 x 81, batch 1): the prototype phase's 2184
+    (plain head, 4 scales of 546), the single-scale model's 2184 (1 scale)
+    and the group phase's 2054 (2052 active: 4 scales of 513 and two
+    dangling rows; 3 groups) grouped and plain; each against the plain
+    head (rtol = atol = 1e-4) and at pushed prototypes against the float64
+    head (``check_proto_rounding``); the packed head's chunks, steps and
+    passes; wrapper ms and device ms (CUDA events around calls queued
+    behind a device sleep) beside the plain head's ms."""
+    out = {}
+    for name, spec, grouped in (
+            ("2184x4", ProtoSpec.equal_allocation(
+                2184, 64, num_classes=COCO_CLASSES, num_scales=4), False),
+            ("2184x1", ProtoSpec.equal_allocation(
+                2184, 64, num_classes=COCO_CLASSES, num_scales=1), False),
+            ("2054x4 group", ProtoSpec.equal_allocation(
+                2054, 64, num_classes=COCO_CLASSES, num_scales=4,
+                num_groups=3), True),
+            ("2054x4 plain", ProtoSpec.equal_allocation(
+                2054, 64, num_classes=COCO_CLASSES, num_scales=4), False)):
+        c, d = spec.num_classes, spec.feature_depth
+        feats = torch.rand((1, *COCO_GRIDS[(480, 640)], d), generator=gen,
+                           device=dev).to(torch.bfloat16)
+        protos = torch.rand((spec.num_prototypes, 64), generator=gen,
+                            device=dev)
+        if grouped:
+            gw = torch.rand((c, 3, spec.max_protos_per_class),
+                            generator=gen, device=dev) + 1e-3
+            kw = dict(group_projection=gw / gw.sum(-1, keepdim=True),
+                      last_layer_group=torch.randn(
+                          (c * 3, c), generator=gen, device=dev) *
+                      math.sqrt(2.0 / (c * 3)))
+            last = None
+        else:
+            kw = {}
+            last = torch.randn((spec.num_prototypes, c), generator=gen,
+                               device=dev) * 0.5
+        head = pack_head(protos, last, spec, **kw)
+        got = kernels.fused_proto_logits(feats, protos, last, spec, **kw,
+                                         head=head)
+        want = proto_plain(feats, protos, last, spec, **kw)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        check_proto_rounding(gen, dev, feats, spec, kw, last)
+        steps = head.steps.cpu().numpy()
+
+        def k1():
+            return kernels.fused_proto_logits(feats, protos, last, spec,
+                                              **kw, head=head)
+
+        out[name] = dict(
+            prototypes=spec.num_prototypes,
+            active=spec.num_active_prototypes,
+            chunks=int(head.columns.shape[0]), steps=int(steps.shape[0]),
+            passes=int((steps[:, 5] & OPEN > 0).sum()),
+            max_abs_err=(got - want).abs().max().item(),
+            ms=time_ms(k1), device_ms=queued_device_ms(k1),
+            plain_ms=time_ms(lambda: proto_plain(feats, protos, last, spec,
+                                                 **kw)))
+    log(f"coco: K1 at COCO-Stuff's banks over {COCO_CLASSES} classes on 1 x "
+        f"61 x 81 features, against the plain head (rtol = atol = 1e-4) and "
+        f"the float64 head at pushed prototypes; packed chunks, steps, "
+        f"passes; ms (CUDA-event medians of 10), device ms (queued): "
+        f"{json.dumps(out)} on {smi}")
+    return out
+
+
+def check_upsample_coco(gen, dev) -> dict:
+    """K3 from COCO's logit grids over 182 classes to its image sizes and
+    the 321 / 513 inputs: labels equal to the plain version's wherever its
+    top-two margin is >= 1e-5; the block plan (span, rows, columns)."""
+    from scaleprotoseg_torch.kernels import upsample as kup
+    out = {}
+    cases = [(grid, size) for size, grid in COCO_GRIDS.items()] + \
+        [((41, 41), (COCO_CROP, COCO_CROP)),
+         ((TH, TW), (PASCAL_EVAL, PASCAL_EVAL))]
+    for (h, w), (hh, ww) in cases:
+        lg = torch.randn((1, h, w, COCO_CLASSES), generator=gen, device=dev)
+        got = kernels.fused_upsample_argmax(lg, hh, ww)
+        want = upsample_argmax_plain(lg, hh, ww)
+        up = torch.einsum("oh,bhpc->bopc", torch.as_tensor(
+            _bilinear_matrix(hh, h), device=dev), torch.einsum(
+            "bhwc,pw->bhpc", lg, torch.as_tensor(_bilinear_matrix(ww, w),
+                                                 device=dev)))
+        top2 = torch.topk(up, 2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) >= 1e-5
+        diff = got.int() != want.int()
+        if got.dtype != torch.uint8 or int((diff & decided).sum()):
+            raise AssertionError(f"upsample {h}x{w} -> {hh}x{ww} at "
+                                 f"{COCO_CLASSES} classes: "
+                                 f"{int((diff & decided).sum())} decided "
+                                 "labels differ")
+        out[f"{h}x{w}->{hh}x{ww}"] = dict(
+            differ=int(diff.sum()), plan=kup.plan(h, w, hh, ww, COCO_CLASSES),
+            ms=round(time_ms(lambda: kernels.fused_upsample_argmax(
+                lg, hh, ww)), 4))
+    log(f"coco: K3 at {COCO_CLASSES} classes, uint8 labels; labels that "
+        f"differ from the plain version (none where the margin is >= "
+        f"1e-5), the block plan (span, rows, columns) and ms: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def _coco_argv(config: str, name: str, data: str, tmp: str, gin,
+               extra=()) -> list:
+    argv = [config, name, "--gpu-recipe", "--data-root", data,
+            "--results-root", tmp, *extra]
+    for line in gin:
+        argv += ["--gin", line]
+    return argv
+
+
+def coco_phase(tmp: str, dev, smi: str) -> dict:
+    """COCO-Stuff at full depth and width (182 classes, ResNet-101):
+    K1 at its banks, K3 at 182 classes; a synthetic COCO-Stuff root (20
+    train, 8 val images of 480 x 640 and the like, final labels in class
+    blocks); ``baseline_coco`` (the multiscale model) through
+    ``train_wandb_multiscale.train --gpu-recipe`` at batch 10 on 321 crops
+    (``push_artifacts=False``: the artifact pass at 2184 prototypes is
+    timed by ``python3 chip_smoke.py coco-push-artifacts``): warm-up,
+    joint, push (its dedup), last layer, K2's forward, pack and weight
+    gradient 3 times a micro-step; one micro-step of the kernel path
+    against the plain path; ``group_scaleproto_coco`` from its
+    ``push_final``; ``scaleproto_coco`` (the single-scale model) through
+    ``train_wandb.main``; ``run_evaluation`` of ``final-group`` at batch 1
+    over the 8 val images (labels >= 99.9% equal to the plain path); and
+    ``final-group`` served on 8 images of 480 x 640 (>= 99.9%)."""
+    from scaleprotoseg_torch import (cli_common, finetune_wandb_group,
+                                     train_wandb, train_wandb_multiscale)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    out = dict(proto=check_proto_coco(gen, dev, smi),
+               upsample=check_upsample_coco(gen, dev))
+    torch.cuda.empty_cache()
+    data = write_coco_root(os.path.join(tmp, "coco"), seed=18)
+    val_batches = math.ceil(COCO_SPLITS["val"] / COCO_BATCH)
+
+    # the prototype phase of the multiscale model
+    gin = [f"train.warmup_steps = {COCO_STEPS[0]}",
+           f"train.joint_steps = {COCO_STEPS[1]}",
+           f"train.finetune_steps = {COCO_STEPS[2]}",
+           f"Trainer.val_check_interval = {max(COCO_STEPS)}"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trained = train_wandb_multiscale.train(
+        "baseline_coco", "coco_train", data_root=data,
+        gin_overrides=gin, gpu_recipe=True, results_root=tmp,
+        push_artifacts=False)
+    counts = kernels.launch_counts()
+    secs = time.perf_counter() - t0
+    perf = {}
+    for phase, steps in enumerate(COCO_STEPS):
+        res = trained["phases"][phase]
+        bwd = 0 if phase == 2 else MSC_MAPS * steps
+        want = {"aspp": MSC_MAPS * (steps + res.validations * val_batches),
+                "aspp_grad_pack": bwd, "aspp_grad_weight": bwd}
+        if res.steps_done != steps or \
+                not all(math.isfinite(v) for v in res.losses) or \
+                res.launches != {**res.launches, **want}:
+            raise AssertionError(f"coco phase {phase}: {res.steps_done} "
+                                 f"steps, losses {res.losses}, launches "
+                                 f"{res.launches}, want {want}")
+        perf[phase] = p = res.perf
+        log(f"coco train phase {phase}: {steps} micro-steps, "
+            f"{res.validations} validations; launches {res.launches}; "
+            f"losses first {res.losses[0]:.4f} last {res.losses[-1]:.4f}, "
+            f"all finite; {p['img_per_s']} img/s, median step "
+            f"{p['step_ms_median']} ms, device idle share "
+            f"{p['device_idle_share']}, peak {p['peak_memory_mb']} MB; batch "
+            f"{COCO_BATCH} at {COCO_CROP} x {COCO_CROP}, 2184 prototypes, "
+            f"{COCO_CLASSES} classes, the pyramid, full depth, bf16 recipe; "
+            f"on {smi}")
+    push = trained["push"]
+    out["push"] = dict(prototypes=int(push.winners.shape[0]),
+                       matched=int((push.winners >= 0).sum()),
+                       pruned=int(push.winners.shape[0] -
+                                  push.kept.shape[0]),
+                       kept=int(push.kept.shape[0]))
+    log(f"coco: train_wandb_multiscale baseline_coco took {secs:.1f} s; "
+        f"push (scan only, no artifacts): {json.dumps(out['push'])}; "
+        f"launches {counts}")
+
+    run = os.path.join(tmp, "coco_train")
+    _, bindings = cli_common.load_config(os.path.join(run, "config.gin"))
+    batch = next(iter(cli_common.make_loaders(bindings, COCO_BATCH, seed=5,
+                                              data_root=data)[0]))
+    step_cmp = pascal_step_check(bindings, os.path.join(
+        run, "checkpoints", "nopush_last"), batch, dev)
+    log(f"coco: one micro-step at batch {COCO_BATCH}, kernel path vs plain "
+        f"path: {json.dumps(step_cmp)} on {smi}")
+    if not (step_cmp["loss_abs_err"] <= 1e-3
+            and step_cmp["aspp_grad_rel_l2"] <= 2e-2
+            and step_cmp["proto_grad_rel_l2"] <= 2e-2
+            and step_cmp["launches"] == dict.fromkeys(TRAINING_KERNELS,
+                                                      MSC_MAPS)):
+        raise AssertionError(f"coco kernel vs plain micro-step {step_cmp}")
+    out["step_cmp"] = step_cmp
+    torch.cuda.empty_cache()
+
+    # the group phase from push_final
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    group = finetune_wandb_group.main(_coco_argv(
+        "group_scaleproto_coco", "coco_group", data, tmp,
+        [f"train.warmup_steps = {COCO_GROUP_STEPS[0]}",
+         f"train.joint_steps = {COCO_GROUP_STEPS[1]}",
+         f"Trainer.val_check_interval = {max(COCO_GROUP_STEPS)}"],
+        ["--start-checkpoint", trained["final"]]))
+    group_counts = kernels.launch_counts()
+    for phase, steps in enumerate(COCO_GROUP_STEPS):
+        res = group["phases"][phase]
+        want = MSC_MAPS * (steps + res.validations * val_batches)
+        if res.steps_done != steps or res.launches["aspp"] != want or \
+                not all(math.isfinite(v) for v in res.losses):
+            raise AssertionError(f"coco group phase {phase}: "
+                                 f"{res.steps_done} steps, K2 "
+                                 f"{res.launches['aspp']} (want {want})")
+        p = res.perf
+        log(f"coco group phase {phase}: {steps} micro-steps; launches "
+            f"{res.launches}; losses first {res.losses[0]:.4f} last "
+            f"{res.losses[-1]:.4f}; {p['img_per_s']} img/s, median step "
+            f"{p['step_ms_median']} ms, device idle share "
+            f"{p['device_idle_share']}; on {smi}")
+    gmodel, gspec = load_model(os.path.join(tmp, "coco_group"),
+                               group["final"] + ".pth", device=dev)
+    glw = gmodel.group_weights()[1]
+    if tuple(glw.shape) != (COCO_CLASSES * 3, COCO_CLASSES):
+        raise AssertionError(f"coco group head {tuple(glw.shape)}")
+    log(f"coco group: final-group after {time.perf_counter() - t0:.1f} s; "
+        f"{gspec.num_prototypes} prototypes ({gspec.num_active_prototypes} "
+        f"active), group last layer {tuple(glw.shape)}")
+    del gmodel
+    torch.cuda.empty_cache()
+
+    # the single-scale model
+    kernels.reset_launch_counts()
+    single = train_wandb.main(_coco_argv(
+        "scaleproto_coco", "coco_single", data, tmp,
+        ["train.warmup_steps = 0",
+         f"train.joint_steps = {COCO_SINGLE_STEPS}",
+         "train.finetune_steps = 0", "train.push_proto = False",
+         f"Trainer.val_check_interval = {COCO_SINGLE_STEPS}"]))
+    single_counts = kernels.launch_counts()
+    res = single["phases"][1]
+    want = {"aspp": MSC_MAPS * (COCO_SINGLE_STEPS +
+                                res.validations * val_batches),
+            "aspp_grad_pack": MSC_MAPS * COCO_SINGLE_STEPS,
+            "aspp_grad_weight": MSC_MAPS * COCO_SINGLE_STEPS}
+    if res.steps_done != COCO_SINGLE_STEPS or \
+            res.launches != {**res.launches, **want} or \
+            not all(math.isfinite(v) for v in res.losses):
+        raise AssertionError(f"coco single: {res.steps_done} steps, "
+                             f"launches {res.launches}, want {want}")
+    p = res.perf
+    log(f"coco single (scaleproto_coco, summed ASPP, 2184 prototypes of 1 "
+        f"scale): {COCO_SINGLE_STEPS} joint micro-steps; launches "
+        f"{res.launches}; losses {[round(v, 4) for v in res.losses]}; "
+        f"{p['img_per_s']} img/s, median step {p['step_ms_median']} ms; on "
+        f"{smi}")
+
+    # evaluation of final-group, batch 1, against the plain path
+    names = sorted(p_[:-4] for p_ in os.listdir(
+        os.path.join(data, "annotations", "val")))
+    kernels.reset_launch_counts()
+    evm.SegEvaluator = RecordingEvaluator
+    t0 = time.perf_counter()
+    try:
+        res = evm.run_evaluation("coco_group", "final-group", batch_size=1,
+                                 data_type="coco", data_root=data,
+                                 results_root=tmp)
+    finally:
+        evm.SegEvaluator = SegEvaluator
+    secs = time.perf_counter() - t0
+    eval_counts = kernels.launch_counts()
+    ev = RecordingEvaluator.last
+    grun = os.path.join(tmp, "coco_group")
+    model, _ = load_model(grun, os.path.join(grun, "checkpoints",
+                                             "final-group.pth"),
+                          dtype=torch.bfloat16, fast=False, device=dev)
+    plain_labels(model)             # K2 and the int8 convs made plain
+
+    @torch.inference_mode()
+    def plain_eval(xn, h, w):
+        logits = model(xn).logits
+        return upsample_argmax_plain(logits.float().contiguous(), h, w)
+
+    agree = total = 0
+    cm = np.zeros((COCO_CLASSES, COCO_CLASSES), np.int64)
+    for name, pred in zip(names, (p_ for b_ in ev.preds for p_ in b_)):
+        img = np.load(os.path.join(data, "img_with_margin_0", "val",
+                                   name + ".npy"))
+        ann = eval_targets(np.load(os.path.join(
+            data, "annotations", "val", name + ".npy")), "coco")
+        x = torch.from_numpy(evm.prepare_image(img, "coco"))[None].to(dev)
+        want = plain_eval(x, *ann.shape)[0].cpu().numpy()
+        agree += int((pred == want).sum())
+        total += pred.size
+        t = ann.astype(np.int64) - 1
+        valid = t >= 0
+        cm += np.bincount(t[valid] * COCO_CLASSES + pred[valid],
+                          minlength=COCO_CLASSES ** 2).reshape(
+                              COCO_CLASSES, COCO_CLASSES)
+    if not np.array_equal(ev.cm, cm):
+        raise AssertionError("coco eval: confusion matrix differs from the "
+                             "host bincount")
+    agreement = agree / total
+    want = {"upsample": len(ev.preds), "aspp": MSC_MAPS * (len(ev.preds) +
+                                                           N_SAMPLES)}
+    log(f"coco eval: mIoU {res['mean_iou']:.6f}, pixel acc "
+        f"{res['pixel_accuracy']:.6f}, {len(names) / secs:.3f} img/s "
+        f"({len(names)} images at batch 1, the samples included); confusion "
+        f"matrix equal to the host bincount; labels agree with the plain "
+        f"path on {100 * agreement:.4f}% of {total} pixels; launches "
+        f"{eval_counts} on {smi}")
+    if eval_counts != {**eval_counts, **want} or agreement < 0.999:
+        raise AssertionError(f"coco eval: agreement {agreement}, launches "
+                             f"{eval_counts}, want {want}")
+    out["eval"] = dict(miou=res["mean_iou"], agreement=agreement,
+                       img_per_s=len(names) / secs, counts=eval_counts)
+    del model
+    torch.cuda.empty_cache()
+
+    out["serve"] = serve_checkpoint(tmp, "coco_group", "final-group", dev,
+                                    smi, "coco_serving", size=(480, 640))
+    if out["serve"]["agreement"] < 0.999:
+        raise AssertionError(f"coco serving agreement "
+                             f"{out['serve']['agreement']} < 0.999")
+    out.update(counts=counts, group_counts=group_counts,
+               single_counts=single_counts, perf=perf)
+    return out
+
+
+def coco_push_artifacts() -> None:
+    """``python3 chip_smoke.py coco-push-artifacts``: push of a
+    full-depth ``baseline_coco`` model (seeded weights, 2184 prototypes,
+    182 classes) over the synthetic COCO-Stuff train split, timed without
+    and with its artifacts (the pass ``chip_smoke.py``'s COCO phase leaves
+    out); prints the seconds, the files and the last line."""
+    from scaleprotoseg_torch import cli_common, train_wandb_multiscale
+    from scaleprotoseg_torch.push.push import push_prototypes
+    smi = device_phase()
+    log(smi)
+    dev = torch.device("cuda")
+    build_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_coco_root(os.path.join(tmp, "coco"), seed=18)
+        _, bindings = cli_common.load_config("baseline_coco")
+        model, spec = train_wandb_multiscale.build_model(bindings, 0)
+        model = model.to(dev).eval()
+        times = {}
+        for artifacts in (False, True):
+            loader = cli_common.make_push_loader(bindings, data_root=data)
+            pdir = os.path.join(tmp, f"prototypes_{artifacts}")
+            t0 = time.perf_counter()
+            res = push_prototypes(model, spec, loader, prototypes_dir=pdir,
+                                  save_artifacts=artifacts,
+                                  cls2name=dict(enumerate(evm.class_names(
+                                      "coco", COCO_CLASSES))), log=log)
+            torch.cuda.synchronize()
+            times[artifacts] = time.perf_counter() - t0
+            files = sum(len(f) for _, _, f in os.walk(pdir))
+            log(f"coco push over {COCO_SPLITS['train']} train images of "
+                f"COCO sizes, artifacts {artifacts}: {times[artifacts]:.1f} "
+                f"s; {int(res.kept.shape[0])} of "
+                f"{int(res.winners.shape[0])} prototypes kept; {files} "
+                f"files; on {smi}")
+            model.load_state_dict(
+                train_wandb_multiscale.build_model(bindings, 0)[0]
+                .state_dict())
+    log(f"coco push: the artifact pass took {times[True] - times[False]:.1f}"
+        f" s of {times[True]:.1f} s at 2184 prototypes on {smi}")
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def main() -> None:
+    if sys.argv[1:] == ["coco-push-artifacts"]:
+        return coco_push_artifacts()
+    t_start = time.perf_counter()
     smi = device_phase()
     log(smi)
     dev = torch.device("cuda")
@@ -3866,13 +4661,24 @@ def main() -> None:
     log("kernel device ms per call (profiler): " + json.dumps(
         {name: r["device_ms"] for name, r in results.items()}))
 
-    served = serving_phase(dev, smi)
-    torch.cuda.empty_cache()
-    trained = training_phase(dev, smi)
-    torch.cuda.empty_cache()
+    spans = {"kernels": time.perf_counter() - t_start}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        spans[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    served = timed("serving", serving_phase, dev, smi)
+    trained = timed("training", training_phase, dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
-        pascal = pascal_phase(tmp, dev, smi)
-    torch.cuda.empty_cache()
+        pascal = timed("pascal", pascal_phase, tmp, dev, smi)
+        msc = timed("msc_quant8", msc_quant8_phase, tmp, dev, smi)
+        msc_art = timed("msc_artifact", msc_artifact_phase, tmp, msc, dev,
+                        smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        coco = timed("coco", coco_phase, tmp, dev, smi)
     quant, evals = served["quant"], served["evals"]
     group, pruning = trained["group"], trained["pruning"]
     single, resume = trained["single"], trained["resume"]
@@ -3905,7 +4711,20 @@ def main() -> None:
                       "pascal_group_training": pascal["group_counts"][name],
                       "pascal_eval": pascal["eval"]["counts"][name],
                       "pascal_eval_test": pascal["eval_test"]["counts"][name],
-                      "pascal_serving": pascal["serve"]["counts"][name]}
+                      "pascal_serving": pascal["serve"]["counts"][name],
+                      "msc_serving": msc["counts"]["bf16"][name],
+                      "msc_quant8_serving": msc["counts"]["static"][name],
+                      "msc_quant8_dynamic": msc["counts"]["dynamic"][name],
+                      "msc_eval_quant8": msc["eval_counts"][name],
+                      "msc_artifact_serving":
+                          msc_art["counts"]["bf16"][name],
+                      "msc_artifact_quant8":
+                          msc_art["counts"]["quant8"][name],
+                      "coco_training": coco["counts"][name],
+                      "coco_group_training": coco["group_counts"][name],
+                      "coco_single_training": coco["single_counts"][name],
+                      "coco_eval": coco["eval"]["counts"][name],
+                      "coco_serving": coco["serve"]["counts"][name]}
                for name in results}
     # the Pascal slice's own paths: K2's forward and backward in its
     # training, K1 and K3 in its test export and serving
@@ -3913,7 +4732,20 @@ def main() -> None:
                         ("proto", "pascal_eval_test"),
                         ("upsample", "pascal_eval_test"),
                         ("proto", "pascal_serving"),
-                        ("upsample", "pascal_serving")):
+                        ("upsample", "pascal_serving"),
+                        # this slice's: the MSC model in static quant8 and
+                        # as an artifact, COCO-Stuff's training, eval and
+                        # serving
+                        *((k, w) for k in (*SERVING_KERNELS, *QUANT_KERNELS)
+                          for w in ("msc_quant8_serving",
+                                    "msc_artifact_quant8")),
+                        *((k, w) for k in SERVING_KERNELS
+                          for w in ("msc_artifact_serving", "coco_serving")),
+                        *((k, w) for k in TRAINING_KERNELS
+                          for w in ("coco_training", "coco_single_training")),
+                        ("aspp", "coco_group_training"),
+                        ("int8_absmax", "msc_quant8_dynamic"),
+                        ("upsample", "coco_eval")):
         if by_path[name][where] < 1:
             raise AssertionError(f"{name} never launched on {where}")
     # each kernel's launches in the main path of its slice: the training
@@ -3958,6 +4790,9 @@ def main() -> None:
             replaces=k["replaces"], launches=0, max_abs_err=None, ms=None,
             plain_ms=None, bound_ms=None, bound_by=None, library_ms=None)
             for k in STILL_TO_PORT]}
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all; seconds "
+        f"by phase (build and kernel checks first) "
+        f"{json.dumps({k: round(v, 1) for k, v in spans.items()})} on {smi}")
     log(smi)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {

@@ -119,6 +119,8 @@ def train_hparams(bindings: Bindings) -> dict:
         early_stopping_patience_last_layer=q(
             "early_stopping_patience_last_layer", 100),
         start_checkpoint=q("start_checkpoint", ""),
+        # read as the JAX package reads it, which then never uses it
+        load_coco=q("load_coco", False),
         push_proto=q("push_proto", True),
         data_type=q("data_type", query(bindings,
                                        "PatchClassificationDataModule",

@@ -6,10 +6,12 @@ preprocessed Cityscapes ``.npy`` annotations hold category indices (the
 official label ids 0-33 with the void ids merged, then license plate);
 ``convert_targets`` maps them to 1 + the 19-class train id.  Pascal
 VOC-2012 stores its raw ids (0-20, 255 void) and converts online too
-(``PASCAL_ID_MAPPING``: k -> k + 1, 255 -> 0).  ADE and EM training are
-not part of the port yet and are refused by name.  The evaluation reads
-COCO-Stuff and EM labels as they are stored (their ids are final after
-offline preprocessing) and names their classes with the tables below.
+(``PASCAL_ID_MAPPING``: k -> k + 1, 255 -> 0).  COCO-Stuff's stored ids
+are final (``COCO_LUT`` is applied offline, when the dataset is
+preprocessed), so its online conversion is the identity, as in the JAX
+package.  ADE and EM training are not part of the port yet and are
+refused by name.  The evaluation reads COCO-Stuff and EM labels as they
+are stored and names their classes with the tables below.
 """
 
 from __future__ import annotations
@@ -58,6 +60,8 @@ PASCAL_CATEGORIES = ["void", "__background__"] + [
 
 
 # COCO-Stuff: raw id k is class k (stored as k + 1, 255 -> 0 void)
+COCO_ID_MAPPING = {**{i: i + 1 for i in range(182)}, 255: 0}
+
 COCO_LABELS = [
     # 80 "things" (ids 0-89 in the original paper numbering incl. gaps kept
     # as named placeholders) + 91 "stuff"
@@ -108,11 +112,16 @@ def mapping_to_lut(mapping: dict, size: int = 256,
 
 CITYSCAPES_19_LUT = mapping_to_lut(CITYSCAPES_19_EVAL_CATEGORIES, size=256)
 PASCAL_LUT = mapping_to_lut(PASCAL_ID_MAPPING, size=256)
-_LUTS = {"cityscapes": CITYSCAPES_19_LUT, "pascal": PASCAL_LUT}
+# applied offline (the preprocessing), never online
+COCO_LUT = mapping_to_lut(COCO_ID_MAPPING, size=256)
+IDENTITY_LUT = np.arange(256, dtype=np.uint8)
+_LUTS = {"cityscapes": CITYSCAPES_19_LUT, "pascal": PASCAL_LUT,
+         "coco": IDENTITY_LUT}
 
 
 def conversion_lut(data_type: str) -> np.ndarray:
-    """The 256-entry online label conversion of a dataset."""
+    """The 256-entry online label conversion of a dataset (the identity
+    for COCO-Stuff, whose stored ids are final)."""
     if data_type in _LUTS:
         return _LUTS[data_type]
     raise NotImplementedError(
@@ -121,5 +130,7 @@ def conversion_lut(data_type: str) -> np.ndarray:
 
 
 def convert_targets(targets: np.ndarray, data_type: str) -> np.ndarray:
-    """Category indices -> labels (0 = void, class c as c + 1)."""
-    return conversion_lut(data_type)[targets]
+    """Stored annotation -> labels (0 = void, class c as c + 1);
+    COCO-Stuff's stored ids pass through unchanged."""
+    lut = conversion_lut(data_type)
+    return targets if lut is IDENTITY_LUT else lut[targets]

@@ -50,9 +50,12 @@ def calibrate_quant_scales(model: PPNet, batches: Iterable[torch.Tensor],
     """Post-training max calibration of a ``quant8='static'`` model: run
     the float forward over ``batches`` (normalized (B, H, W, 3) tensors
     on the model's device, in its input space) with every static site
-    folding ``max|x| / 127`` into its scale.  Returns ``model``, ready to
-    serve.  Raises on a model without static sites or an empty
-    ``batches``."""
+    folding ``max|x| / 127`` into its scale.  A model with the MSC input
+    pyramid makes the pyramid itself: each site then folds the base map
+    and every pyramid map into its one scale, in that order, as the JAX
+    package's ``calibrate_quant_scales`` does, and serves all of them
+    with it.  Returns ``model``, ready to serve.  Raises on a model
+    without static sites or an empty ``batches``."""
     sites = [m for _, m in quant_sites(model) if m.static]
     if not sites:
         raise ValueError("calibrate_quant_scales: the model has no "

@@ -3,9 +3,12 @@
 Covers the DeepLabV2 ResNet backbones of the Cityscapes and Pascal configs
 (``deeplabv2_resnet{101,50}`` with a summed ASPP and their ``_multiscale``
 concat-ASPP twins), with the MSC input pyramid of their ``scales``
-binding (1.0 entries dropped, as the JAX package does); the other
+binding (1.0 entries dropped, as the JAX package does).  ``quant8``
+(int8 serving of layer4/5) applies to any of them, pyramid included: the
+pyramid calls the one backbone once per map, so a static site calibrates
+over all of them and serves every map with its one scale.  The other
 backbones and the scale head are not part of the port yet and are refused
-by name, as is int8 serving (``quant8``) of a model with a pyramid.
+by name.
 """
 
 from __future__ import annotations
@@ -47,10 +50,6 @@ def build_backbone(base_architecture: str, bindings: Bindings,
         raise ValueError(f"{name}.deeplab_n_features is REQUIRED")
     scales = tuple(float(s) for s in
                    (query(bindings, name, "scales", ()) or ()) if s != 1.0)
-    if scales and quant8:
-        raise NotImplementedError(
-            f"quant8 serving of a model with the MSC input pyramid {scales} "
-            "is not ported yet")
     backbone = DeepLabV2(n_out=int(n_features), n_blocks=n_blocks,
                          atrous_rates=RATES, aspp_mode=mode, quant8=quant8)
     out_ch = int(n_features) * (len(RATES) if mode == "concat" else 1)

@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from scaleprotoseg_torch.ops import as_dtype
 from scaleprotoseg_torch.ops.gradconv import conv3x3_dilated
 from scaleprotoseg_torch.ops.quant import (dynamic_int8_conv, int8_conv,
                                            pack_int8_weight, static_int8_conv)
@@ -35,13 +36,6 @@ class FrozenBatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, False, 0.0, self.eps)
-
-
-def _cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``t`` in ``dtype``, with no cast where it already is: a traced
-    graph (``torch.export``) then holds no cast and no metadata assertion
-    for it, host work on every call of the served program."""
-    return t if t.dtype == dtype else t.to(dtype)
 
 
 class ConvBN(nn.Module):
@@ -74,7 +68,7 @@ class ConvBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         conv = self.conv
         dt = self.compute_dtype or conv.weight.dtype
-        x, w = _cast(x, dt), _cast(conv.weight, dt)
+        x, w = as_dtype(x, dt), as_dtype(conv.weight, dt)
         if self.fast_grad:
             x = conv3x3_dilated(x, w, conv.dilation[0])
         else:

@@ -35,6 +35,7 @@ from scaleprotoseg_torch.kernels.proto import (KERNEL_TABLES, ProtoHead,
                                                fused_proto_logits,
                                                group_activations, pack_head)
 from scaleprotoseg_torch.models.layers import WeightCache, set_compute_dtype
+from scaleprotoseg_torch.ops import as_dtype
 from scaleprotoseg_torch.ops.prototype import (distance_to_similarity,
                                                scale_l2_distances)
 from scaleprotoseg_torch.ops.resize import (resize_bilinear,
@@ -84,7 +85,7 @@ class AddOnLayers(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.sigmoid(x.to(self.dtype))
+        return torch.sigmoid(as_dtype(x, self.dtype))
 
 
 class PPNet(nn.Module):
@@ -213,8 +214,8 @@ class PPNet(nn.Module):
         fused = base
         for f in pyramid:
             up = resize_bilinear(f.permute(0, 2, 3, 1), hb, wb)
-            fused = torch.maximum(fused, up.permute(0, 3, 1, 2)
-                                  .to(fused.dtype))
+            fused = torch.maximum(fused, as_dtype(up.permute(0, 3, 1, 2),
+                                                  fused.dtype))
         return [base, *pyramid, fused] if train else fused
 
     def conv_features(self, x: torch.Tensor, train: bool = False

@@ -28,6 +28,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from scaleprotoseg_torch.ops import as_dtype
+
 
 @lru_cache(maxsize=4096)
 def _nearest_index_cached(out_size: int, in_size: int) -> np.ndarray:
@@ -60,18 +62,32 @@ def resize_label_nearest_np(label: np.ndarray,
                         _nearest_index(w, label.shape[1]))]
 
 
+def _on_device(build, *args, device: torch.device) -> torch.Tensor:
+    """``build(*args)`` (a cached numpy table) as a tensor on ``device``,
+    copied there once per table and device, not on every call.  While
+    ``torch.export`` traces it is made anew and not kept: a tensor made
+    then is a fake tensor (the trace lifts it as a constant of the
+    program)."""
+    if torch.compiler.is_exporting():
+        t = torch.from_numpy(build(*args))
+        return t if t.device == device else t.to(device)
+    return _device_table(build, args, device)
+
+
 @lru_cache(maxsize=256)
-def _device_index(out_size: int, in_size: int,
-                  device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(_nearest_index(out_size, in_size), device=device)
+@torch.inference_mode(False)
+def _device_table(build, args, device: torch.device) -> torch.Tensor:
+    # never an inference tensor: training saves it for backward
+    return torch.as_tensor(build(*args), device=device)
 
 
 def resize_label_nearest(label: torch.Tensor, height: int,
                          width: int) -> torch.Tensor:
-    """PIL-compatible nearest resize of (..., H, W) label maps; the index
-    tables go to the device once per size pair."""
-    iy = _device_index(height, label.shape[-2], label.device)
-    ix = _device_index(width, label.shape[-1], label.device)
+    """PIL-compatible nearest resize of (..., H, W) label maps."""
+    iy = _on_device(_nearest_index, height, label.shape[-2],
+                    device=label.device)
+    ix = _on_device(_nearest_index, width, label.shape[-1],
+                    device=label.device)
     return label.index_select(-2, iy).index_select(-1, ix)
 
 
@@ -96,10 +112,9 @@ def resize_bilinear_matrix(x: torch.Tensor, height: int,
                            width: int) -> torch.Tensor:
     """(..., H, W, C) -> (..., height, width, C) float32: the H
     interpolation then the W interpolation, each one dense matmul."""
-    kw = dict(dtype=torch.float32, device=x.device)
-    my = torch.as_tensor(_bilinear_matrix(height, x.shape[-3]), **kw)
-    mx = torch.as_tensor(_bilinear_matrix(width, x.shape[-2]), **kw)
-    y = torch.einsum("oh,...hwc->...owc", my, x.float())
+    my = _on_device(_bilinear_matrix, height, x.shape[-3], device=x.device)
+    mx = _on_device(_bilinear_matrix, width, x.shape[-2], device=x.device)
+    y = torch.einsum("oh,...hwc->...owc", my, as_dtype(x, torch.float32))
     return torch.einsum("pw,...owc->...opc", mx, y)
 
 
@@ -128,11 +143,11 @@ def resize_bilinear_factor(x: torch.Tensor, factor: float) -> torch.Tensor:
     ``resize_bilinear_factor``: the two separable matrices applied in
     float32."""
     h, w = x.shape[-3], x.shape[-2]
-    kw = dict(dtype=torch.float32, device=x.device)
-    my = torch.as_tensor(_factor_matrix(int(h * factor), h, factor), **kw)
-    mx = torch.as_tensor(_factor_matrix(int(w * factor), w, factor), **kw)
-    y = torch.einsum("oh,...hwc->...owc", my, x.float())
-    return torch.einsum("pw,...owc->...opc", mx, y).to(x.dtype)
+    dev = x.device
+    my = _on_device(_factor_matrix, int(h * factor), h, factor, device=dev)
+    mx = _on_device(_factor_matrix, int(w * factor), w, factor, device=dev)
+    y = torch.einsum("oh,...hwc->...owc", my, as_dtype(x, torch.float32))
+    return as_dtype(torch.einsum("pw,...owc->...opc", mx, y), x.dtype)
 
 
 @lru_cache(maxsize=512)
@@ -159,10 +174,9 @@ def resize_bilinear(x: torch.Tensor, height: int, width: int
     """(..., H, W, C) -> (..., height, width, C) float32: the JAX package's
     ``resize_bilinear`` (torch's ``align_corners=False`` grid, no
     antialias), with ``jax.image``'s float32 weights."""
-    kw = dict(dtype=torch.float32, device=x.device)
-    wy = torch.as_tensor(_linear_weights(height, x.shape[-3]), **kw)
-    wx = torch.as_tensor(_linear_weights(width, x.shape[-2]), **kw)
-    y = torch.einsum("...hwc,ho->...owc", x.float(), wy)
+    wy = _on_device(_linear_weights, height, x.shape[-3], device=x.device)
+    wx = _on_device(_linear_weights, width, x.shape[-2], device=x.device)
+    y = torch.einsum("...hwc,ho->...owc", as_dtype(x, torch.float32), wy)
     return torch.einsum("...owc,wp->...opc", y, wx)
 
 

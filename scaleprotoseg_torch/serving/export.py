@@ -37,8 +37,9 @@ it, and the checkpoint reader, and nothing of the models.
 Batch handling: ``batch=None`` exports with a symbolic batch dimension
 (``torch.export.Dim``) and turns the model's fast ASPP off, as the JAX
 package does; a fixed ``batch`` also allows the fused kernel path
-(``fast=True``).  A model with the MSC input pyramid is not exported yet
-(refused by name); it serves from its run directory.
+(``fast=True``).  A model with the MSC input pyramid exports whole: the
+backbone once per map, the pyramid's resize matrices as constants of the
+program, and the max fusion.
 """
 
 from __future__ import annotations
@@ -145,11 +146,6 @@ def export_serving(model, *, height: int, width: int,
     if fast and batch is None:
         raise ValueError("fast=True needs a fixed batch: the fused kernel "
                          "path is exported at one batch shape")
-    if model.msc_scales:
-        raise NotImplementedError(
-            f"the serving artifact of a model with the MSC input pyramid "
-            f"{model.msc_scales} is not ported yet; serve it from its run "
-            "directory")
     device = next(model.parameters()).device
     platforms = tuple(platforms) if platforms else (device.type,)
     if not set(platforms) <= set(PLATFORMS):

@@ -234,11 +234,13 @@ def test_aspp_forward_follows_optimizer_updates(dev, gen):
 
 
 @pytest.mark.parametrize("grouped", [False, True], ids=["plain", "group"])
-@pytest.mark.parametrize("bank", ["cityscapes", "ade20k", "coco_stuff"])
+@pytest.mark.parametrize("bank", ["cityscapes", "ade20k", "coco_stuff",
+                                  "coco_stuff_2184"])
 def test_proto_kernel_matches_plain(dev, gen, grouped, bank):
     """Cityscapes' 228 prototypes with two pruned and class 4 emptied,
-    ADE20K's 1800 over 150 classes and COCO-Stuff's 2054 (2052 active)
-    over 171: banks of 4 to 36 chunks, heads that run in several passes
+    ADE20K's 1800 over 150 classes, COCO-Stuff's group bank of 2054 (2052
+    active, two dangling rows) and its prototype-phase bank of 2184, over
+    182 classes: banks of 4 to 36 chunks, heads that run in several passes
     over class or output-column windows."""
     g = 3 if grouped else 0
     if bank == "cityscapes":
@@ -250,8 +252,9 @@ def test_proto_kernel_matches_plain(dev, gen, grouped, bank):
         spec = ProtoSpec.equal_allocation(1800, 64, num_classes=150,
                                           num_groups=g)
     else:
-        spec = ProtoSpec.equal_allocation(2054, 64, num_classes=171,
-                                          num_groups=g)
+        spec = ProtoSpec.equal_allocation(
+            2054 if bank == "coco_stuff" else 2184, 64, num_classes=182,
+            num_groups=g)
     c = spec.num_classes
     feats = torch.from_numpy(gen.random((2, 13, 17, 256), np.float32)).to(
         dev, torch.bfloat16)
@@ -279,6 +282,12 @@ def _bank(name, groups):
     if name == "cityscapes":
         return ProtoSpec.equal_allocation(228, 64, num_classes=19,
                                           num_groups=groups)
+    # 2054 prototypes over 171 classes: 12 a class.  At COCO-Stuff's 182
+    # classes (11 or 12 a class) this construction pushes about five
+    # prototypes onto each of its 442 pixels, and the fp32 plain head
+    # itself lands 2.3-2.5e-2 from the float64 head on some seeds (PERF.md
+    # section 7); chip_smoke.py holds K1 at 2054 / 182 at pushed prototypes
+    # on a 61 x 81 grid instead.
     return ProtoSpec.equal_allocation(2054, 64, num_classes=171,
                                       num_groups=groups)
 
@@ -351,7 +360,8 @@ def test_upsample_kernel_matches_plain(dev, gen):
 @pytest.mark.parametrize("shape,out_hw", [
     ((2, 65, 65, 19), (513, 513)),     # an eval crop: rows start unaligned
     ((1, 9, 11, 2), (70, 83)),         # two classes; ragged bands, spans
-    ((2, 33, 41, 171), (257, 330)),    # COCO-Stuff's classes
+    ((2, 33, 41, 182), (257, 330)),    # COCO-Stuff's classes
+    ((1, 61, 81, 182), (480, 640)),    # and one of its image sizes
     ((1, 5, 300, 7), (37, 2400)),      # spans of one band side by side
 ])
 def test_upsample_kernel_shapes(dev, gen, shape, out_hw):
@@ -400,7 +410,10 @@ def _int8(gen, shape, dev):
 
 @pytest.mark.parametrize("m,k,n", [(8192, 512, 512), (1000, 256, 128),
                                    (2 * 17 * 33, 2048, 512),
-                                   (70, 64, 256)])
+                                   (70, 64, 256),
+                                   # the MSC pyramid's smallest map at a
+                                   # 513 input (33 x 33): layer4 and 5
+                                   (1089, 1024, 256), (1089, 512, 2048)])
 def test_int8_mm_matches_plain(dev, gen, m, k, n):
     """The int32 product bit for bit (rows past M masked); the dequantized
     bf16 within 1 bf16 ulp and float32 bit for bit of ``float(acc) *
@@ -455,6 +468,8 @@ def test_int8_mm_bf16_arm_matches_plain(dev, gen):
     ((1, 33, 17, 256, 256), 2),     # H = 1 mod 32, W = 1 mod 8, as 129 x 257
     ((2, 65, 9, 512, 512), 4),      # the same edges at layer5's width
     ((1, 40, 44, 192, 256), 20),    # taps staged one by one; C % 128 = 64
+    ((1, 33, 33, 256, 256), 2),     # the MSC pyramid's smallest map at a
+    ((1, 33, 33, 512, 512), 4),     # 513 input, layer4 and layer5
 ])
 def test_int8_conv3x3_matches_plain(dev, gen, shape, dil):
     """The nine-tap accumulator bit for bit against a float64 conv of the

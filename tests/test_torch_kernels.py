@@ -145,13 +145,17 @@ def test_pack_head_carries_the_head(rng, grouped, case):
 def _kernel_bank(case, grouped):
     """Banks at the kernel's depth 64: the flagship's, the flagship's with
     prototypes pruned from every scale (uneven scale sizes, class 4
-    empty), and COCO-Stuff's 2054 over 171 classes, whose group head needs
-    nine passes over class windows and whose bank (36 chunks, ~860 KB
-    split) streams through shared memory (the plain head: three passes
-    over output-column windows)."""
+    empty), and COCO-Stuff's two banks over its 182 classes: the group
+    config's 2054 (2052 active, two dangling rows), whose group head needs
+    several passes over class windows and whose bank (36 chunks, ~860 KB
+    split) streams through shared memory (the plain head: passes over
+    output-column windows), and the prototype phase's 2184."""
     g = 3 if grouped else 0
     if case == "large_bank":
-        return ProtoSpec.equal_allocation(2054, 64, num_classes=171,
+        return ProtoSpec.equal_allocation(2054, 64, num_classes=182,
+                                          num_groups=g)
+    if case == "coco_2184_bank":
+        return ProtoSpec.equal_allocation(2184, 64, num_classes=182,
                                           num_groups=g)
     spec = ProtoSpec.equal_allocation(228, 64, num_classes=19, num_groups=g)
     if case == "pruned_bank":
@@ -162,7 +166,7 @@ def _kernel_bank(case, grouped):
 
 @pytest.mark.parametrize("grouped", [False, True], ids=["plain", "group"])
 @pytest.mark.parametrize("case", ["flagship_bank", "pruned_bank",
-                                  "large_bank"])
+                                  "large_bank", "coco_2184_bank"])
 def test_pack_head_splits_the_bank_exactly(rng, grouped, case):
     """K1's split bank: three bf16 pieces per prototype that sum back to
     the fp32 prototype (within 2^-24 relative), |p|^2 beside each column,
@@ -202,7 +206,7 @@ def test_pack_head_splits_the_bank_exactly(rng, grouped, case):
 
 @pytest.mark.parametrize("grouped", [False, True], ids=["plain", "group"])
 @pytest.mark.parametrize("case", ["flagship_bank", "pruned_bank",
-                                  "large_bank"])
+                                  "large_bank", "coco_2184_bank"])
 def test_split_cross_term_matches_pallas(rng, grouped, case):
     """The split-bank cross term pushed through K1's formula and tables
     (``_emulate_proto_kernel``) against the JAX package's Pallas kernel
@@ -552,7 +556,11 @@ def test_upsample_label_dtype_widens_past_255_classes(rng):
 @pytest.mark.parametrize("hw,out_hw,c", [
     ((129, 257), (1024, 2048), 19),    # the flagship
     ((65, 65), (513, 513), 19),        # a 513 x 513 eval crop
-    ((65, 65), (513, 513), 171),       # COCO-Stuff's classes
+    ((65, 65), (513, 513), 182),       # COCO-Stuff's classes
+    ((61, 81), (480, 640), 182),       # and its image sizes
+    ((81, 61), (640, 480), 182),
+    ((54, 81), (427, 640), 182),
+    ((41, 41), (321, 321), 182),       # its training crop
     ((17, 23), (131, 187), 2),         # odd sizes: ragged bands and spans
 ])
 def test_upsample_band_plan_covers_every_output_once(hw, out_hw, c):
@@ -568,7 +576,8 @@ def test_upsample_band_plan_covers_every_output_once(hw, out_hw, c):
     span, max_rows, max_cols = tup.plan(h, w, hh, ww, c)
     assert span % 32 == 0 and span <= _source_constant("THREADS_MAX",
                                                        "upsample")
-    assert max_rows * ((max_cols * c + 6) // 4 * 4) * 4 <= 232448
+    staged = max_rows * ((max_cols * c + 6) // 4 * 4) * 4
+    assert staged <= tup._SMEM_BUDGET <= 232448
     yi, _ = tup.interp_taps(hh, h)
     xi, _ = tup.interp_taps(ww, w)
     for idx in (yi, xi):

@@ -56,16 +56,20 @@ def _few_threads():
     torch.set_num_threads(n)
 
 
-def _msc_pair(grouped: bool):
+def _msc_pair(grouped: bool, quant8=False):
     """(JAX model, JAX spec, variables, the port's model) of the tiny MSC
     flagship; ``TIED`` channels of the ASPP zeroed on the JAX side before
-    the carry."""
-    model, spec = _flagship(tiny=True, grouped=grouped, dtype=jnp.float32)
+    the carry.  ``quant8`` builds both backbones' layer4/5 as int8 convs
+    (the variables then hold no ``quant_scales``: they come from
+    calibration)."""
+    model, spec = _flagship(tiny=True, grouped=grouped, dtype=jnp.float32,
+                            quant8=quant8)
     model = model.clone(msc_scales=SCALES, backbone=model.backbone.clone(
         n_blocks=(1, 1, 1, 1)))
-    shapes = jax.eval_shape(
+    shapes = dict(jax.eval_shape(
         lambda k: model.init(k, jnp.zeros((1, SIDE, SIDE, 3))),
-        jax.random.PRNGKey(0))
+        jax.random.PRNGKey(0)))
+    shapes.pop("quant_scales", None)
     variables = synthetic_init(shapes, seed=0)
     aspp = jax.tree.map(np.array, variables["params"]["backbone"]["aspp"])
     for i, branch in enumerate(sorted(aspp)):
@@ -74,7 +78,7 @@ def _msc_pair(grouped: bool):
                 aspp[branch]["kernel"][..., c % 64] = 0.0
                 aspp[branch]["bias"][c % 64] = 0.0
     variables["params"]["backbone"]["aspp"] = aspp
-    tm = port_model(model, spec, variables)
+    tm = port_model(model, spec, variables, quant8=quant8)
     tm.msc_scales = SCALES
     return model, spec, variables, tm
 

@@ -17,7 +17,10 @@ block table patched for this module), the pyramid (0.5, 0.75) kept.
   scan take the fused map, as push does.
 - ``train_wandb`` without ``--pruned`` on ``baseline_pascal`` (the summed
   ASPP with the pyramid).
-- quant8 and the serving artifact of an MSC model are refused by name.
+- ``serve --quant8-static`` and ``--quant8`` of the MSC ``final-group``
+  (the record names the form), ``eval_valid_multiscale ... pascal
+  --quant8-static``, and ``serve --export`` then ``--artifact``:
+  the artifact's labels equal the run-dir serve's.
 """
 
 import json
@@ -36,6 +39,7 @@ from scaleprotoseg_torch.model_loading import load_model
 from scaleprotoseg_torch.models import factory
 from scaleprotoseg_torch.serving import serve
 from test_torch_pascal import write_pascal_root
+from torch_parity import own_sigterm_guard  # noqa: F401 (autouse)
 
 SIZES = {"train": [(40, 52), (52, 40), (36, 48)],
          "train_aug": [(40, 52), (52, 40), (36, 48), (44, 44)],
@@ -166,14 +170,35 @@ def test_pascal_group_eval_export_serve(pascal, proto_run, tmp_path):
     labels = np.load(tmp_path / "labels" / "img_0.npy")
     assert labels.shape == (40, 52) and labels.max() < 21
 
-    # not ported for an MSC model: refused by name
-    with pytest.raises(NotImplementedError, match="MSC"):
-        load_model(grun, out["final"] + ".pth", device="cpu",
-                   quant8="static")
-    with pytest.raises(NotImplementedError, match="MSC"):
-        serve.main(["group", "final-group", "--input", str(images),
-                    "--export", str(tmp_path / "artifact"), "--batch", "2",
-                    "--results-root", results, "--device", "cpu"])
+    # int8 serving and the artifact of an MSC model
+    base = ["group", "final-group", "--input", str(images), "--batch", "2",
+            "--raw-output", "--results-root", results, "--device", "cpu"]
+    for flag, form in (("--quant8-static", "static"), ("--quant8", True)):
+        out_dir = tmp_path / f"labels{flag}"
+        rec = serve.main([*base, flag, "--calib-images", "1", "--output",
+                          str(out_dir)])
+        assert rec["quant8"] == form and rec["images"] == 2
+        q = np.load(out_dir / "img_0.npy")
+        assert q.shape == (40, 52) and q.max() < 21
+    got = eval_valid_multiscale.main(
+        ["group", "final-group", "2", "pascal", "--quant8-static",
+         "--calib-images", "1", "--device", "cpu", "--data-root", root,
+         "--results-root", results])
+    assert 0.0 <= got["pixel_accuracy"] <= 1.0
+    assert os.path.exists(os.path.join(grun, "evaluation",
+                                       "final-group-quant8static",
+                                       "iou_scores.json"))
+    # the artifact takes one input size: the val images' own
+    rec = serve.main([*base, "--export", str(tmp_path / "artifact")])
+    assert rec["input"] == [2, 40, 52, 3]
+    rec = serve.main(["--artifact", str(tmp_path / "artifact"), "--input",
+                      str(images), "--output", str(tmp_path / "art_labels"),
+                      "--raw-output", "--device", "cpu"])
+    assert rec["images"] == 2
+    for i in range(2):
+        np.testing.assert_array_equal(
+            np.load(tmp_path / "art_labels" / f"img_{i}.npy"),
+            np.load(tmp_path / "labels" / f"img_{i}.npy"))
 
 
 def test_pascal_run_pruning_cli(pascal, proto_run):

@@ -34,6 +34,7 @@ from scaleprotoseg_torch.checkpoints.pretrained import (
 from scaleprotoseg_torch.cli_common import CONFIGS_DIR
 from e2e_utils import build_synthetic_dataset
 from torch_parity import jax_flagship, port_model, port_spec, to_numpy_tree
+from torch_parity import own_sigterm_guard  # noqa: F401 (autouse)
 
 MISMATCHED = "layer2.0.conv2.weight"
 

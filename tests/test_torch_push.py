@@ -47,6 +47,7 @@ from scaleprotoseg_torch.spec import ProtoSpec as TProtoSpec
 from e2e_utils import build_synthetic_dataset
 from torch_parity import (emulate_proto_kernel, port_model, port_spec,
                           to_numpy_tree)
+from torch_parity import own_sigterm_guard  # noqa: F401 (autouse)
 
 SIDE = 33
 

@@ -53,6 +53,7 @@ from scaleprotoseg_torch.train.state import TrainState
 from e2e_utils import build_synthetic_dataset
 from test_torch_train_step import HP, SIDE, WEIGHTS, _batch, _names, _offsets
 from torch_parity import emulate_proto_kernel, port_model, port_spec
+from torch_parity import own_sigterm_guard  # noqa: F401 (autouse)
 
 JAX_CONFIG = os.path.join(os.path.dirname(__file__), os.pardir,
                           "scaleprotoseg_tpu", "configs",

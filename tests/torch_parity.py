@@ -7,7 +7,10 @@ with ``strict=True``.  Inputs cross as numpy arrays.
 
 from __future__ import annotations
 
+import signal
+
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -20,6 +23,23 @@ from scaleprotoseg_torch.checkpoints.convert import (ppnet_params_to_statedict,
 from scaleprotoseg_torch.models.deeplab import DeepLabV2 as TDeepLabV2
 from scaleprotoseg_torch.models.ppnet import PPNet as TPPNet
 from scaleprotoseg_torch.spec import ProtoSpec as TProtoSpec
+
+
+@pytest.fixture(autouse=True, scope="module")
+def own_sigterm_guard():
+    """Import into a test module that runs the port's trainers: its
+    trainers get a fresh SIGTERM guard, and the handler before it comes
+    back after the module.  The guard's flag lives as long as its
+    process, and a test of another file sends SIGTERM to its own process
+    (the JAX package's preemption tests do, through a handler that
+    chains to the port's), so a flag left set there would stop these
+    trainers at their first step."""
+    from scaleprotoseg_torch.train import preemption
+    prev = signal.getsignal(signal.SIGTERM)
+    preemption._guard = None
+    yield
+    preemption._guard = None
+    signal.signal(signal.SIGTERM, prev)
 
 
 def port_spec(spec) -> TProtoSpec:
