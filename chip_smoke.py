@@ -129,8 +129,9 @@ seconds are printed before the kernels line):
    every batch, labels against the plain path on >= 99% of pixels), and
    K1 is held at the bank push left: on random features against its plain
    version (rtol = atol = 1e-4), on the served features (pushed
-   prototypes, d ~ 0) against the float64 head within
-   ``PROTO_PUSHED_RTOL`` of its largest logit.  Then the pruning slice on
+   prototypes, d ~ 0) against the float64 head within ``pushed_bound``
+   (the inputs' conditioning times fp32 rounding, at most 2e-2 of its
+   largest logit at Cityscapes' 19 classes).  Then the pruning slice on
    the same runs: the push artifacts the trainer wrote (seconds, files, one
    ``bb.npy`` row per prototype of the scanned bank, every matched box
    inside 1024 x 2048); ``run_pruning.main`` (k = 6, threshold 3, the 24
@@ -162,14 +163,8 @@ seconds are printed before the kernels line):
    baseline's joint phase at ResNet-50 depth, as every trainer process
    of this and the data phase runs it (20 micro-steps, ``iter_size`` 5, a
    validation every 5, ``det_seed`` bound) through the trainer CLI in
-   processes of its own, twice straight (the two must agree bit for bit), once stopped
-   by SIGTERM to its process group once the first validation's state has
-   committed (exit 143, the state committed at the step it stopped) and
-   once relaunched (exit 0, the state restored at that step): every
-   checkpoint and metrics row of the relaunch equal to the straight
-   run's, bit for bit; the state's MB, the blocking snapshot's host ms,
-   the commit and restore seconds and the relaunch's launches are
-   printed. The training data path, on the same data root: first, before
+   processes of its own, twice straight (the two must agree bit for bit).
+   The training data path, on the same data root: first, before
    the flagship's trainer, the native augmentation (``native/fastaug.cc``)
    built with g++ (a failed build fails the script) and held bit for bit
    against the numpy pipeline on 32 training items (the 513 x 513 window,
@@ -179,16 +174,19 @@ seconds are printed before the kernels line):
    processes + jitter and threads + jitter: img/s and the first batch's
    seconds, every pair of streams with the same items bit-equal over the
    three epochs and after a ``fast_forward``. Then, after the resume phase,
-   the baseline's joint phase (20 micro-steps, a validation every 10,
-   ``det_seed``) through the trainer CLI: jittered on worker processes
-   (``loader_backend = 'grain_processes'``) straight; the same SIGTERM'd
-   to its process group once the first validation's state committed (exit
-   143, its loader workers gone) and relaunched; jittered on threads;
-   unjittered on threads with native and with numpy augmentation
-   (``SPS_NATIVE_AUG=0``). The relaunch ends on the straight run's bits,
-   the processes' run on the threads' run's, the numpy run on the native
-   one's (each checkpoint and metrics row); K2's kernels launch in every
-   run; img/s, step ms and idle share of each run are printed. Then the
+   the same joint phase through the trainer CLI: jittered on threads
+   straight; jittered on worker processes (``loader_backend =
+   'grain_processes'``), stopped by SIGTERM to its process group once the
+   first validation's state has committed (exit 143, the state committed
+   at the step it stopped, its loader workers gone) and relaunched (exit
+   0, the state restored at that step); unjittered on threads with numpy
+   augmentation (``SPS_NATIVE_AUG=0``), against the resume phase's second
+   straight run (the same command with native items). The relaunch on
+   processes ends on the bits of the straight run on threads, the numpy
+   run on the native one's (each checkpoint and metrics row); K2's
+   kernels launch in every run; the state's MB, the blocking snapshot's
+   host ms, the commit and restore seconds, and img/s, step ms and idle
+   share of each run are printed. Then the
    trainer's knobs: ``ops.gradconv.conv3x3_dilated`` (``fast_gradconv``'s
    hybrid backward) against cuDNN's autograd backward at layer4's (256
    ch, d = 2) and layer5's (512 ch, d = 4) training shapes in bf16, dX
@@ -266,7 +264,29 @@ seconds are printed before the kernels line):
    ``train_wandb.main``; ``run_evaluation`` of ``final-group`` at batch 1
    over the 8 val images and ``final-group`` served on 8 images of 480 x
    640, each >= 99.9% equal to the plain path;
-9. one line per kernel with its times, bound and launches, for the six
+9. ADE20K at full width (150 classes, 1800 prototypes, ResNet-101): K2
+   at the 512 crop (batch 2, 65 x 65) and at the 512 x 704 eval input's
+   grid (65 x 89), forward and backward; K1 at its bank (plain over 4
+   scales and 1, grouped) against the plain head and the float64 one at
+   pushed prototypes, device ms beside the plain head's; K3 at 150
+   classes from the eval grids to ADE's sizes beside ``F.interpolate`` +
+   ``argmax``; a synthetic ADE20K root (16 train, 8 val images of 512 x
+   683, 683 x 512, 512 x 512, 384 x 512, 768 x 1024 and 1024 x 1536,
+   final labels 0-150 in class blocks framed by void); ``scaleproto_ade``
+   through ``train_wandb_multiscale.train --gpu-recipe`` at batch 2 on 512
+   crops (6 warm-up, 8 joint, push at batch 1 without the artifact pass,
+   5 last-layer micro-steps); a micro-step of the kernel path against the
+   plain path; ``group_scaleproto_ade`` from its ``push_final`` (5 + 5);
+   6 joint micro-steps of ``baseline_ade`` through ``train_wandb.main``;
+   ``run_evaluation`` of ``final-group`` with the short-side-512 protocol
+   at the multiple of 64 and at 0 (labels equal to the plain path's on
+   >= 99% of pixels and on >= 99.9% of those decided beyond the
+   upsample's fp32 rounding, the K3 plans built and their host cost);
+   ``final-group`` served through ``serve.main --canvas 683 683`` on 8
+   images of mixed sizes (>= 99% of pixels, >= 99.9% of those decided
+   beyond the fp32 rounding of the head and the upsample, K1 at the
+   pushed bank);
+10. one line per kernel with its times, bound and launches, for the six
    kernels since redesigned the earlier design's recorded times beside
    the new ones, the card's name and power limit, the kernels
    line (every kernel with its status),
@@ -309,9 +329,12 @@ from scaleprotoseg_torch.kernels.int8 import (absmax_plain,
                                               int8_mm_plain,
                                               quantize_int8_plain)
 from scaleprotoseg_torch.kernels.proto import (OPEN, distance_error,
+                                               logit_rounding,
+                                               rounding_bound,
                                                pack_head, proto_float64,
                                                proto_plain)
 from scaleprotoseg_torch.kernels.upsample import (fused_upsample_argmax,
+                                                  interp_taps,
                                                   upsample_argmax_plain)
 from scaleprotoseg_torch.model_loading import (calibrate_quant_scales,
                                                load_model, quant_sites)
@@ -348,12 +371,14 @@ SINGLE_STEPS = (10, 10, 5)    # the baseline's warm-up, joint, last layer
 SINGLE_VAL_EVERY = 10
 RESUME_STEPS, RESUME_VAL_EVERY = 20, 5   # the resumed joint phase
 # the resume and data phases' trainer processes run the baseline at
-# ResNet-50 depth (the widths kept): nine processes, each paying its
-# start-up, the model's build and its states' writes
+# ResNet-50 depth (the widths kept): six processes, each paying its
+# start-up, the model's build and its states' writes.  The data phase's
+# unjittered native run on threads is the resume phase's second straight
+# run (the same command), and the SIGTERM'd run on worker processes,
+# relaunched, is held against the straight run on threads.
 TRAINER_DEPTH = ("construct_PPNet.base_architecture = 'deeplabv2_resnet50'",
                  "deeplabv2_resnet50_features.deeplab_n_features = 64")
 RESUME_TIMEOUT_S = 300
-DATA_STEPS, DATA_VAL_EVERY = 20, 10      # the data phase's joint runs
 KNOB_STEPS, KNOB_PROFILE_STEPS = 10, 5   # the knobs phase's joint runs
 KNOB_RUNS = {"recipe": [], "fast_gradconv": ["train.fast_gradconv = True"],
              "remat": ["train.remat = True"],
@@ -380,22 +405,39 @@ deeplabv2_resnet101_features_multiscale.deeplab_n_features = 64
 deeplabv2_resnet101_features_multiscale.scales = []
 """
 
-# K1 against the float64 head (``proto_float64``).  At pushed prototypes
-# (every prototype a pixel's features, d = 0 there) the activation's slope,
-# -1e4, magnifies the fp32 rounding of |x|^2 - 2 x.p + |p|^2 in the kernel
-# and the plain head alike: the largest logit error allowed there, as a
-# share of the largest float64 logit (the head's exp sets the scale).  On the
-# sparse probe (features and prototypes non-zero on four coordinates a
-# scale, so that the cross term's error is the distance's) the largest
-# distance error, in units of fp32 rounding (``distance_error``).  Both
-# set from readings on an H100 (``tools/kernel_variants.py proto`` and this
-# script): at pushed prototypes the kernel 0.0097-0.011, the fp32 plain
-# head 0.0068-0.0075, a kernel with two bf16 pieces a prototype the same
-# as three (a pushed prototype is bf16: its lo piece is zero); on the
-# probe the kernel 1.45-1.51, the fp32 plain head 1.41-1.51, two pieces
-# 29.6.
+# K1 against the float64 head (``proto_float64``).  On the sparse probe
+# (features and prototypes non-zero on four coordinates a scale, so that the
+# cross term's error is the distance's) the largest distance error, in units
+# of fp32 rounding of its terms (``distance_error``): read on an H100, the
+# kernel 1.45-1.51, the fp32 plain head 1.41-1.51, two pieces 29.6.  At
+# pushed prototypes (every prototype a pixel's features, d = 0 there) the
+# activation's slope, -1e4, magnifies that rounding once for each prototype
+# that sits near a pixel.  ``kernels.proto.rounding_bound`` carries a
+# distance error of ``PROTO_DISTANCE_ERR`` units through the slope, the
+# group projection, its exp and the last layer to a first-order bound on
+# the largest logit error over the largest float64 logit (PERF.md section
+# 3): the conditioning of the inputs times fp32 rounding.  ``pushed_bound``
+# holds K1 to it at every bank, and Cityscapes' 19-class banks also to
+# ``PROTO_PUSHED_RTOL``, their bound before.  Readings on an H100
+# (``tools/proto_pushed_error.py``): on 442 pixels at 2054 / 182 (~5
+# prototypes a pixel) the plain head 0.003-0.025, K1 0.012-0.025, the bound
+# 0.054-0.11; at Cityscapes' 228 / 19 K1 0.007-0.0096, the bound 0.027-0.043;
+# at 2054 / 182 on COCO's 61 x 81 grid K1 reached 0.0208, past 2e-2, with
+# the plain head at 0.0179.
 PROTO_PUSHED_RTOL = 2e-2
+PROTO_PUSHED_SEEDS = 5
 PROTO_DISTANCE_ERR = 3.0
+
+
+def pushed_bound(feats, protos, last, spec, kw) -> float:
+    """K1's largest allowed error against the float64 head at pushed
+    prototypes (over the largest float64 logit): ``rounding_bound`` of
+    these inputs at ``PROTO_DISTANCE_ERR`` units; for Cityscapes' 19
+    classes at most ``PROTO_PUSHED_RTOL``."""
+    bound = rounding_bound(feats, protos, last, spec, **kw,
+                           units=PROTO_DISTANCE_ERR)
+    return min(bound, PROTO_PUSHED_RTOL) if spec.num_classes == 19 \
+        else bound
 
 # every pallas_call site of the repo is ported; a site still to port
 # would be listed here with its name and "replaces"
@@ -695,31 +737,44 @@ def check_proto_pruned(feats, protos, spec, kw) -> None:
         f"empty): max |err| {(got - want).abs().max().item():.3g}")
 
 
-def check_proto_rounding(gen, dev, feats, spec, kw, last=None) -> None:
+def check_proto_rounding(gen, dev, feats, spec, kw, last=None) -> list:
     """K1 and the fp32 plain head against the float64 head: at pushed
     prototypes (the group head ``kw`` of ``check_proto``, or the plain
-    last layer ``last``), and the distance error on the sparse probe under
-    an identity plain head (the logits are the activations)."""
+    last layer ``last``) on ``PROTO_PUSHED_SEEDS`` draws (``feats`` and
+    new features of its shape), K1 held to ``pushed_bound``; and the
+    distance error on the sparse probe under an identity plain head (the
+    logits are the activations).  Returns (kernel, plain, bound) a draw."""
     n = feats.shape[0] * feats.shape[1] * feats.shape[2]
-    # dangling rows (past the scales' bounds) stay zero
-    pushed = torch.zeros((spec.num_prototypes, 64), device=dev)
-    at = torch.randint(0, n, (spec.num_prototypes,), generator=gen,
-                       device=dev)
-    flat = feats.reshape(n, -1)
-    for s, (lo, hi) in enumerate(spec.scale_bounds):
-        pushed[lo:hi] = flat[at[lo:hi], s * 64:(s + 1) * 64].float()
-    want = proto_float64(feats, pushed, last, spec, **kw)
-    scale = want.abs().max().item()
-    got = kernels.fused_proto_logits(feats, pushed, last, spec, **kw)
-    err = (got - want).abs().max().item() / scale
-    plain = (proto_plain(feats, pushed, last, spec, **kw) - want).abs() \
-        .max().item() / scale
-    log(f"proto at pushed prototypes, max |err| against the float64 head "
-        f"over its largest logit ({scale:.4g}): kernel {err:.3g}, fp32 plain "
-        f"head {plain:.3g} (limit {PROTO_PUSHED_RTOL:g})")
-    if not err <= PROTO_PUSHED_RTOL:
-        raise AssertionError(f"proto: {err:.3g} from the float64 head at "
-                             "pushed prototypes")
+    rows = []
+    for draw in range(PROTO_PUSHED_SEEDS):
+        if draw:
+            feats = torch.rand(feats.shape, generator=gen, device=dev) \
+                .to(torch.bfloat16)
+        # dangling rows (past the scales' bounds) stay zero
+        pushed = torch.zeros((spec.num_prototypes, 64), device=dev)
+        at = torch.randint(0, n, (spec.num_prototypes,), generator=gen,
+                           device=dev)
+        flat = feats.reshape(n, -1)
+        for s, (lo, hi) in enumerate(spec.scale_bounds):
+            pushed[lo:hi] = flat[at[lo:hi], s * 64:(s + 1) * 64].float()
+        want = proto_float64(feats, pushed, last, spec, **kw)
+        scale = want.abs().max().item()
+        got = kernels.fused_proto_logits(feats, pushed, last, spec, **kw)
+        err = (got - want).abs().max().item() / scale
+        plain = (proto_plain(feats, pushed, last, spec, **kw) - want).abs() \
+            .max().item() / scale
+        rows.append((err, plain, pushed_bound(feats, pushed, last, spec, kw)))
+        if not err <= rows[-1][2]:
+            raise AssertionError(f"proto: {err:.3g} from the float64 head at "
+                                 f"pushed prototypes (bound {rows[-1][2]:.3g}"
+                                 f", plain head {plain:.3g})")
+    log(f"proto at pushed prototypes ({spec.num_prototypes} / "
+        f"{spec.num_classes} on {n} pixels, at most "
+        f"{int(torch.bincount(at).max())} on a pixel), max |err| against the "
+        f"float64 head over its largest logit, (kernel, fp32 plain head, "
+        f"bound) for {PROTO_PUSHED_SEEDS} draws: "
+        f"{[tuple(round(v, 5) for v in r) for r in rows]}")
+    return rows
 
     probe = ProtoSpec.equal_allocation(228, 64, num_classes=228)
     x = torch.zeros(feats.shape[:3] + (4, 64), device=dev)
@@ -1208,7 +1263,8 @@ def plain_labels(model):
     ``aspp_plain``, the float32-accumulated ASPP rounded to bf16 as the
     kernel rounds its output; K1 by ``proto_plain``; K3 by
     ``upsample_argmax_plain``; the int8 kernels by ``static_int8_conv`` /
-    ``dynamic_int8_conv``)."""
+    ``dynamic_int8_conv``); ``fn.logits(xn)``: the logits before K3's
+    plain version."""
     base = model.features.base
     base.aspp.fast = False
     base.aspp.register_forward_hook(
@@ -1217,13 +1273,57 @@ def plain_labels(model):
         m.plain = True
 
     @torch.inference_mode()
-    def fn(xn: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    def logits(xn: torch.Tensor) -> torch.Tensor:
         feats = model.conv_features(xn).contiguous()
-        logits = proto_plain(feats, model.prototypes(), spec=model.spec,
-                             **head_kw(model))
-        return upsample_argmax_plain(logits, h, w)
+        return proto_plain(feats, model.prototypes(), spec=model.spec,
+                           **head_kw(model))
 
+    def fn(xn: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        return upsample_argmax_plain(logits(xn), h, w)
+
+    fn.logits = logits
     return fn
+
+
+# a label is decided where its top-two margin exceeds this many units of
+# the upsample's fp32 rounding (``decided_labels``)
+UPSAMPLE_ROUNDING_UNITS = 8
+
+
+@torch.inference_mode()
+def decided_labels(logits: torch.Tensor, h: int, w: int,
+                   head_err=None) -> torch.Tensor:
+    """(B, h, w) bool: where the labels of the bilinear upsample of
+    ``logits`` (B, h0, w0, C) to (h, w) are decided beyond fp32 rounding:
+    the top-two margin of the upsampled logits at least
+    ``UPSAMPLE_ROUNDING_UNITS`` x 2^-24 x the largest |logit| among the
+    pixel's source taps (any class), plus twice the largest ``head_err``
+    (B, h0, w0: the head's own rounding bound, ``logit_rounding``) among
+    them.  Two orders of the same fp32 sums (K3 and its plain version, K1
+    and its plain head) may break a tie below that apart: a model whose
+    logits span +-2e6 (a saturated group head) leaves margins of ~0.25 to
+    the upsample's rounding alone."""
+    b, h0, w0, _ = logits.shape
+    dev = logits.device
+    my = torch.as_tensor(_bilinear_matrix(h, h0), device=dev)
+    mx = torch.as_tensor(_bilinear_matrix(w, w0), device=dev)
+    up = torch.einsum("oh,bhpc->bopc", my,
+                      torch.einsum("bhwc,pw->bhpc", logits.float(), mx))
+    top2 = torch.topk(up, 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    del up, top2
+    iy = torch.as_tensor(interp_taps(h, h0)[0], device=dev).long()
+    ix = torch.as_tensor(interp_taps(w, w0)[0], device=dev).long()
+
+    def tap_max(v):
+        rows = torch.maximum(v[:, iy[:, 0]], v[:, iy[:, 1]])
+        return torch.maximum(rows[:, :, ix[:, 0]], rows[:, :, ix[:, 1]])
+
+    limit = UPSAMPLE_ROUNDING_UNITS * 2.0 ** -24 * tap_max(
+        logits.abs().amax(-1).float())
+    if head_err is not None:
+        limit = limit + 2 * tap_max(head_err.float())
+    return margin >= limit
 
 
 def plain_path(model):
@@ -2238,10 +2338,10 @@ def resume_phase(tmp: str, data: str, smi: str) -> dict:
     """The baseline's joint phase at ResNet-50 depth (``RESUME_STEPS``
     micro-steps, ``iter_size`` 5, a validation every
     ``RESUME_VAL_EVERY``, ``det_seed`` bound) through the trainer CLI in
-    processes of its own: twice straight, once stopped by SIGTERM past
-    its first validation (exit 143, the state committed), once relaunched
-    (exit 0).  The relaunch's checkpoints and metrics rows must equal the
-    straight run's bit for bit, and the two straight runs each other's."""
+    processes of its own, twice straight: the two runs must agree bit for
+    bit (else the relaunches of ``data_trainer_phase`` are held within
+    their difference).  The stop by SIGTERM and the relaunch run on the
+    worker-process loader in ``data_trainer_phase``."""
     results = os.path.join(tmp, "resume")
     os.makedirs(results)
     runs = {}
@@ -2257,67 +2357,10 @@ def resume_phase(tmp: str, data: str, smi: str) -> dict:
     rows_repeat = _metric_rows(a) == _metric_rows(b)
     log(f"resume: straight run twice, largest |difference| per checkpoint "
         f"{json.dumps(repeat)}; metrics rows equal: {rows_repeat}")
-
-    # SIGTERM once the first validation's state has committed, which
-    # happens in the background while the next micro-steps run
-    state_dir = os.path.join(results, "killed", "checkpoints", "nopush_state")
-    first_val = f"step {RESUME_VAL_EVERY}/{RESUME_STEPS} "
-    rc, text, secs, *_ = _run_trainer(
-        data, results, "killed", stop_when=lambda out: first_val in out and
-        os.path.exists(os.path.join(state_dir, "meta.json")))
-    stopped = [int(ln.split("PREEMPTED at step ")[1].split(":")[0])
-               for ln in text.splitlines() if "PREEMPTED at step " in ln]
-    if rc != 143 or not stopped:
-        raise AssertionError(f"resume: the SIGTERM'd run exited {rc}:\n"
-                             + text[-3000:])
-    saved = _logged(text, "train state saved: ")[-1]
-    with open(os.path.join(state_dir, "meta.json")) as f:
-        meta = json.load(f)
-    if meta["step"] != stopped[0] or saved["step"] != stopped[0] or \
-            stopped[0] <= RESUME_VAL_EVERY:
-        raise AssertionError(f"resume: stopped at {stopped}, state "
-                             f"{meta['step']}")
-    log(f"resume: SIGTERM after the state of step {RESUME_VAL_EVERY} "
-        "committed: "
-        f"exit 143 in {secs:.1f} s, stopped at micro-step {stopped[0]} "
-        f"(accumulation {stopped[0] % 5} of 5); state "
-        f"{saved['bytes'] / 1e6:.1f} MB, blocking snapshot "
-        f"{saved['snapshot_ms']:.1f} ms host time in the step loop, commit "
-        f"{saved['commit_s']:.2f} s; on {smi}")
-    rc, text, secs, *_ = _run_trainer(data, results, "killed")
-    if rc != 0:
-        raise AssertionError(f"resume: the relaunch exited {rc}:\n"
-                             + text[-3000:])
-    restored = _logged(text, "train state restored: ")
-    async_saves = _logged(text, "train state saved: ")
-    launches = _phase_launches(text)
-    if not restored or restored[0]["step"] != stopped[0]:
-        raise AssertionError(f"resume: the relaunch restored {restored}")
-    diffs = _checkpoint_diffs(a, os.path.join(results, "killed"))
-    rows_equal = _metric_rows(a) == _metric_rows(
-        os.path.join(results, "killed"))
-    log(f"resume: relaunch exit 0 in {secs:.1f} s, restored step "
-        f"{restored[0]['step']} in {restored[0]['seconds']:.2f} s; its "
-        f"last async save {json.dumps(async_saves[-1])}; launches "
-        f"{launches}; largest |difference| per checkpoint against the "
-        f"straight run {json.dumps(diffs)}; metrics rows equal: "
-        f"{rows_equal}; on {smi}")
-    bitwise = not any(repeat.values()) and rows_repeat
-    if bitwise:
-        if any(diffs.values()) or not rows_equal:
-            raise AssertionError("resume: the relaunched run differs from "
-                                 "the straight run")
-    elif any(d > repeat[k] for k, d in diffs.items()):
-        raise AssertionError("resume: the relaunched run differs from the "
-                             "straight run by more than two straight runs "
-                             "differ")
-    for k in TRAINING_KERNELS:
-        if launches[k] < 1:
-            raise AssertionError(f"resume: {k} not launched after the "
-                                 "relaunch")
-    return dict(launches=launches, stopped=stopped[0], saved=saved,
-                restored=restored[0], straight_repeat=repeat,
-                relaunch_diff=diffs, bitwise=bitwise)
+    return dict(straight_repeat=repeat,
+                bitwise=not any(repeat.values()) and rows_repeat,
+                native_run=b, native_perf=_phase_perf(runs["straight_b"]),
+                native_launches=_phase_launches(runs["straight_b"]))
 
 
 # ---------------------------------------------------------------------------
@@ -2464,27 +2507,32 @@ def data_loader_phase(data: str, smi: str) -> dict:
 
 
 def data_trainer_phase(tmp: str, data: str, smi: str, resume: dict) -> dict:
-    """The baseline's joint phase at ResNet-50 depth (``DATA_STEPS``
-    micro-steps, a validation every ``DATA_VAL_EVERY``, ``det_seed``)
-    through the trainer CLI: jittered on worker processes straight, the
-    same SIGTERM'd (to its process group) past its first validation and
-    relaunched, jittered on threads; then unjittered on threads, native
-    and numpy.  The processes' and threads' runs, the relaunch and the
-    straight run, and the native and numpy runs must end on the same
-    bits (or, where the resume phase found that two straight runs do not
-    repeat, within their difference); the SIGTERM'd run must exit 143
-    with its state committed and no worker left."""
+    """The baseline's joint phase at ResNet-50 depth (the resume phase's
+    ``RESUME_STEPS`` micro-steps, a validation every ``RESUME_VAL_EVERY``,
+    ``det_seed``) through the trainer CLI: jittered on threads straight;
+    jittered on worker processes, stopped by SIGTERM to its process group
+    once the first validation's state has committed (exit 143, the state
+    committed at the step it stopped, no loader worker left) and relaunched
+    (exit 0, the state restored at that step); unjittered on threads with
+    numpy items, against the resume phase's second straight run (the same
+    command, native items).  The relaunch on processes must end on the
+    bits of the straight run on threads (every checkpoint and metrics row:
+    so the processes' stream is the threads' and the relaunch the straight
+    run), the numpy run on the native run's (or, where the resume phase
+    found that two straight runs do not repeat, within their difference).
+    The state's MB, the blocking snapshot's host ms, the commit and restore
+    seconds are printed."""
     results = os.path.join(tmp, "data")
     os.makedirs(results)
     procs = ["PatchClassificationDataModule.loader_backend = "
              "'grain_processes'"]
     jitter = ["PatchClassificationDataset.jitter = True"]
-    kw = dict(steps=DATA_STEPS, val_every=DATA_VAL_EVERY)
-    perf, launches = {}, {}
+    perf = {"threads_native": resume["native_perf"]}
+    launches = {"threads_native": resume["native_launches"]}
 
     def straight(name, gin, env=None):
         rc, text, secs, *_ = _run_trainer(data, results, name, env=env,
-                                          gin=gin, **kw)
+                                          gin=gin)
         if rc != 0:
             raise AssertionError(f"data: {name} exited {rc}:\n"
                                  + text[-3000:])
@@ -2496,31 +2544,47 @@ def data_trainer_phase(tmp: str, data: str, smi: str, resume: dict) -> dict:
             f"{launches[name]}; on {smi}")
         return text
 
-    straight("procs_jitter", procs + jitter)
+    straight("threads_jitter", jitter)
+    # SIGTERM once the first validation's state has committed, which
+    # happens in the background while the next micro-steps run
     state_dir = os.path.join(results, "killed", "checkpoints", "nopush_state")
-    first_val = f"step {DATA_VAL_EVERY}/{DATA_STEPS} "
+    first_val = f"step {RESUME_VAL_EVERY}/{RESUME_STEPS} "
     rc, text, secs, workers, left = _run_trainer(
         data, results, "killed", gin=procs + jitter,
         stop_when=lambda out: first_val in out and
-        os.path.exists(os.path.join(state_dir, "meta.json")), **kw)
+        os.path.exists(os.path.join(state_dir, "meta.json")))
     stopped = [int(ln.split("PREEMPTED at step ")[1].split(":")[0])
                for ln in text.splitlines() if "PREEMPTED at step " in ln]
     if rc != 143 or not stopped or not workers or left:
         raise AssertionError(f"data: the SIGTERM'd run exited {rc}, "
                              f"stopped {stopped}, workers {workers}, left "
                              f"alive {left}:\n" + text[-3000:])
-    log(f"data: SIGTERM to the trainer's process group after step "
-        f"{DATA_VAL_EVERY}'s state committed: exit 143 in {secs:.1f} s at "
-        f"micro-step {stopped[0]}; its {len(workers)} loader workers, none "
-        "left")
-    straight("killed", procs + jitter)
-    straight("threads_jitter", jitter)
-    straight("threads_native", [])
+    saved = _logged(text, "train state saved: ")[-1]
+    with open(os.path.join(state_dir, "meta.json")) as f:
+        meta = json.load(f)
+    if meta["step"] != stopped[0] or saved["step"] != stopped[0] or \
+            stopped[0] <= RESUME_VAL_EVERY:
+        raise AssertionError(f"data: stopped at {stopped}, state "
+                             f"{meta['step']}")
+    log(f"resume: SIGTERM to the trainer's process group after the state of "
+        f"step {RESUME_VAL_EVERY} committed: exit 143 in {secs:.1f} s, "
+        f"stopped at micro-step {stopped[0]} (accumulation {stopped[0] % 5} "
+        f"of 5); its {len(workers)} loader workers, none left; state "
+        f"{saved['bytes'] / 1e6:.1f} MB, blocking snapshot "
+        f"{saved['snapshot_ms']:.1f} ms host time in the step loop, commit "
+        f"{saved['commit_s']:.2f} s; on {smi}")
+    text = straight("killed", procs + jitter)
+    restored = _logged(text, "train state restored: ")
+    if not restored or restored[0]["step"] != stopped[0]:
+        raise AssertionError(f"data: the relaunch restored {restored}")
+    log(f"resume: relaunch restored step {restored[0]['step']} in "
+        f"{restored[0]['seconds']:.2f} s; its last async save "
+        f"{json.dumps(_logged(text, 'train state saved: ')[-1])}")
     straight("threads_numpy", [], env={"SPS_NATIVE_AUG": "0"})
     runs = {n: os.path.join(results, n) for n in perf}
+    runs["threads_native"] = resume["native_run"]
     diffs = {}
-    for a, b in (("procs_jitter", "killed"), ("procs_jitter",
-                                              "threads_jitter"),
+    for a, b in (("threads_jitter", "killed"),
                  ("threads_native", "threads_numpy")):
         d = _checkpoint_diffs(runs[a], runs[b])
         rows = _metric_rows(runs[a]) == _metric_rows(runs[b])
@@ -2537,11 +2601,14 @@ def data_trainer_phase(tmp: str, data: str, smi: str, resume: dict) -> dict:
         "within two straight runs' difference (resume phase)"
     log(f"data: largest |difference| per checkpoint {json.dumps(diffs)}, "
         f"held {held}")
-    for k in TRAINING_KERNELS:
-        if launches["procs_jitter"][k] < 1:
-            raise AssertionError(f"data: {k} not launched")
-    return dict(perf=perf, launches=launches["procs_jitter"], diffs=diffs,
-                stopped=stopped[0], workers=len(workers))
+    for name in ("threads_jitter", "killed"):
+        for k in TRAINING_KERNELS:
+            if launches[name][k] < 1:
+                raise AssertionError(f"data: {k} not launched in {name}")
+    return dict(perf=perf, launches=launches["threads_jitter"],
+                relaunch_launches=launches["killed"], diffs=diffs,
+                stopped=stopped[0], workers=len(workers), saved=saved,
+                restored=restored[0])
 
 
 # ---------------------------------------------------------------------------
@@ -3198,58 +3265,95 @@ def group_phase(tmp: str, data: str, start: str, batch, dev,
 
 
 def serve_checkpoint(tmp: str, run_name: str, phase: str, dev, smi: str,
-                     tag: str, size=(HEIGHT, WIDTH)) -> dict:
+                     tag: str, size=(HEIGHT, WIDTH), sizes=None) -> dict:
     """Phase ``phase`` of run ``run_name`` through ``serve.main`` in bf16 on
-    ``N_GROUP_SERVE`` images of ``size`` (K2, K1 and K3 on every batch), its
-    labels against the plain path (>= 99% of pixels), and K1 at its bank
+    ``N_GROUP_SERVE`` images of ``size`` (K2, K1 and K3 on every batch), or
+    with ``sizes`` on images of those sizes through ``--canvas`` ``size``
+    (host-normalized, padded with the mean, each prediction cropped back),
+    its labels against the plain path (>= 99% of pixels), and K1 at its bank
     and head: on random features against the plain head (rtol = atol =
     1e-4), on the served features (pushed prototypes, d ~ 0 there, where
     the activation's slope of -1e4 magnifies the fp32 rounding of every
-    form) against the float64 head within ``PROTO_PUSHED_RTOL`` of its
-    largest logit, as ``check_proto_rounding`` holds it."""
+    form) against the float64 head within ``pushed_bound``, as
+    ``check_proto_rounding`` holds it."""
     from scaleprotoseg_torch.model_loading import resolve_checkpoint
     run = os.path.join(tmp, run_name)
     ckpt = resolve_checkpoint(run, phase)
-    img_dir = os.path.join(tmp, "check_images_{}x{}".format(*size))
+    shapes = sizes or [size] * N_GROUP_SERVE
+    img_dir = os.path.join(tmp, "check_images_{}x{}".format(*size)
+                           + ("_canvas" if sizes else ""))
     out_dir = os.path.join(tmp, f"labels_{tag}")
-    names = [f"frame_{i:03d}.npy" for i in range(N_GROUP_SERVE)]
+    names = [f"frame_{i:03d}.npy" for i in range(len(shapes))]
     if not os.path.isdir(img_dir):
         os.makedirs(img_dir)
         rng = np.random.default_rng(3)
-        for n in names:
+        for n, shape in zip(names, shapes):
             np.save(os.path.join(img_dir, n),
-                    rng.integers(0, 256, (*size, 3), dtype=np.uint8))
+                    rng.integers(0, 256, (*shape, 3), dtype=np.uint8))
+    canvas = ["--canvas", str(size[0]), str(size[1])] if sizes else []
     kernels.reset_launch_counts()
     record = serve.main([run_name, phase, "--input", img_dir,
                          "--output", out_dir, "--batch", str(B),
                          "--raw-output", "--results-root", tmp,
-                         "--workers", "4"])
+                         "--workers", "4", *canvas])
     counts = kernels.launch_counts()
-    batches = 1 + math.ceil(N_GROUP_SERVE / B)
+    batches = 1 + math.ceil(len(names) / B)
     for name in SERVING_KERNELS:
         if counts[name] < batches:
             raise AssertionError(f"{tag}: {name} launched {counts[name]} "
                                  f"times in {batches} batches")
     plain_model, spec = load_model(run, ckpt, dtype=torch.bfloat16,
                                    fast=False, device=dev)
-    plain = plain_path(plain_model)
-    agree = total = 0
+    # the serving path's plain version: device-normalized uint8, or under
+    # the canvas host-normalized, padded images
+    plain = plain_labels(plain_model)
+    padded = serve._make_preprocess(img_dir, canvas=size)
+    mean = torch.tensor(IMAGENET_MEAN, device=dev)
+    std = torch.tensor(IMAGENET_STD, device=dev)
+    agree = total = decided_agree = decided = 0
     classes = set()
-    for i in range(0, N_GROUP_SERVE, B):
-        x = np.stack([np.load(os.path.join(img_dir, n))
-                      for n in names[i:i + B]])
-        want = plain(torch.from_numpy(x).to(dev)).cpu().numpy()
-        got = np.stack([np.load(os.path.join(out_dir, n))
-                        for n in names[i:i + B]])
-        agree += int((got == want).sum())
-        total += got.size
-        classes |= set(np.unique(got).tolist())
+    for i in range(0, len(names), B):
+        if sizes:
+            xn = torch.from_numpy(np.stack([padded(n) for n in
+                                            names[i:i + B]])).to(dev)
+        else:
+            x = torch.from_numpy(np.stack([np.load(os.path.join(img_dir, n))
+                                           for n in names[i:i + B]])).to(dev)
+            xn = (x.float() / 255.0 - mean) / std
+        xn = xn.to(torch.bfloat16)
+        lg = plain.logits(xn)
+        with torch.inference_mode():
+            kw = head_kw(plain_model)
+            head_err = logit_rounding(
+                plain_model.conv_features(xn), plain_model.prototypes(),
+                kw.pop("last_layer"), spec, **kw,
+                units=PROTO_DISTANCE_ERR)[0].amax(-1)
+        full = upsample_argmax_plain(lg, *size).cpu().numpy()
+        sure = decided_labels(lg, *size, head_err).cpu().numpy()
+        del head_err
+        for n, f, d, (h, w) in zip(names[i:i + B], full, sure,
+                                   shapes[i:i + B]):
+            got = np.load(os.path.join(out_dir, n))
+            if got.shape != (h, w):
+                raise AssertionError(f"{tag}: {n} labels {got.shape}, want "
+                                     f"{(h, w)}")
+            same = got == f[:h, :w]
+            agree += int(same.sum())
+            total += got.size
+            decided_agree += int(same[d[:h, :w]].sum())
+            decided += int(d[:h, :w].sum())
+            classes |= set(np.unique(got).tolist())
     agreement = agree / total
+    decided_agreement = decided_agree / decided
+    where = f"--canvas {size[0]} {size[1]} over {sorted(set(shapes))}" \
+        if sizes else f"{size[0]}x{size[1]}"
     log(f"{tag}: {phase} served {record['images']} images at "
-        f"{record['img_per_s']} img/s (batch {B}, {size[0]}x{size[1]}); "
+        f"{record['img_per_s']} img/s (batch {B}, {where}); "
         f"launches {counts}; labels agree with the plain path on "
         f"{100 * agreement:.4f}% of {total} pixels ({len(classes)} classes "
-        f"predicted); on {smi}")
+        f"predicted), on {100 * decided_agreement:.4f}% of the "
+        f"{100 * decided / total:.3f}% decided beyond the fp32 rounding of "
+        f"the head and the upsample; on {smi}")
     if agreement < 0.99:
         raise AssertionError(f"{tag}: agreement {agreement} < 0.99")
     del plain_model, plain
@@ -3257,13 +3361,9 @@ def serve_checkpoint(tmp: str, run_name: str, phase: str, dev, smi: str,
     model, _ = load_model(run, ckpt, dtype=torch.bfloat16, fast=True,
                           device=dev)
     gen = torch.Generator(device=dev).manual_seed(4)
-    x = torch.from_numpy(np.stack([np.load(os.path.join(img_dir, n))
-                                   for n in names[:B]])).to(dev)
-    mean = torch.tensor(IMAGENET_MEAN, device=dev)
-    std = torch.tensor(IMAGENET_STD, device=dev)
+    xn = torch.from_numpy(np.stack([padded(n) for n in names[:B]])).to(dev)
     with torch.no_grad():
-        own = model.conv_features(((x.float() / 255.0 - mean) / std)
-                                  .to(torch.bfloat16)).contiguous()
+        own = model.conv_features(xn.to(torch.bfloat16)).contiguous()
         protos = model.prototypes()
         kw = head_kw(model)
         head = pack_head(protos, spec=spec, **kw)
@@ -3281,14 +3381,16 @@ def serve_checkpoint(tmp: str, run_name: str, phase: str, dev, smi: str,
             .item() / scale
         plain_err = (proto_plain(own, protos, spec=spec, **kw) - exact) \
             .abs().max().item() / scale
+        bound = pushed_bound(own, protos, kw["last_layer"], spec, {
+            k: v for k, v in kw.items() if k != "last_layer"})
     log(f"{tag}: K1 at the bank ({spec.num_prototypes} prototypes, class "
         f"counts {sorted(set(spec.class_counts.tolist()))}, "
         f"{'group' if model.grouped else 'plain'} head): random features, "
         f"max |err| against the plain head {err:.3g} (rtol = atol = 1e-4); "
         f"the served features, max |err| against the float64 head over its "
         f"largest logit ({scale:.4g}): kernel {pushed_err:.3g}, fp32 plain "
-        f"head {plain_err:.3g} (limit {PROTO_PUSHED_RTOL:g}); on {smi}")
-    if not pushed_err <= PROTO_PUSHED_RTOL:
+        f"head {plain_err:.3g} (limit {bound:.3g}); on {smi}")
+    if not pushed_err <= bound:
         raise AssertionError(f"{tag}: K1 {pushed_err:.3g} from the float64 "
                              "head")
 
@@ -3302,6 +3404,7 @@ def serve_checkpoint(tmp: str, run_name: str, phase: str, dev, smi: str,
     del model
     torch.cuda.empty_cache()
     return dict(record, counts=counts, agreement=agreement,
+                decided_agreement=decided_agreement,
                 proto_max_abs_err=err, proto_pushed_err=pushed_err,
                 proto_ms=k1_ms, prototypes=spec.num_prototypes)
 
@@ -3486,15 +3589,17 @@ def write_torchvision_resnet101(path: str, seed: int) -> dict:
     return sd
 
 
-def check_aspp_pyramid(gen, dev, smi: str) -> dict:
-    """K2's forward and backward at the pyramid's six maps (C = 2048):
+def check_aspp_pyramid(gen, dev, smi: str, shapes=PYRAMID_SHAPES,
+                       tag: str = "pascal: K2 at the pyramid's maps") -> dict:
+    """K2's forward and backward at ``shapes`` (the pyramid's six maps by
+    default; C = 2048):
     forward within 2 bf16 ulps of the plain form and the same bits twice;
     the backward pair and the Function's backward as ``aspp_backward_case``
     holds them.  The forward's wrapper ms and device ms at each (CUDA
     events around calls queued behind a device sleep: the profiler's short
     sessions late in this long process have come back empty)."""
     out = {}
-    for b, h, w in PYRAMID_SHAPES:
+    for b, h, w in shapes:
         x, ws, bs, packed, _, err = aspp_case(gen, dev, h, w, b=b)
 
         def fwd():
@@ -3509,9 +3614,9 @@ def check_aspp_pyramid(gen, dev, smi: str) -> dict:
             dw_rel=case["dw_rel"], dx_ulps=case["dx_ulps"],
             dw_db_rel=case["wb_rel"])
         del case
-    log("pascal: K2 at the pyramid's maps (C = 2048; batch x rows x cols), "
-        "forward within 2 bf16 ulps, pack bit-exact, dW within 1e-3, the "
-        f"Function's backward against autograd: {json.dumps(out)} on {smi}")
+    log(f"{tag} (C = 2048; batch x rows x cols), forward within 2 bf16 ulps, "
+        "pack bit-exact, dW within 1e-3, the Function's backward against "
+        f"autograd: {json.dumps(out)} on {smi}")
     return out
 
 
@@ -4638,6 +4743,457 @@ def coco_push_artifacts() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+# ---------------------------------------------------------------------------
+# ADE20K: the 1800 / 150 bank, mixed sizes, the short-side-512 protocol
+# ---------------------------------------------------------------------------
+# ADE's image sizes: landscape, portrait, square, one upscaled at eval, one
+# downscaled, one halved exactly under the multiple of 64
+ADE_SIZES = [(512, 683), (683, 512), (512, 512), (384, 512), (768, 1024),
+             (1024, 1536)]
+ADE_SPLITS = {"train": 16, "val": N_EVAL}
+ADE_CROP = 512                        # the configs' window, batch B
+# warm-up, joint, last layer: a phase's timing starts past its first 3
+ADE_STEPS = (6, 8, 5)
+ADE_GROUP_STEPS = (5, 5)
+ADE_SINGLE_STEPS = 6                  # joint micro-steps of baseline_ade
+ADE_CLASSES, ADE_PROTOS = 150, 1800
+ADE_CANVAS = (683, 683)
+ADE_SERVE_SIZES = [(512, 683), (683, 512), (512, 512), (384, 512),
+                   (683, 683), (480, 640), (600, 450), (640, 683)]
+
+
+def logit_grid(h: int, w: int) -> tuple:
+    """The output-stride-8 grid of an h x w input (the stem's ceil-mode
+    pool): 512 -> 65, 683 -> 86, 704 -> 89, 768 -> 97."""
+    return h // 8 + 1, w // 8 + 1
+
+
+def write_ade_root(root: str, seed: int) -> str:
+    """ADE20K's preprocessed layout at ADE's image sizes: uint8 images and
+    final labels (0 void, class c stored as c + 1, 1-150) in a seeded 4 x
+    6 grid of class blocks framed by 8 void pixels, each block a seeded
+    colour of its class plus noise of +-40."""
+    rng = np.random.default_rng(seed)
+    palette = rng.integers(40, 216, (256, 3)).astype(np.int16)
+    index = {}
+    for split, n in ADE_SPLITS.items():
+        img_dir = os.path.join(root, "img_with_margin_0", split)
+        ann_dir = os.path.join(root, "annotations", split)
+        os.makedirs(img_dir)
+        os.makedirs(ann_dir)
+        index[split] = [f"{split}_{i:03d}" for i in range(n)]
+        for i, name in enumerate(index[split]):
+            h, w = ADE_SIZES[i % len(ADE_SIZES)]
+            grid = rng.integers(1, ADE_CLASSES + 1, (4, 6)).astype(np.uint8)
+            bh, bw = -(-h // 4), -(-w // 6)
+            label = np.repeat(np.repeat(grid, bh, 0), bw, 1)[:h, :w].copy()
+            rows, cols = np.arange(h) % bh, np.arange(w) % bw
+            label[(rows < 8) | (rows >= bh - 8)] = 0
+            label[:, (cols < 8) | (cols >= bw - 8)] = 0
+            noise = rng.integers(-40, 41, (h, w, 3), dtype=np.int16)
+            np.save(os.path.join(img_dir, name + ".npy"),
+                    np.clip(palette[label] + noise, 0, 255).astype(np.uint8))
+            np.save(os.path.join(ann_dir, name + ".npy"), label)
+    with open(os.path.join(root, "all_images.json"), "w") as f:
+        json.dump(index, f)
+    return root
+
+
+def check_proto_ade(gen, dev, smi: str) -> dict:
+    """K1 at ADE20K's bank over 150 classes on random features of the
+    512 x 683 eval input's grid at the multiple of 64 (512 x 704: 65 x 89,
+    batch 1): ``scaleproto_ade``'s plain head (1800 over 4 scales of 450),
+    ``baseline_ade``'s (1800 on 1 scale) and ``group_scaleproto_ade``'s
+    group head (3 groups); each against the plain head (rtol = atol =
+    1e-4) and at pushed prototypes against the float64 head
+    (``check_proto_rounding``, ``pushed_bound``); the packed head's
+    chunks, steps and passes; wrapper ms, and device ms beside the plain
+    head's (CUDA events around calls queued behind a device sleep)."""
+    out = {}
+    grid = logit_grid(*evm.ade_eval_shape(512, 683, evm.ADE_SHAPE_MULTIPLE))
+    for name, spec, grouped in (
+            ("1800x4", ProtoSpec.equal_allocation(
+                ADE_PROTOS, 64, num_classes=ADE_CLASSES, num_scales=4),
+             False),
+            ("1800x1", ProtoSpec.equal_allocation(
+                ADE_PROTOS, 64, num_classes=ADE_CLASSES, num_scales=1),
+             False),
+            ("1800x4 group", ProtoSpec.equal_allocation(
+                ADE_PROTOS, 64, num_classes=ADE_CLASSES, num_scales=4,
+                num_groups=3), True)):
+        c, d = spec.num_classes, spec.feature_depth
+        feats = torch.rand((1, *grid, d), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        protos = torch.rand((spec.num_prototypes, 64), generator=gen,
+                            device=dev)
+        if grouped:
+            gw = torch.rand((c, 3, spec.max_protos_per_class),
+                            generator=gen, device=dev) + 1e-3
+            kw = dict(group_projection=gw / gw.sum(-1, keepdim=True),
+                      last_layer_group=torch.randn(
+                          (c * 3, c), generator=gen, device=dev) *
+                      math.sqrt(2.0 / (c * 3)))
+            last = None
+        else:
+            kw = {}
+            last = torch.randn((spec.num_prototypes, c), generator=gen,
+                               device=dev) * 0.5
+        head = pack_head(protos, last, spec, **kw)
+        got = kernels.fused_proto_logits(feats, protos, last, spec, **kw,
+                                         head=head)
+        want = proto_plain(feats, protos, last, spec, **kw)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        pushed = check_proto_rounding(gen, dev, feats, spec, kw, last)
+        steps = head.steps.cpu().numpy()
+
+        def k1():
+            return kernels.fused_proto_logits(feats, protos, last, spec,
+                                              **kw, head=head)
+
+        def plain():
+            return proto_plain(feats, protos, last, spec, **kw)
+
+        out[name] = dict(
+            prototypes=spec.num_prototypes,
+            chunks=int(head.columns.shape[0]), steps=int(steps.shape[0]),
+            passes=int((steps[:, 5] & OPEN > 0).sum()),
+            max_abs_err=(got - want).abs().max().item(),
+            pushed=[list(r) for r in pushed],
+            ms=time_ms(k1), device_ms=queued_device_ms(k1),
+            plain_ms=time_ms(plain), plain_device_ms=queued_device_ms(plain))
+    log(f"ade: K1 at ADE20K's bank ({ADE_PROTOS} prototypes, {ADE_CLASSES} "
+        f"classes) on 1 x {grid[0]} x {grid[1]} features, against the plain "
+        f"head (rtol = atol = 1e-4) and the float64 head at pushed "
+        f"prototypes ((kernel, plain, bound) per draw); packed chunks, "
+        f"steps, passes; ms (CUDA-event medians of 10), device ms (queued) "
+        f"beside the plain head's: {json.dumps(out)} on {smi}")
+    return out
+
+
+def check_upsample_ade(gen, dev, smi: str) -> dict:
+    """K3 at 150 classes from the grids of ADE's eval inputs (the multiple
+    of 64 and the exact sizes) to its image sizes: labels equal to the
+    plain version's wherever its top-two margin is >= 1e-5; the block
+    plan; wrapper and device ms beside ``F.interpolate`` + ``argmax``'s."""
+    from scaleprotoseg_torch.kernels import upsample as kup
+    out = {}
+    cases = sorted({(logit_grid(*evm.ade_eval_shape(h, w, m)), (h, w))
+                    for h, w in ADE_SIZES
+                    for m in (evm.ADE_SHAPE_MULTIPLE, None)})
+    for (h, w), (hh, ww) in cases:
+        lg = torch.randn((1, h, w, ADE_CLASSES), generator=gen, device=dev)
+        got = kernels.fused_upsample_argmax(lg, hh, ww)
+        want = upsample_argmax_plain(lg, hh, ww)
+        up = torch.einsum("oh,bhpc->bopc", torch.as_tensor(
+            _bilinear_matrix(hh, h), device=dev), torch.einsum(
+            "bhwc,pw->bhpc", lg, torch.as_tensor(_bilinear_matrix(ww, w),
+                                                 device=dev)))
+        top2 = torch.topk(up, 2, dim=-1).values
+        decided = (top2[..., 0] - top2[..., 1]) >= 1e-5
+        diff = got.int() != want.int()
+        if got.dtype != torch.uint8 or int((diff & decided).sum()):
+            raise AssertionError(f"upsample {h}x{w} -> {hh}x{ww} at "
+                                 f"{ADE_CLASSES} classes: "
+                                 f"{int((diff & decided).sum())} decided "
+                                 "labels differ")
+        del up, top2, decided
+
+        def k3():
+            return kernels.fused_upsample_argmax(lg, hh, ww)
+
+        def library():
+            return F.interpolate(lg.permute(0, 3, 1, 2), size=(hh, ww),
+                                 mode="bilinear", align_corners=False) \
+                .argmax(1)
+
+        out[f"{h}x{w}->{hh}x{ww}"] = dict(
+            differ=int(diff.sum()), plan=kup.plan(h, w, hh, ww, ADE_CLASSES),
+            ms=round(time_ms(k3), 4), device_ms=queued_device_ms(k3),
+            library_ms=round(time_ms(library), 4),
+            library_device_ms=queued_device_ms(library))
+    log(f"ade: K3 at {ADE_CLASSES} classes, uint8 labels; labels that differ "
+        f"from the plain version (none where the margin is >= 1e-5), the "
+        f"block plan (span, rows, columns), ms and device ms beside "
+        f"F.interpolate + argmax's: {json.dumps(out)} on {smi}")
+    return out
+
+
+def ade_eval(tmp: str, data: str, multiple, dev, smi: str) -> dict:
+    """``run_evaluation`` of ``ade_group``'s ``final-group`` over the 8 val
+    images at batch 1 with ``shape_multiple`` ``multiple`` (None: the
+    default of 64; 0: the exact short-side-512 sizes): the confusion matrix
+    against a host bincount of the predictions, the labels against the
+    plain path (>= 99% of pixels, >= 99.9% of those decided beyond the
+    upsample's fp32 rounding: ``decided_labels``), K3 once a batch and K2
+    once a batch and a sample render; img/s; the K3 plans built and, over
+    the split's
+    distinct (grid, label size) pairs, the host ms an image that building
+    ``plan`` and ``_device_taps`` anew costs (the caches cleared)."""
+    from scaleprotoseg_torch.kernels import upsample as kup
+    names = sorted(p_[:-4] for p_ in os.listdir(
+        os.path.join(data, "annotations", "val")))
+    kup.plan.cache_clear()
+    kernels.reset_launch_counts()
+    evm.SegEvaluator = RecordingEvaluator
+    t0 = time.perf_counter()
+    try:
+        res = evm.run_evaluation("ade_group", "final-group", batch_size=1,
+                                 data_type="ade", data_root=data,
+                                 results_root=tmp, shape_multiple=multiple)
+    finally:
+        evm.SegEvaluator = SegEvaluator
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    plans = kup.plan.cache_info().misses
+    ev = RecordingEvaluator.last
+    grun = os.path.join(tmp, "ade_group")
+    model, _ = load_model(grun, os.path.join(grun, "checkpoints",
+                                             "final-group.pth"),
+                          dtype=torch.bfloat16, fast=False, device=dev)
+    plain_labels(model)             # K2 made plain
+
+    @torch.inference_mode()
+    def plain_logits(xn):
+        return model(xn).logits.float().contiguous()
+
+    m = evm.ADE_SHAPE_MULTIPLE if multiple is None else multiple or None
+    agree = total = decided_agree = decided = 0
+    cm = np.zeros((ADE_CLASSES, ADE_CLASSES), np.int64)
+    pairs = set()
+    for name, pred in zip(names, (p_ for b_ in ev.preds for p_ in b_)):
+        img = np.load(os.path.join(data, "img_with_margin_0", "val",
+                                   name + ".npy"))
+        ann = eval_targets(np.load(os.path.join(
+            data, "annotations", "val", name + ".npy")), "ade")
+        x = torch.from_numpy(evm.prepare_image(img, "ade", m))[None].to(dev)
+        pairs.add((logit_grid(*x.shape[1:3]), ann.shape))
+        lg = plain_logits(x)
+        want = upsample_argmax_plain(lg, *ann.shape)[0].cpu().numpy()
+        sure = decided_labels(lg, *ann.shape)[0].cpu().numpy()
+        del lg
+        agree += int((pred == want).sum())
+        total += pred.size
+        decided_agree += int((pred == want)[sure].sum())
+        decided += int(sure.sum())
+        t = ann.astype(np.int64) - 1
+        valid = t >= 0
+        cm += np.bincount(t[valid] * ADE_CLASSES + pred[valid],
+                          minlength=ADE_CLASSES ** 2).reshape(
+                              ADE_CLASSES, ADE_CLASSES)
+    del model
+    if not np.array_equal(ev.cm, cm):
+        raise AssertionError(f"ade eval (multiple {m}): confusion matrix "
+                             "differs from the host bincount")
+    agreement = agree / total
+    decided_agreement = decided_agree / decided
+    kup.plan.cache_clear()
+    kup._device_taps.cache_clear()
+    t1 = time.perf_counter()
+    for (h, w), (hh, ww) in sorted(pairs):
+        kup.plan(h, w, hh, ww, ADE_CLASSES)
+        kup._device_taps(hh, h, torch.device(dev))
+        kup._device_taps(ww, w, torch.device(dev))
+    torch.cuda.synchronize()
+    cache_ms = (time.perf_counter() - t1) * 1e3 / len(names)
+    want = {"upsample": len(ev.preds), "aspp": len(ev.preds) + N_SAMPLES}
+    log(f"ade eval (shape multiple {m}): mIoU {res['mean_iou']:.6f}, pixel "
+        f"acc {res['pixel_accuracy']:.6f}, {len(names) / secs:.3f} img/s "
+        f"({len(names)} images at batch 1, the load and sample renders "
+        f"included); eval inputs {sorted({g for g, _ in pairs})} as grids; "
+        f"confusion matrix equal to the host bincount; labels agree with the "
+        f"plain path on {100 * agreement:.4f}% of {total} pixels, on "
+        f"{100 * decided_agreement:.4f}% of the {100 * decided / total:.3f}% "
+        f"decided beyond the upsample's fp32 rounding; K3 plans built "
+        f"{plans} for {len(pairs)} (grid, label size) pairs, built anew "
+        f"{cache_ms:.3f} host ms an image; launches {counts} on {smi}")
+    if counts != {**counts, **want} or agreement < 0.99 or \
+            decided_agreement < 0.999:
+        raise AssertionError(f"ade eval (multiple {m}): agreement "
+                             f"{agreement}, decided {decided_agreement}, "
+                             f"launches {counts}, want {want}")
+    return dict(miou=res["mean_iou"], pixel_accuracy=res["pixel_accuracy"],
+                agreement=agreement, decided_agreement=decided_agreement,
+                img_per_s=len(names) / secs,
+                plans=plans, cache_ms_per_image=cache_ms, counts=counts)
+
+
+def ade_phase(tmp: str, dev, smi: str) -> dict:
+    """ADE20K at full depth and width (150 classes, 1800 prototypes,
+    ResNet-101): K2 at the 512 crop (batch 2) and at an eval map, forward
+    and backward; K1 at its bank (plain, single-scale, grouped); K3 at 150
+    classes to ADE's sizes; a synthetic ADE20K root (16 train, 8 val images
+    of ADE's sizes, final labels in class blocks framed by void);
+    ``scaleproto_ade`` through ``train_wandb_multiscale.train
+    --gpu-recipe`` at batch 2 on 512 crops (scales 0.5-2, ``iter_size`` 5;
+    ``push_artifacts=False``): 6 warm-up, 8 joint, push at batch 1 over the
+    mixed sizes, 5 last-layer micro-steps, K2's forward once a micro-step
+    and a validation batch, its backward once a micro-step; one
+    micro-step of the kernel path against the plain path;
+    ``group_scaleproto_ade`` from its ``push_final`` (5 + 5); 6 joint
+    micro-steps of ``baseline_ade`` through ``train_wandb.main``;
+    ``run_evaluation`` of ``final-group`` with the short-side-512
+    protocol at the default multiple of 64 and at 0 (``ade_eval``); and
+    ``final-group`` served through ``serve.main --canvas 683 683`` on 8
+    images of mixed sizes no larger than it (>= 99% equal to the plain
+    path, >= 99.9% where decided beyond the fp32 rounding of the head and
+    the upsample; K1 at the pushed bank).  The synthetic ``final-group``
+    saturates its group head (logits up to ~2e6): below those roundings
+    K1 / K3 and their plain versions break ties apart."""
+    from scaleprotoseg_torch import (cli_common, finetune_wandb_group,
+                                     train_wandb, train_wandb_multiscale)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    eval_grid = logit_grid(*evm.ade_eval_shape(512, 683,
+                                               evm.ADE_SHAPE_MULTIPLE))
+    out = dict(aspp=check_aspp_pyramid(
+        gen, dev, smi, shapes=((B, *logit_grid(ADE_CROP, ADE_CROP)),
+                               (1, *eval_grid)),
+        tag="ade: K2 at the 512 crop and the 512 x 704 eval input"),
+        proto=check_proto_ade(gen, dev, smi),
+        upsample=check_upsample_ade(gen, dev, smi))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    data = write_ade_root(os.path.join(tmp, "ade"), seed=20)
+    log(f"ade: {ADE_SPLITS} images of ADE's sizes {ADE_SIZES} written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    val_batches = math.ceil(ADE_SPLITS["val"] / B)
+
+    # the prototype phase of the multiscale model
+    gin = [f"train.warmup_steps = {ADE_STEPS[0]}",
+           f"train.joint_steps = {ADE_STEPS[1]}",
+           f"train.finetune_steps = {ADE_STEPS[2]}",
+           f"Trainer.val_check_interval = {max(ADE_STEPS)}"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trained = train_wandb_multiscale.train(
+        "scaleproto_ade", "ade_train", data_root=data, gin_overrides=gin,
+        gpu_recipe=True, results_root=tmp, push_artifacts=False)
+    counts = kernels.launch_counts()
+    secs = time.perf_counter() - t0
+    perf = {}
+    for phase, steps in enumerate(ADE_STEPS):
+        res = trained["phases"][phase]
+        bwd = 0 if phase == 2 else steps
+        want = {"aspp": steps + res.validations * val_batches,
+                "aspp_grad_pack": bwd, "aspp_grad_weight": bwd}
+        if res.steps_done != steps or \
+                not all(math.isfinite(v) for v in res.losses) or \
+                res.launches != {**res.launches, **want}:
+            raise AssertionError(f"ade phase {phase}: {res.steps_done} "
+                                 f"steps, losses {res.losses}, launches "
+                                 f"{res.launches}, want {want}")
+        perf[phase] = p = res.perf
+        log(f"ade train phase {phase}: {steps} micro-steps, "
+            f"{res.validations} validations; launches {res.launches}; "
+            f"losses first {res.losses[0]:.4f} last {res.losses[-1]:.4f}, "
+            f"all finite; {p['img_per_s']} img/s, median step "
+            f"{p['step_ms_median']} ms, device idle share "
+            f"{p['device_idle_share']}, peak {p['peak_memory_mb']} MB; batch "
+            f"{B} at {ADE_CROP} x {ADE_CROP} (scales 0.5-2), {ADE_PROTOS} "
+            f"prototypes, {ADE_CLASSES} classes, full depth, bf16 recipe; on "
+            f"{smi}")
+    push = trained["push"]
+    out["push"] = dict(prototypes=int(push.winners.shape[0]),
+                       matched=int((push.winners >= 0).sum()),
+                       pruned=int(push.winners.shape[0] -
+                                  push.kept.shape[0]),
+                       kept=int(push.kept.shape[0]))
+    log(f"ade: train_wandb_multiscale scaleproto_ade took {secs:.1f} s; "
+        f"push at batch 1 over {ADE_SPLITS['train']} images of mixed sizes "
+        f"(scan only, no artifacts): {json.dumps(out['push'])}; launches "
+        f"{counts}")
+
+    run = os.path.join(tmp, "ade_train")
+    _, bindings = cli_common.load_config(os.path.join(run, "config.gin"))
+    batch = next(iter(cli_common.make_loaders(bindings, B, seed=5,
+                                              data_root=data)[0]))
+    step_cmp = pascal_step_check(bindings, os.path.join(
+        run, "checkpoints", "nopush_last"), batch, dev)
+    log(f"ade: one micro-step at batch {B} on {ADE_CROP} crops, kernel path "
+        f"vs plain path: {json.dumps(step_cmp)} on {smi}")
+    if not (step_cmp["loss_abs_err"] <= 1e-3
+            and step_cmp["aspp_grad_rel_l2"] <= 2e-2
+            and step_cmp["proto_grad_rel_l2"] <= 2e-2
+            and step_cmp["launches"] == dict.fromkeys(TRAINING_KERNELS, 1)):
+        raise AssertionError(f"ade kernel vs plain micro-step {step_cmp}")
+    out["step_cmp"] = step_cmp
+    torch.cuda.empty_cache()
+
+    # the group phase from push_final
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    group = finetune_wandb_group.main(_coco_argv(
+        "group_scaleproto_ade", "ade_group", data, tmp,
+        [f"train.warmup_steps = {ADE_GROUP_STEPS[0]}",
+         f"train.joint_steps = {ADE_GROUP_STEPS[1]}",
+         f"Trainer.val_check_interval = {max(ADE_GROUP_STEPS)}"],
+        ["--start-checkpoint", trained["final"]]))
+    group_counts = kernels.launch_counts()
+    for phase, steps in enumerate(ADE_GROUP_STEPS):
+        res = group["phases"][phase]
+        want = steps + res.validations * val_batches
+        if res.steps_done != steps or res.launches["aspp"] != want or \
+                not all(math.isfinite(v) for v in res.losses):
+            raise AssertionError(f"ade group phase {phase}: "
+                                 f"{res.steps_done} steps, K2 "
+                                 f"{res.launches['aspp']} (want {want})")
+        p = res.perf
+        log(f"ade group phase {phase}: {steps} micro-steps; launches "
+            f"{res.launches}; losses first {res.losses[0]:.4f} last "
+            f"{res.losses[-1]:.4f}; {p['img_per_s']} img/s, median step "
+            f"{p['step_ms_median']} ms, device idle share "
+            f"{p['device_idle_share']}; on {smi}")
+    gmodel, gspec = load_model(os.path.join(tmp, "ade_group"),
+                               group["final"] + ".pth", device=dev)
+    glw = gmodel.group_weights()[1]
+    if tuple(glw.shape) != (ADE_CLASSES * 3, ADE_CLASSES):
+        raise AssertionError(f"ade group head {tuple(glw.shape)}")
+    log(f"ade group: final-group after {time.perf_counter() - t0:.1f} s; "
+        f"{gspec.num_prototypes} prototypes, group last layer "
+        f"{tuple(glw.shape)}")
+    del gmodel
+    torch.cuda.empty_cache()
+
+    # the single-scale baseline
+    kernels.reset_launch_counts()
+    single = train_wandb.main(_coco_argv(
+        "baseline_ade", "ade_single", data, tmp,
+        ["train.warmup_steps = 0", f"train.joint_steps = {ADE_SINGLE_STEPS}",
+         "train.finetune_steps = 0", "train.push_proto = False",
+         f"Trainer.val_check_interval = {ADE_SINGLE_STEPS}"]))
+    single_counts = kernels.launch_counts()
+    res = single["phases"][1]
+    want = {"aspp": ADE_SINGLE_STEPS + res.validations * val_batches,
+            "aspp_grad_pack": ADE_SINGLE_STEPS,
+            "aspp_grad_weight": ADE_SINGLE_STEPS}
+    if res.steps_done != ADE_SINGLE_STEPS or \
+            res.launches != {**res.launches, **want} or \
+            not all(math.isfinite(v) for v in res.losses):
+        raise AssertionError(f"ade single: {res.steps_done} steps, launches "
+                             f"{res.launches}, want {want}")
+    p = res.perf
+    log(f"ade single (baseline_ade, summed ASPP, {ADE_PROTOS} prototypes of "
+        f"1 scale): {ADE_SINGLE_STEPS} joint micro-steps; launches "
+        f"{res.launches}; losses {[round(v, 4) for v in res.losses]}; "
+        f"{p['img_per_s']} img/s, median step {p['step_ms_median']} ms; on "
+        f"{smi}")
+    torch.cuda.empty_cache()
+
+    # the eval protocol at the default multiple and exact, then serving
+    out["eval"] = ade_eval(tmp, data, None, dev, smi)
+    out["eval_exact"] = ade_eval(tmp, data, 0, dev, smi)
+    torch.cuda.empty_cache()
+    out["serve"] = serve_checkpoint(tmp, "ade_group", "final-group", dev,
+                                    smi, "ade_serving", size=ADE_CANVAS,
+                                    sizes=ADE_SERVE_SIZES)
+    if out["serve"]["decided_agreement"] < 0.999:
+        raise AssertionError(f"ade serving agreement "
+                             f"{out['serve']['decided_agreement']} < 0.999 "
+                             "where decided")
+    out.update(counts=counts, group_counts=group_counts,
+               single_counts=single_counts, perf=perf)
+    return out
+
+
 def main() -> None:
     if sys.argv[1:] == ["coco-push-artifacts"]:
         return coco_push_artifacts()
@@ -4679,6 +5235,8 @@ def main() -> None:
                         smi)
     with tempfile.TemporaryDirectory() as tmp:
         coco = timed("coco", coco_phase, tmp, dev, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        ade = timed("ade", ade_phase, tmp, dev, smi)
     quant, evals = served["quant"], served["evals"]
     group, pruning = trained["group"], trained["pruning"]
     single, resume = trained["single"], trained["resume"]
@@ -4703,7 +5261,8 @@ def main() -> None:
                       "pruned_eval": pruning["eval_valid"]["counts"][name],
                       "single_training": single["counts"][name],
                       "single_serving": single["serve"]["counts"][name],
-                      "resumed_training": resume["launches"][name],
+                      "resumed_training":
+                          data_run["relaunch_launches"][name],
                       "data_training": data_run["launches"][name],
                       **{f"knob_{k}": r["launches"][name]
                          for k, r in trained["knobs"]["runs"].items()},
@@ -4724,7 +5283,13 @@ def main() -> None:
                       "coco_group_training": coco["group_counts"][name],
                       "coco_single_training": coco["single_counts"][name],
                       "coco_eval": coco["eval"]["counts"][name],
-                      "coco_serving": coco["serve"]["counts"][name]}
+                      "coco_serving": coco["serve"]["counts"][name],
+                      "ade_training": ade["counts"][name],
+                      "ade_group_training": ade["group_counts"][name],
+                      "ade_single_training": ade["single_counts"][name],
+                      "ade_eval": ade["eval"]["counts"][name],
+                      "ade_eval_exact": ade["eval_exact"]["counts"][name],
+                      "ade_serving": ade["serve"]["counts"][name]}
                for name in results}
     # the Pascal slice's own paths: K2's forward and backward in its
     # training, K1 and K3 in its test export and serving
@@ -4745,7 +5310,15 @@ def main() -> None:
                           for w in ("coco_training", "coco_single_training")),
                         ("aspp", "coco_group_training"),
                         ("int8_absmax", "msc_quant8_dynamic"),
-                        ("upsample", "coco_eval")):
+                        ("upsample", "coco_eval"),
+                        # ADE20K's training, eval at both multiples and
+                        # serving through the canvas
+                        *((k, w) for k in TRAINING_KERNELS
+                          for w in ("ade_training", "ade_single_training")),
+                        ("aspp", "ade_group_training"),
+                        ("upsample", "ade_eval"),
+                        ("upsample", "ade_eval_exact"),
+                        *((k, "ade_serving") for k in SERVING_KERNELS)):
         if by_path[name][where] < 1:
             raise AssertionError(f"{name} never launched on {where}")
     # each kernel's launches in the main path of its slice: the training

@@ -8,10 +8,12 @@ official label ids 0-33 with the void ids merged, then license plate);
 VOC-2012 stores its raw ids (0-20, 255 void) and converts online too
 (``PASCAL_ID_MAPPING``: k -> k + 1, 255 -> 0).  COCO-Stuff's stored ids
 are final (``COCO_LUT`` is applied offline, when the dataset is
-preprocessed), so its online conversion is the identity, as in the JAX
-package.  ADE and EM training are not part of the port yet and are
-refused by name.  The evaluation reads COCO-Stuff and EM labels as they
-are stored and names their classes with the tables below.
+preprocessed), and so are ADE20K's (0 void, class c stored as c + 1, the
+150 classes of ``ADE20K_LABELS``), so their online conversion is the
+identity, as in the JAX package.  EM training is not part of the port
+yet and is refused by name.  The evaluation reads COCO-Stuff, ADE20K and
+EM labels as they are stored and names their classes with the tables
+below.
 """
 
 from __future__ import annotations
@@ -57,6 +59,35 @@ PASCAL_CATEGORIES = ["void", "__background__"] + [
     "chair", "cow", "diningtable", "dog", "horse", "motorbike", "person",
     "pottedplant", "sheep", "sofa", "train", "tvmonitor",
 ]
+
+
+# ADE20K (SceneParsing, 150 classes): class c is stored as c + 1, 0 is void
+ADE20K_LABELS = [
+    "wall", "building", "sky", "floor", "tree", "ceiling", "road", "bed",
+    "windowpane", "grass", "cabinet", "sidewalk", "person", "earth", "door",
+    "table", "mountain", "plant", "curtain", "chair", "car", "water",
+    "painting", "sofa", "shelf", "house", "sea", "mirror", "rug", "field",
+    "armchair", "seat", "fence", "desk", "rock", "wardrobe", "lamp",
+    "bathtub", "railing", "cushion", "base", "box", "column", "signboard",
+    "chest of drawers", "counter", "sand", "sink", "skyscraper", "fireplace",
+    "refrigerator", "grandstand", "path", "stairs", "runway", "case",
+    "pool table", "pillow", "screen door", "stairway", "river", "bridge",
+    "bookcase", "blind", "coffee table", "toilet", "flower", "book", "hill",
+    "bench", "countertop", "stove", "palm", "kitchen island", "computer",
+    "swivel chair", "boat", "bar", "arcade machine", "hovel", "bus", "towel",
+    "light", "truck", "tower", "chandelier", "awning", "streetlight",
+    "booth", "television receiver", "airplane", "dirt track", "apparel",
+    "pole", "land", "bannister", "escalator", "ottoman", "bottle", "buffet",
+    "poster", "stage", "van", "ship", "fountain", "conveyer belt", "canopy",
+    "washer", "plaything", "swimming pool", "stool", "barrel", "basket",
+    "waterfall", "tent", "bag", "minibike", "cradle", "oven", "ball", "food",
+    "step", "tank", "trade name", "microwave", "pot", "animal", "bicycle",
+    "lake", "dishwasher", "screen", "blanket", "sculpture", "hood", "sconce",
+    "vase", "traffic light", "tray", "ashcan", "fan", "pier", "crt screen",
+    "plate", "monitor", "bulletin board", "shower", "radiator", "glass",
+    "clock", "flag",
+]
+ADE20k_ID_2_LABEL = dict(enumerate(ADE20K_LABELS))
 
 
 # COCO-Stuff: raw id k is class k (stored as k + 1, 255 -> 0 void)
@@ -116,12 +147,12 @@ PASCAL_LUT = mapping_to_lut(PASCAL_ID_MAPPING, size=256)
 COCO_LUT = mapping_to_lut(COCO_ID_MAPPING, size=256)
 IDENTITY_LUT = np.arange(256, dtype=np.uint8)
 _LUTS = {"cityscapes": CITYSCAPES_19_LUT, "pascal": PASCAL_LUT,
-         "coco": IDENTITY_LUT}
+         "coco": IDENTITY_LUT, "ade": IDENTITY_LUT}
 
 
 def conversion_lut(data_type: str) -> np.ndarray:
     """The 256-entry online label conversion of a dataset (the identity
-    for COCO-Stuff, whose stored ids are final)."""
+    for COCO-Stuff and ADE20K, whose stored ids are final)."""
     if data_type in _LUTS:
         return _LUTS[data_type]
     raise NotImplementedError(
@@ -131,6 +162,6 @@ def conversion_lut(data_type: str) -> np.ndarray:
 
 def convert_targets(targets: np.ndarray, data_type: str) -> np.ndarray:
     """Stored annotation -> labels (0 = void, class c as c + 1);
-    COCO-Stuff's stored ids pass through unchanged."""
+    COCO-Stuff's and ADE20K's stored ids pass through unchanged."""
     lut = conversion_lut(data_type)
     return targets if lut is IDENTITY_LUT else lut[targets]

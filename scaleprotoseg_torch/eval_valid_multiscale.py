@@ -3,13 +3,15 @@
     python -m scaleprotoseg_torch.eval_valid_multiscale MODEL_NAME PHASE \\
         [batch_size] [data_type] [--quant8-static | --quant8] \\
         [--calib-images N] [--fast-output | --exact-output] [--fp32] \\
-        [--limit N] [--data-root DIR] [--results-root DIR] [--device cpu]
+        [--shape-multiple N] [--limit N] [--data-root DIR] \\
+        [--results-root DIR] [--device cpu]
 
 The port's counterpart of ``scaleprotoseg_tpu/eval_valid_multiscale.py``:
 loads the run's checkpoint, runs full-image inference over the raw val
 ``.npy`` files (Cityscapes, COCO-Stuff, EM; Pascal VOC-2012 resized to
 513 x 513 after normalization, as cv2's ``INTER_LINEAR`` resizes it:
-``ops.resize.resize_linear_cv2``), upsamples the logits to label
+``ops.resize.resize_linear_cv2``; ADE20K resized the same way to a short
+side of 512, ``ade_eval_shape``), upsamples the logits to label
 resolution, and accumulates mIoU and pixel accuracy ignoring void,
 with the top-K prototype purity curve over the whole split.  Writes
 ``evaluation/<phase>[-quant8static|-quant8]/{iou_scores.json,
@@ -30,8 +32,10 @@ the mIoU difference to the unquantized one is the accuracy cost of int8:
 ``--quant8-static`` calibrates on the first ``--calib-images`` val images
 (float32, one per batch); ``--quant8`` (dynamic) forces the non-K3
 output path.  Images are batched only while both the image's and the
-annotation's shapes repeat, so a Pascal split runs mostly at batch 1.
-ADE is refused until its protocol is ported (ROADMAP.md Queue 1 item 5).
+annotation's shapes repeat, so a Pascal or ADE split runs mostly at
+batch 1.  ADE's short-side-512 sizes are rounded to ``--shape-multiple``
+(64 by default, as in the JAX package; 0 keeps the exact size of the
+reference's protocol).
 """
 
 from __future__ import annotations
@@ -41,13 +45,14 @@ import json
 import os
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from scaleprotoseg_torch import settings
-from scaleprotoseg_torch.constants import (CITYSCAPES_19_EVAL_CATEGORIES,
+from scaleprotoseg_torch.constants import (ADE20k_ID_2_LABEL,
+                                           CITYSCAPES_19_EVAL_CATEGORIES,
                                            CITYSCAPES_19_LUT,
                                            CITYSCAPES_CATEGORIES,
                                            COCO_ID_2_LABEL, EM_ID_2_LABEL,
@@ -64,8 +69,10 @@ from scaleprotoseg_torch.ops.resize import (resize_label_nearest_np,
 from scaleprotoseg_torch.train.metrics import create_logger
 
 FULL_IMAGE = ("cityscapes", "coco", "em")
-PROTOCOLS = FULL_IMAGE + ("pascal",)
+PROTOCOLS = FULL_IMAGE + ("pascal", "ade")
 PASCAL_SIZE = 513      # Pascal's eval input, both sides
+ADE_SHORT_SIDE = 512   # ADE's eval input, the short side
+ADE_SHAPE_MULTIPLE = 64
 
 
 def class_names(data_type: str, num_classes: int) -> List[str]:
@@ -78,6 +85,8 @@ def class_names(data_type: str, num_classes: int) -> List[str]:
         return [PASCAL_CATEGORIES[inv[i] + 1] if inv[i] + 1 <
                 len(PASCAL_CATEGORIES) else str(i)
                 for i in range(num_classes)]
+    if data_type == "ade":
+        return [ADE20k_ID_2_LABEL[i] for i in range(num_classes)]
     if data_type == "em":
         return [EM_ID_2_LABEL[i] for i in range(num_classes)]
     if data_type == "coco":
@@ -86,12 +95,6 @@ def class_names(data_type: str, num_classes: int) -> List[str]:
 
 
 def _check_protocol(data_type: str) -> None:
-    if data_type == "ade":
-        raise NotImplementedError(
-            "ade evaluation (its short-side-512 cv2 INTER_LINEAR resize "
-            "and --shape-multiple) waits for the port of ADE: its labels, "
-            "data path and configs (ROADMAP.md Queue 1 item 5); the port "
-            f"evaluates {PROTOCOLS}")
     if data_type not in PROTOCOLS:
         raise ValueError(f"unknown data type {data_type!r}")
 
@@ -117,22 +120,46 @@ def normalize(img: np.ndarray) -> np.ndarray:
     return x.astype(np.float32)
 
 
-def resize_pascal(x: np.ndarray) -> np.ndarray:
-    """A normalized (H, W, 3) float32 image -> (513, 513, 3), as
-    ``cv2.resize(..., INTER_LINEAR)`` resizes float32: Pascal's eval and
-    test input."""
+def ade_eval_shape(h: int, w: int, shape_multiple: Optional[int] = None
+                   ) -> Tuple[int, int]:
+    """ADE's eval input size (th, tw) of an h x w image: the short side
+    scaled to 512 with the aspect kept (Python ``round`` on both sides),
+    then, where ``shape_multiple`` is given, each side rounded to a
+    multiple of it, at least one multiple.  The JAX package's arithmetic."""
+    s = ADE_SHORT_SIDE / min(h, w)
+    tw, th = int(round(w * s)), int(round(h * s))
+    if shape_multiple:
+        tw = max(shape_multiple, round(tw / shape_multiple) * shape_multiple)
+        th = max(shape_multiple, round(th / shape_multiple) * shape_multiple)
+    return th, tw
+
+
+def resize_normalized(x: np.ndarray, height: int, width: int) -> np.ndarray:
+    """A normalized (H, W, 3) float32 image -> (height, width, 3), as
+    ``cv2.resize(..., INTER_LINEAR)`` resizes float32."""
     chw = torch.from_numpy(x).permute(2, 0, 1)
-    return resize_linear_cv2(chw, PASCAL_SIZE, PASCAL_SIZE).permute(
+    return resize_linear_cv2(chw, height, width).permute(
         1, 2, 0).contiguous().numpy()
 
 
-def prepare_image(img: np.ndarray, data_type: str) -> np.ndarray:
-    """The model's input of a uint8 RGB val image: ``normalize``d, and for
-    Pascal ``resize_pascal``d (the JAX package resizes the normalized
-    image in float64 and casts the result: the two differ by float32
-    rounding)."""
+def resize_pascal(x: np.ndarray) -> np.ndarray:
+    """Pascal's eval and test input: ``resize_normalized`` to 513 x 513."""
+    return resize_normalized(x, PASCAL_SIZE, PASCAL_SIZE)
+
+
+def prepare_image(img: np.ndarray, data_type: str,
+                  shape_multiple: Optional[int] = None) -> np.ndarray:
+    """The model's input of a uint8 RGB val image: ``normalize``d, for
+    Pascal ``resize_pascal``d and for ADE resized to ``ade_eval_shape(h,
+    w, shape_multiple)`` (the JAX package resizes the normalized image in
+    float64 and casts the result: the two differ by float32 rounding)."""
     x = normalize(img)
-    return resize_pascal(x) if data_type == "pascal" else x
+    if data_type == "pascal":
+        return resize_pascal(x)
+    if data_type == "ade":
+        return resize_normalized(x, *ade_eval_shape(*x.shape[:2],
+                                                    shape_multiple))
+    return x
 
 
 def run_evaluation(model_name: str, training_phase: str,
@@ -142,11 +169,17 @@ def run_evaluation(model_name: str, training_phase: str,
                    results_root: Optional[str] = None,
                    fast_output: Optional[bool] = None,
                    quant8=False, calib_images: int = 8,
-                   fp32: bool = False, device=None) -> dict:
+                   fp32: bool = False, shape_multiple: Optional[int] = None,
+                   device=None) -> dict:
     """Evaluate one checkpoint over the val split; returns the result
     dict (``mean_iou``, ``pixel_accuracy``, ``per_class_iou``, the purity
-    curve) and writes the evaluation directory."""
+    curve) and writes the evaluation directory.  ``shape_multiple`` (ADE
+    only): None takes ``ADE_SHAPE_MULTIPLE``, 0 the exact short-side-512
+    size."""
     _check_protocol(data_type)
+    if shape_multiple is None and data_type == "ade":
+        shape_multiple = ADE_SHAPE_MULTIPLE
+    shape_multiple = shape_multiple or None
     dev = resolve_device(device)
     model_path = os.path.join(results_root or settings.results_dir(),
                               model_name)
@@ -183,7 +216,8 @@ def run_evaluation(model_name: str, training_phase: str,
         if margin:
             img = img[margin:-margin, margin:-margin]
         ann = np.load(os.path.join(ann_dir, name + ".npy"))
-        return prepare_image(img, data_type), eval_targets(ann, data_type)
+        return (prepare_image(img, data_type, shape_multiple),
+                eval_targets(ann, data_type))
 
     if quant8 == "static":
         calib = (torch.from_numpy(load_one(n)[0][None]).to(dev)
@@ -221,7 +255,7 @@ def run_evaluation(model_name: str, training_phase: str,
     flush()
     try:
         _save_sample_artifacts(model, files, img_dir, ann_dir, data_type,
-                               margin, out_dir, dtype)
+                               margin, out_dir, dtype, shape_multiple)
     except Exception as e:  # the renders are best-effort artifacts
         log(f"eval sample artifacts skipped: {e!r}")
 
@@ -291,7 +325,9 @@ def render_sample(image: np.ndarray, target: np.ndarray,
 
 def _save_sample_artifacts(model, files, img_dir: str, ann_dir: str,
                            data_type: str, margin: int, out_dir: str,
-                           dtype: torch.dtype, n_samples: int = 5) -> None:
+                           dtype: torch.dtype,
+                           shape_multiple: Optional[int] = None,
+                           n_samples: int = 5) -> None:
     """``samples/<name>.png`` of the first ``n_samples`` files: input |
     ground truth (nearest-resized to the output grid, 0 = void) |
     prediction + 1, the JAX package's three panels."""
@@ -304,8 +340,8 @@ def _save_sample_artifacts(model, files, img_dir: str, ann_dir: str,
             img = img[margin:-margin, margin:-margin]
         ann = eval_targets(np.load(os.path.join(ann_dir, name + ".npy")),
                            data_type).astype(np.int64)
-        x = torch.from_numpy(prepare_image(img, data_type))[None].to(
-            dev, dtype)
+        x = torch.from_numpy(prepare_image(img, data_type, shape_multiple))[
+            None].to(dev, dtype)
         with torch.inference_mode():
             pred = model(x).logits[0].argmax(-1).cpu().numpy()
         target = resize_label_nearest_np(ann, (pred.shape[1], pred.shape[0]))
@@ -387,6 +423,10 @@ def main(argv: Optional[List[str]] = None) -> dict:
                    help="calibration images for --quant8-static")
     p.add_argument("--fp32", action="store_true",
                    help="the float32 forward without K2")
+    p.add_argument("--shape-multiple", type=int, default=None,
+                   help="round ADE's short-side-512 eval sizes to this "
+                   f"multiple (default {ADE_SHAPE_MULTIPLE} for ade; 0 "
+                   "keeps the exact sizes of the reference's protocol)")
     a = p.parse_args(argv)
     return run_evaluation(a.model_name, a.training_phase, a.batch_size,
                           a.data_type, margin=a.margin, limit=a.limit,
@@ -394,7 +434,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                           results_root=a.results_root,
                           fast_output=a.fast_output, quant8=a.quant8,
                           calib_images=a.calib_images, fp32=a.fp32,
-                          device=a.device)
+                          shape_multiple=a.shape_multiple, device=a.device)
 
 
 if __name__ == "__main__":

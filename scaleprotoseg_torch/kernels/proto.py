@@ -152,6 +152,66 @@ def distance_error(act: torch.Tensor, features: torch.Tensor,
     return float((err / (2.0 ** -24 * scale)).max())
 
 
+def logit_rounding(features: torch.Tensor, prototypes: torch.Tensor,
+                   last_layer: Optional[torch.Tensor], spec: ProtoSpec,
+                   group_projection: Optional[torch.Tensor] = None,
+                   last_layer_group: Optional[torch.Tensor] = None,
+                   units: float = 3.0):
+    """(err, logits), both (..., C) float64: a first-order bound on each
+    logit's error in an fp32 head whose distances are within ``units`` of
+    fp32 rounding of their terms (``distance_error``'s unit, 2^-24 (|x_s|
+    + |p|)^2), and the float64 logits.  Each distance's error moves its
+    activation by at most the slope of ``log((d + 1) / (d + eps))`` at the
+    low end of its interval (~1e4 near d = 0, at a pushed prototype); the
+    group head sums those moves over a group's weights and its exp scales
+    them, the last layer adds them up by the magnitudes of its weights: so
+    the bound grows with the prototypes that sit near a pixel.  The head's
+    own float32 work adds 2^-24 for each term of each sum (and two for the
+    log and the exp) by the magnitudes summed.  On the inputs' device."""
+    x, p = features.double(), prototypes.double()
+    depth = spec.proto_depth
+    d = distances_float64(features, prototypes, spec)
+    terms = torch.cat([
+        (x[..., s * depth:(s + 1) * depth].norm(dim=-1, keepdim=True)
+         + p[lo:hi].norm(dim=-1)) ** 2
+        for s, (lo, hi) in enumerate(spec.scale_bounds)], -1)
+    u = 2.0 ** -24
+    delta = units * u * terms
+    low = torch.relu(d - delta)
+    act = torch.log((d + 1.0) / (d + EPSILON))
+    dact = (1.0 / (low + EPSILON) - 1.0 / (low + 1.0)) * delta + \
+        2 * u * act.abs()
+    if group_projection is not None:
+        t = spec_tensors(spec, act.device)
+        w_full = torch.einsum("cgq,cqp->cgp", group_projection.double(),
+                              t["onehot"].double()).abs()
+        n = spec.max_protos_per_class + 1
+        e = torch.exp(torch.einsum("...p,cgp->...cg", act, w_full)) * \
+            t["has"].double()[:, None]
+        dz = torch.einsum("...p,cgp->...cg", dact + n * u * act.abs(),
+                          w_full)
+        glw = last_layer_group.double()
+        return ((e * torch.expm1(dz)).flatten(-2) @ glw.abs()
+                + (glw.shape[0] + 1) * u * (e.flatten(-2) @ glw.abs()),
+                e.flatten(-2) @ glw)
+    last = last_layer[:spec.num_active_prototypes].double()
+    return (dact @ last.abs() + last.shape[0] * u * (act.abs() @ last.abs()),
+            act @ last)
+
+
+def rounding_bound(features: torch.Tensor, prototypes: torch.Tensor,
+                   last_layer: Optional[torch.Tensor], spec: ProtoSpec,
+                   group_projection: Optional[torch.Tensor] = None,
+                   last_layer_group: Optional[torch.Tensor] = None,
+                   units: float = 3.0) -> float:
+    """``logit_rounding``'s largest logit error over the largest float64
+    logit: the conditioning of these inputs times fp32 rounding, the bound
+    K1 is held to at pushed prototypes."""
+    err, logits = logit_rounding(features, prototypes, last_layer, spec,
+                                 group_projection, last_layer_group, units)
+    return float(err.max() / logits.abs().max())
+
+
 class ProtoHead(NamedTuple):
     """The head's weights in the form the kernel reads, derived from the
     model's parameters by ``pack_head``.  The kernel's fields (``bank`` on)

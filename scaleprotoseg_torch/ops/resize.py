@@ -17,7 +17,7 @@
   gives PIL's source index for every output pixel without PIL.
 - Bilinear as ``cv2.resize(..., interpolation=cv2.INTER_LINEAR)`` computes
   it for float32 input (``resize_linear_cv2``), without cv2: the push
-  artifacts' activation upsample.
+  artifacts' activation upsample and the Pascal and ADE eval resizes.
 """
 
 from __future__ import annotations
@@ -239,9 +239,14 @@ def resize_linear_cv2(x: torch.Tensor, height: int, width: int
     ``cv2.resize(x, (width, height), interpolation=cv2.INTER_LINEAR)``
     computes it for float32 input: half-pixel centres, edges clamped, the
     rows interpolated first and then the columns, each step an FMA lerp
-    (``_fma_lerp``).  Runs on ``x``'s device.  cv2 takes another path for
-    an exact halving of both axes (INTER_AREA), which this form does not
-    reproduce."""
+    (``_fma_lerp``).  Runs on ``x``'s device.  It downscales as it
+    upscales: bit-equal to cv2 5.0 at ADE's downscales, at an exact halving
+    of both axes (1024 x 1536 -> 512 x 768, where cv2 switches to its
+    INTER_AREA path: the same numbers) and at upscales of 5x and less.  At
+    large upscales (10.7x and more in the cases tried) of 3-channel images,
+    cv2's values in the clamped border columns (source coordinate outside
+    the image) differ from this form's by at most one float32 ulp of the
+    image's largest magnitude (``tests/test_torch_ade.py``)."""
     if x.dtype != torch.float32:
         raise TypeError(f"resize_linear_cv2 takes float32, got {x.dtype}")
     taps = [[torch.as_tensor(a, device=x.device) for a in

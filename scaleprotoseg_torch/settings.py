@@ -1,15 +1,17 @@
 """Environment-driven paths, read from the environment or a ``.env`` file
 in the working directory: ``RESULTS_DIR`` (default ``results``) and the
 preprocessed dataset roots (``DATA_PATH_CITY`` for Cityscapes,
-``DATA_PATH_PASCAL`` for Pascal VOC-2012, ``DATA_PATH_COCO`` and
-``DATA_PATH_EM`` for the evaluation of those)."""
+``DATA_PATH_PASCAL`` for Pascal VOC-2012, ``DATA_PATH_COCO`` for
+COCO-Stuff, ``DATA_PATH_ADE`` for ADE20K, and ``DATA_PATH_EM`` for the
+evaluation of EM)."""
 
 from __future__ import annotations
 
 import os
 
 _DATA_ENV = {"cityscapes": "DATA_PATH_CITY", "pascal": "DATA_PATH_PASCAL",
-             "coco": "DATA_PATH_COCO", "em": "DATA_PATH_EM"}
+             "ade": "DATA_PATH_ADE", "coco": "DATA_PATH_COCO",
+             "em": "DATA_PATH_EM"}
 
 
 def _dotenv(path: str = ".env") -> dict:

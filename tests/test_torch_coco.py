@@ -2,7 +2,7 @@
 
 - ``COCO_ID_MAPPING`` / ``COCO_LUT`` / the class names equal to the JAX
   package's; COCO's online conversion is the identity (its stored ids are
-  final), ADE and EM stay refused by name.
+  final), EM stays refused by name.
 - The port's ``scaleproto_coco``, ``baseline_coco`` and
   ``group_scaleproto_coco`` copies hold the JAX files' bindings; each
   builds the JAX package's spec, the reference's naming swap kept:
@@ -135,9 +135,11 @@ def test_coco_tables_match_jax():
     names = teval.class_names("coco", 182)
     assert names == jeval.class_names("coco", 182)
     assert "traffic light" in names
-    for data_type in ("ade", "em"):
-        with pytest.raises(NotImplementedError, match=data_type):
-            constants.conversion_lut(data_type)
+    # ADE's stored ids are final too (tests/test_torch_ade.py); EM stays
+    # refused by name
+    assert constants.conversion_lut("ade") is constants.IDENTITY_LUT
+    with pytest.raises(NotImplementedError, match="em"):
+        constants.conversion_lut("em")
 
 
 @pytest.mark.parametrize("name", CONFIGS)

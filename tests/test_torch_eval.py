@@ -108,18 +108,22 @@ def test_class_names_match_jax():
     from scaleprotoseg_tpu.eval_valid_multiscale import class_names as jnames
     from scaleprotoseg_torch.eval_valid_multiscale import class_names
     for data_type, n in (("cityscapes", 19), ("em", 2), ("coco", 182),
-                         ("pascal", 21)):
+                         ("pascal", 21), ("ade", 150)):
         assert class_names(data_type, n) == jnames(data_type, n)
 
 
 def test_eval_refuses_cv2_protocols(tmp_path):
-    """ADE's short-side-512 protocol is refused by name (Pascal's 513 x 513
-    one is ported: tests/test_torch_pascal.py)."""
-    from scaleprotoseg_torch.eval_valid_multiscale import run_evaluation
-    for data_type in ("ade",):
-        with pytest.raises(NotImplementedError, match="cv2"):
-            run_evaluation("run", "push_final", data_type=data_type,
-                           results_root=str(tmp_path), device="cpu")
+    """Both cv2 protocols are ported (Pascal's 513 x 513:
+    tests/test_torch_pascal_eval.py; ADE's short side of 512:
+    tests/test_torch_ade_cli.py), so none is refused any more; a data type
+    the port does not know is refused by name before anything loads."""
+    from scaleprotoseg_torch.eval_valid_multiscale import (PROTOCOLS,
+                                                           run_evaluation)
+    assert {"pascal", "ade"} <= set(PROTOCOLS)
+    with pytest.raises(ValueError, match="'ade20k'"):
+        run_evaluation("run", "push_final", data_type="ade20k",
+                       results_root=str(tmp_path), device="cpu")
+    assert not (tmp_path / "run").exists()
 
 
 H, W = 33, 65

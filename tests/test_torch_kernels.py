@@ -608,3 +608,37 @@ def test_spec_tables_made_while_serving_serve_training_too():
                     requires_grad=True)
     tproto.group_activations(act, gw, spec).sum().backward()
     assert gw.grad is not None and torch.isfinite(gw.grad).all()
+
+
+@pytest.mark.parametrize("bank", [(228, 19), (2054, 182), (1800, 150)])
+def test_rounding_bound_holds_for_the_plain_head(bank):
+    """``rounding_bound``, the bound the card holds K1 to at pushed
+    prototypes: on the card test's construction (2 x 13 x 17 bf16
+    features, every prototype a seeded pixel's features, a group head of 3
+    groups with rows on the simplex) the fp32 plain head lies within it of
+    the float64 head, at 3 units of fp32 rounding a distance; with the
+    prototypes moved off the pixels (d >= 0.5) the same bound falls two
+    orders, below 1e-3: the worst-case rounding of the head's own sums."""
+    p, c = bank
+    gen = np.random.default_rng(7)
+    tspec = port_spec(ProtoSpec.equal_allocation(p, 64, num_classes=c,
+                                                 num_groups=3))
+    feats = torch.from_numpy(gen.random((2, 13, 17, 256), np.float32)).to(
+        torch.bfloat16)
+    flat = feats.reshape(-1, 256).float()
+    at = gen.integers(0, flat.shape[0], p)
+    protos = torch.stack([flat[i, s * 64:(s + 1) * 64] for s, (lo, hi) in
+                          enumerate(tspec.scale_bounds) for i in at[lo:hi]])
+    mask = (tspec.class_proto_index >= 0).astype(np.float32)
+    gw = gen.random((c, 3, tspec.max_protos_per_class)) * mask[:, None, :]
+    kw = dict(group_projection=torch.from_numpy(
+        (gw / gw.sum(-1, keepdims=True)).astype(np.float32)),
+        last_layer_group=torch.from_numpy(gen.standard_normal(
+            (c * 3, c)).astype(np.float32) * 0.1))
+    want = tproto.proto_float64(feats, protos, None, tspec, **kw)
+    err = ((proto_plain(feats, protos, None, tspec, **kw) - want).abs().max()
+           / want.abs().max()).item()
+    bound = tproto.rounding_bound(feats, protos, None, tspec, **kw)
+    assert err <= bound < 0.2, (err, bound)
+    far = protos + 0.1
+    assert tproto.rounding_bound(feats, far, None, tspec, **kw) < 1e-3

@@ -9,10 +9,11 @@ every prototype a seeded pixel's features (d = 0 there, where the log
 activation's slope is -1e4), a group head of 3 groups with rows on the
 simplex and a last layer of scale 0.1.  Prints, per bank (prototypes /
 classes) and seed, the largest float64 logit and the largest absolute
-error of K1 and of the fp32 plain head over it.  It tells a kernel fault
-from the rounding of fp32 arithmetic at a bank: the test holds K1 within
-2e-2 of the float64 head.  A development script: nothing of the port
-calls it.
+error of K1 and of the fp32 plain head over it, and the bound the test
+holds both to there: ``kernels.proto.rounding_bound`` at 3 units of fp32
+rounding a distance (the inputs' conditioning times fp32 rounding).  It
+tells a kernel fault from the rounding of fp32 arithmetic at a bank.  A
+development script: nothing of the port calls it.
 """
 
 import os
@@ -25,10 +26,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from scaleprotoseg_torch import kernels  # noqa: E402
 from scaleprotoseg_torch.kernels.proto import (proto_float64,  # noqa: E402
-                                               proto_plain)
+                                               proto_plain, rounding_bound)
 from scaleprotoseg_torch.spec import ProtoSpec  # noqa: E402
 
-BANKS = ((2054, 171), (2054, 182), (2184, 182), (228, 19))
+BANKS = ((2054, 171), (2054, 182), (2184, 182), (1800, 150), (228, 19))
 SEEDS = (7, 0, 1, 2, 3)          # 7: the card test's
 
 
@@ -64,10 +65,12 @@ def main() -> None:
             plain = proto_plain(feats, protos, None, spec, **kw)
             want = proto_float64(feats, protos, None, spec, **kw)
             s = want.abs().max()
+            plain_err = ((plain - want).abs().max() / s).item()
             print(f"P {p} C {c} seed {seed}: max|logit| {s.item():.4g}; "
                   f"kernel {((got - want).abs().max() / s).item():.4g}, "
-                  f"fp32 plain {((plain - want).abs().max() / s).item():.4g}"
-                  f" on {torch.cuda.get_device_name(0)}", flush=True)
+                  f"fp32 plain {plain_err:.4g}, bound "
+                  f"{rounding_bound(feats, protos, None, spec, **kw):.4g} on "
+                  f"{torch.cuda.get_device_name(0)}", flush=True)
 
 
 if __name__ == "__main__":
