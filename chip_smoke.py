@@ -286,7 +286,27 @@ seconds are printed before the kernels line):
    images of mixed sizes (>= 99% of pixels, >= 99.9% of those decided
    beyond the fp32 rounding of the head and the upsample, K1 at the
    pushed bank);
-10. one line per kernel with its times, bound and launches, for the six
+10. EM / ISBI-2012 at full width (UNet-ASPP of base 64, 2 classes, 512 x
+   512 frames and crops, trainable BatchNorm): K1 on EM's grid (2 x 512 x
+   512 pixels) at ``scaleproto_em``'s 24 / 2 / 4 bank, its group head and
+   ``baseline_em``'s 20 / 2 / 1 against the plain head and the float64 one
+   at pushed prototypes, beside the plain head and the matmul chain; K3
+   at 2 classes from 512 x 512 to 512 x 512 beside ``F.interpolate`` +
+   ``argmax``; a synthetic EM root (20 train, 10 val frames of 512 x 512,
+   grayscale stored as RGB, labels 1 membrane / 2 cell in Voronoi cells);
+   ``scaleproto_em`` through ``train_wandb_multiscale.train --gpu-recipe``
+   (20 joint micro-steps at batch 2, push at full width without the
+   artifact pass, 5 last-layer), every BN's running statistics moved and
+   finite and its affine parameters bit-equal to their init; the card's
+   float32 micro-step against the CPU's (loss, gradients, running
+   statistics); ``group_scaleproto_em`` from its ``push_final`` (10 joint
+   micro-steps: the backbone frozen, its statistics moving);
+   ``baseline_em`` (6 joint, frozen BN); ``run_evaluation`` of
+   ``final-group`` over the 10 val frames and ``serve.main`` of it at
+   batch 2 on them (labels against the plain path); ``serve
+   --quant8-static`` refused by name; K2 launched 0 times on the EM path
+   (64 ASPP input channels: the shifted-matmul form);
+11. one line per kernel with its times, bound and launches, for the six
    kernels since redesigned the earlier design's recorded times beside
    the new ones, the card's name and power limit, the kernels
    line (every kernel with its status),
@@ -3265,9 +3285,12 @@ def group_phase(tmp: str, data: str, start: str, batch, dev,
 
 
 def serve_checkpoint(tmp: str, run_name: str, phase: str, dev, smi: str,
-                     tag: str, size=(HEIGHT, WIDTH), sizes=None) -> dict:
+                     tag: str, size=(HEIGHT, WIDTH), sizes=None, frames=None,
+                     uses=SERVING_KERNELS) -> dict:
     """Phase ``phase`` of run ``run_name`` through ``serve.main`` in bf16 on
-    ``N_GROUP_SERVE`` images of ``size`` (K2, K1 and K3 on every batch), or
+    ``N_GROUP_SERVE`` images of ``size`` (or the ``.npy`` frames of size
+    ``size`` in the directory ``frames``; the kernels ``uses`` on every
+    batch), or
     with ``sizes`` on images of those sizes through ``--canvas`` ``size``
     (host-normalized, padded with the mean, each prediction cropped back),
     its labels against the plain path (>= 99% of pixels), and K1 at its bank
@@ -3279,11 +3302,15 @@ def serve_checkpoint(tmp: str, run_name: str, phase: str, dev, smi: str,
     from scaleprotoseg_torch.model_loading import resolve_checkpoint
     run = os.path.join(tmp, run_name)
     ckpt = resolve_checkpoint(run, phase)
-    shapes = sizes or [size] * N_GROUP_SERVE
-    img_dir = os.path.join(tmp, "check_images_{}x{}".format(*size)
-                           + ("_canvas" if sizes else ""))
     out_dir = os.path.join(tmp, f"labels_{tag}")
-    names = [f"frame_{i:03d}.npy" for i in range(len(shapes))]
+    if frames:
+        img_dir, names = frames, sorted(os.listdir(frames))
+        shapes = [size] * len(names)
+    else:
+        shapes = sizes or [size] * N_GROUP_SERVE
+        img_dir = os.path.join(tmp, "check_images_{}x{}".format(*size)
+                               + ("_canvas" if sizes else ""))
+        names = [f"frame_{i:03d}.npy" for i in range(len(shapes))]
     if not os.path.isdir(img_dir):
         os.makedirs(img_dir)
         rng = np.random.default_rng(3)
@@ -3298,7 +3325,7 @@ def serve_checkpoint(tmp: str, run_name: str, phase: str, dev, smi: str,
                          "--workers", "4", *canvas])
     counts = kernels.launch_counts()
     batches = 1 + math.ceil(len(names) / B)
-    for name in SERVING_KERNELS:
+    for name in uses:
         if counts[name] < batches:
             raise AssertionError(f"{tag}: {name} launched {counts[name]} "
                                  f"times in {batches} batches")
@@ -3344,7 +3371,7 @@ def serve_checkpoint(tmp: str, run_name: str, phase: str, dev, smi: str,
             decided += int(d[:h, :w].sum())
             classes |= set(np.unique(got).tolist())
     agreement = agree / total
-    decided_agreement = decided_agree / decided
+    decided_agreement = decided_agree / max(decided, 1)   # 0: none decided
     where = f"--canvas {size[0]} {size[1]} over {sorted(set(shapes))}" \
         if sizes else f"{size[0]}x{size[1]}"
     log(f"{tag}: {phase} served {record['images']} images at "
@@ -5194,6 +5221,516 @@ def ade_phase(tmp: str, dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# EM / ISBI-2012: UNet-ASPP at 512 x 512, trainable BatchNorm
+# ---------------------------------------------------------------------------
+EM_SIZE = 512                         # the frames, crops and logit grid
+EM_SPLITS = {"train": 20, "val": 10}
+EM_STEPS = (20, 5)                    # joint, last layer (no warm-up)
+EM_GROUP_STEPS = 10                   # the group phase: joint only
+EM_SINGLE_STEPS = 6                   # joint micro-steps of baseline_em
+EM_STEP_CROP = 128                    # the card-vs-CPU micro-step's crop
+EM_BANKS = {"24x4": (24, 4, 0), "24x4 group": (24, 4, 3),
+            "20x1": (20, 1, 0)}       # prototypes, scales, groups
+EM_PATH_KERNELS = ("proto", "upsample")   # K2: below KERNEL_MIN_C
+
+
+def write_em_root(root: str, seed: int) -> str:
+    """ISBI-2012's preprocessed layout: 512 x 512 grayscale frames stored
+    as RGB and their labels (``EM_RGB_2_ID``: 1 membrane, 2 cell), seeded
+    Voronoi cells of 48 seeds whose borders (within 1.5 pixels of the
+    bisector, on a 128 x 128 grid scaled by 4) are membrane; gray 170 in a
+    cell, 70 on a membrane, noise of 25."""
+    rng = np.random.default_rng(seed)
+    g = EM_SIZE // 4
+    grid = np.stack(np.mgrid[:g, :g], -1).reshape(-1, 2).astype(np.float32)
+    index = {}
+    for split, n in EM_SPLITS.items():
+        img_dir = os.path.join(root, "img_with_margin_0", split)
+        ann_dir = os.path.join(root, "annotations", split)
+        os.makedirs(img_dir)
+        os.makedirs(ann_dir)
+        index[split] = [f"{split}_{i:03d}" for i in range(n)]
+        for name in index[split]:
+            seeds = rng.random((48, 2), np.float32) * g
+            d = np.sqrt(((grid[:, None] - seeds[None]) ** 2).sum(-1))
+            near = np.partition(d, 1, axis=1)[:, :2]
+            small = np.where(near[:, 1] - near[:, 0] < 1.5, 1, 2)
+            label = np.repeat(np.repeat(small.reshape(g, g), 4, 0), 4, 1) \
+                .astype(np.uint8)
+            gray = np.where(label == 2, 170.0, 70.0) + \
+                rng.normal(0.0, 25.0, label.shape)
+            gray = np.clip(gray, 0, 255).astype(np.uint8)
+            np.save(os.path.join(img_dir, name + ".npy"),
+                    np.repeat(gray[..., None], 3, -1))
+            np.save(os.path.join(ann_dir, name + ".npy"), label)
+    with open(os.path.join(root, "all_images.json"), "w") as f:
+        json.dump(index, f)
+    return root
+
+
+def check_proto_em(gen, dev, smi: str) -> dict:
+    """K1 on EM's grid (2 x 512 x 512 pixels, 134 M feature elements at 4
+    scales) at ``scaleproto_em``'s bank (24 over 4 scales, 2 classes),
+    its group head (3 groups a class) and ``baseline_em``'s (20 on 1
+    scale): against the plain head (rtol = atol = 1e-4) and at pushed
+    prototypes against the float64 head (``check_proto_rounding``); the
+    packed chunks and steps; wrapper ms, device ms (CUDA events around
+    calls queued behind a device sleep: the profiler's sessions this late
+    in the script can come back empty) beside the plain head's, and the
+    matmul chain's ms; the bound from the call's bytes and operations (the
+    cross term as 3 bf16 passes, the rest fp32)."""
+    out = {}
+    n = B * EM_SIZE * EM_SIZE
+    for name, (p, scales, g) in EM_BANKS.items():
+        spec = ProtoSpec.equal_allocation(p, 64, num_classes=2,
+                                          num_scales=scales, num_groups=g)
+        c, a, d = 2, spec.num_active_prototypes, spec.feature_depth
+        feats = torch.rand((B, EM_SIZE, EM_SIZE, d), generator=gen,
+                           device=dev).to(torch.bfloat16)
+        protos = torch.rand((p, 64), generator=gen, device=dev)
+        if g:
+            gw = torch.rand((c, g, spec.max_protos_per_class), generator=gen,
+                            device=dev) + 1e-3
+            kw = dict(group_projection=gw / gw.sum(-1, keepdim=True),
+                      last_layer_group=torch.randn(
+                          (c * g, c), generator=gen, device=dev) *
+                      math.sqrt(2.0 / (c * g)))
+            last = None
+        else:
+            kw = {}
+            last = torch.randn((p, c), generator=gen, device=dev) * 0.5
+        head = pack_head(protos, last, spec, **kw)
+        got = kernels.fused_proto_logits(feats, protos, last, spec, **kw,
+                                         head=head)
+        want = proto_plain(feats, protos, last, spec, **kw)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        err = (got - want).abs().max().item()
+        del want
+        pushed = check_proto_rounding(gen, dev, feats, spec, kw, last)
+        steps = head.steps.cpu().numpy()
+        pd = torch.zeros((d, a), device=dev)
+        mt = torch.zeros((d, a), device=dev)
+        for s, (lo, hi) in enumerate(spec.scale_bounds):
+            pd[s * 64:(s + 1) * 64, lo:hi] = protos[lo:hi].t()
+            mt[s * 64:(s + 1) * 64, lo:hi] = 1.0
+        pn = (protos[:a] ** 2).sum(-1)
+        if g:
+            gw_dense = torch.zeros((a, c * g), device=dev)
+            for cls in range(c):
+                idx = spec.class_proto_index[cls]
+                idx = idx[idx >= 0]
+                gw_dense[idx, cls * g:(cls + 1) * g] = \
+                    kw["group_projection"][cls, :, :len(idx)].t()
+
+        def library():
+            xf = feats.reshape(-1, d).float()
+            dist = torch.relu((xf * xf) @ mt - 2.0 * (xf @ pd) + pn)
+            act = torch.log((dist + 1.0) / (dist + EPSILON))
+            if g:
+                return torch.exp(act @ gw_dense) @ kw["last_layer_group"]
+            return act @ last[:a]
+
+        def k1():
+            return kernels.fused_proto_logits(feats, protos, last, spec,
+                                              **kw, head=head)
+
+        def plain():
+            return proto_plain(feats, protos, last, spec, **kw)
+
+        cross = n * a * 2 * 64
+        head_ops = a * g * 2 + c * g + c * g * c * 2 if g else a * c * 2
+        rest = n * (2 * d + a * 6 + head_ops)
+        t_ops = (3 * cross / PEAK_BF16_FLOPS + rest / PEAK_FP32_FLOPS) * 1e3
+        weights = [kw["group_projection"], kw["last_layer_group"]] if g \
+            else [last]
+        t_bytes = nbytes(feats, protos, *weights, got) / PEAK_BYTES_PER_S \
+            * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+            (t_ops, "operations")
+        out[name] = dict(
+            prototypes=p, scales=scales, groups=g,
+            chunks=int(head.columns.shape[0]), steps=int(steps.shape[0]),
+            max_abs_err=err, pushed=[list(r) for r in pushed],
+            ms=time_ms(k1), device_ms=queued_device_ms(k1),
+            plain_ms=time_ms(plain), plain_device_ms=queued_device_ms(plain),
+            library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+        del feats, got
+        torch.cuda.empty_cache()
+    log(f"em: K1 on EM's grid ({B} x {EM_SIZE} x {EM_SIZE} pixels, 2 "
+        f"classes) at its banks, against the plain head (rtol = atol = "
+        f"1e-4) and the float64 head at pushed prototypes ((kernel, plain, "
+        f"bound) per draw); packed chunks and steps; ms (CUDA-event "
+        f"medians of 10), device ms (queued) beside the plain head's and "
+        f"the matmul chain's ms; bound: {json.dumps(out)} on "
+        f"{smi}")
+    return out
+
+
+def check_upsample_em(gen, dev, smi: str) -> dict:
+    """K3 at EM's 2 classes from the 512 x 512 logit grid to 512 x 512
+    (the identity size): labels equal to the plain version's wherever its
+    top-two margin is >= 1e-5; the block plan; wrapper and device ms
+    (queued) beside the plain version's and ``F.interpolate`` +
+    ``argmax``'s; the bound."""
+    from scaleprotoseg_torch.kernels import upsample as kup
+    h = w = EM_SIZE
+    lg = torch.randn((B, h, w, 2), generator=gen, device=dev)
+    got = kernels.fused_upsample_argmax(lg, h, w)
+    want = upsample_argmax_plain(lg, h, w)
+    m = torch.as_tensor(_bilinear_matrix(h, h), device=dev)
+    up = torch.einsum("oh,bhpc->bopc", m, torch.einsum("bhwc,pw->bhpc", lg,
+                                                       m))
+    top2 = torch.topk(up, 2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) >= 1e-5
+    diff = got.int() != want.int()
+    if got.dtype != torch.uint8 or int((diff & decided).sum()):
+        raise AssertionError(f"em upsample: {int((diff & decided).sum())} "
+                             "decided labels differ")
+    del up, top2, m
+
+    def k3():
+        return kernels.fused_upsample_argmax(lg, h, w)
+
+    def library():
+        return F.interpolate(lg.permute(0, 3, 1, 2), size=(h, w),
+                             mode="bilinear", align_corners=False).argmax(1)
+
+    flops = B * 2 * (h * w * 3 + h * w * 4)
+    b_ms, b_by = bound(nbytes(lg, got), flops, PEAK_FP32_FLOPS)
+    out = dict(differ=int(diff.sum()), near_ties=int((~decided).sum()),
+               plan=kup.plan(h, w, h, w, 2), max_abs_err=float(
+                   (got.int() - want.int()).abs()[decided].max()),
+               ms=time_ms(k3), device_ms=queued_device_ms(k3),
+               plain_ms=time_ms(lambda: upsample_argmax_plain(lg, h, w)),
+               library_ms=time_ms(library),
+               library_device_ms=queued_device_ms(library),
+               bound_ms=b_ms, bound_by=b_by)
+    log(f"em: K3 at 2 classes, {B} x {h} x {w} -> {h} x {w} (scale 1), "
+        f"uint8 labels; labels that differ from the plain version (none "
+        f"where the margin is >= 1e-5), the block plan, ms and device ms "
+        f"beside the plain version's and F.interpolate + argmax's; bound: "
+        f"{json.dumps(out)} on {smi}")
+    return out
+
+
+def _bn_tensors(sd: dict, suffixes) -> dict:
+    return {k: v for k, v in sd.items() if k.endswith(suffixes)}
+
+
+def check_em_bn(stem: str, moved: bool) -> dict:
+    """Every BN of checkpoint ``stem``: running statistics finite and, as
+    ``moved`` says, moved from their init (mean 0, variance 1) or still
+    there; affine parameters bit-equal to their init (weight 1, bias 0):
+    no phase trains them."""
+    sd, _ = load_checkpoint(stem)
+    stats = _bn_tensors(sd, ("running_mean", "running_var"))
+    affine = _bn_tensors(sd, (".bn.weight", ".bn.bias"))
+    if len(stats) != 36 or len(affine) != 36:
+        raise AssertionError(f"em BN: {len(stats)} statistics, "
+                             f"{len(affine)} affine tensors")
+    init = {k: float(k.endswith(("running_var", ".bn.weight")))
+            for k in (*stats, *affine)}
+    for k, v in stats.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"em BN: {k} not finite")
+        if moved == bool((v == init[k]).all()):
+            raise AssertionError(f"em BN: {k} moved={not moved}")
+    for k, v in affine.items():
+        if not bool((v == init[k]).all()):
+            raise AssertionError(f"em BN: {k} changed")
+    var = torch.cat([v.flatten() for k, v in stats.items()
+                     if k.endswith("running_var")])
+    return dict(statistics=len(stats), moved=moved,
+                var_range=[var.min().item(), var.max().item()])
+
+
+def em_micro_step(model, batch, dev) -> tuple:
+    """(loss, every gradient flattened, every running statistic after the
+    step) of one ``train_bn`` micro-step of ``model`` on ``batch``, every
+    parameter trainable, the prototype phase's loss weights."""
+    from scaleprotoseg_torch.train.steps import LossWeights, compute_losses
+    model.zero_grad(set_to_none=True)
+    for p in model.parameters():
+        p.requires_grad_(True)
+    x = torch.from_numpy(batch[0]).to(dev)
+    t = torch.from_numpy(batch[1]).to(dev)
+    loss, _ = compute_losses(model, model(x, train_bn=True), t,
+                             LossWeights(crs_ent=1.0, l1=1e-4, kld=0.25))
+    loss.backward()
+    grads = torch.cat([p.grad.flatten().cpu() for _, p in
+                       model.named_parameters() if p.grad is not None])
+    stats = torch.cat([v.flatten().cpu() for k, v in
+                       model.state_dict().items() if "running_" in k])
+    return loss.item(), grads, stats
+
+
+def em_step_check(bindings, stem: str, batch, dev) -> dict:
+    """One ``train_bn`` micro-step from ``stem`` on a ``EM_STEP_CROP``
+    crop of ``batch``: the card's, float32 with TF32 off, against the
+    CPU's (the plain versions): loss within 1e-3, the gradients within
+    2e-2 relative L2, the running statistics within 1e-3; and the bf16
+    recipe's step on the card beside them (measured only)."""
+    from scaleprotoseg_torch import train_wandb_multiscale
+    sd, meta = load_checkpoint(stem)
+    spec = ProtoSpec.from_meta(meta["spec"])
+    k = EM_STEP_CROP
+    crop = (np.ascontiguousarray(batch[0][:, :k, :k]),
+            np.ascontiguousarray(batch[1][:, :k, :k]))
+    res = {}
+    for where, dtype in (("cpu", None), (dev, None), (dev, torch.bfloat16)):
+        model, _ = train_wandb_multiscale.build_model(bindings, 0, spec)
+        model.load_state_dict(sd, strict=True)
+        if dtype is not None:
+            model.set_compute_dtype(dtype)
+        t0 = time.perf_counter()
+        res[where, dtype] = em_micro_step(model.to(where), crop, where)
+        res[where, dtype] += (time.perf_counter() - t0,)
+        del model
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()  # noqa: E731
+    (lc, gc, sc, tc), (lg, gg, sg, tg), (lb, gb, sb, _) = res.values()
+    out = dict(crop=[B, k, k], loss_cpu=lc, loss_card=lg,
+               loss_abs_err=abs(lg - lc), grad_rel_l2=rel(gg, gc),
+               stats_max_abs_err=(sg - sc).abs().max().item(),
+               cpu_s=tc, card_s=tg, bf16_loss=lb,
+               bf16_loss_abs_err=abs(lb - lc), bf16_grad_rel_l2=rel(gb, gc),
+               bf16_stats_max_abs_err=(sb - sc).abs().max().item())
+    torch.cuda.empty_cache()
+    return out
+
+
+def em_eval(tmp: str, data: str, dev, smi: str) -> dict:
+    """``run_evaluation`` of ``em_group``'s ``final-group`` over the 10 val
+    frames at batch 2 (the full-image protocol, on the card: bf16 and K3;
+    eval reads the model's forward, whose distances its purity curve
+    needs, so K1 is not on this path): the confusion matrix against a host
+    bincount of the predictions, the labels against the plain path (the
+    same forward, K3 by its plain version; >= 99.9% of pixels, or of those
+    decided beyond the upsample's fp32 rounding), K3 once a batch and K2
+    never; mIoU, pixel accuracy and img/s."""
+    names = sorted(p_[:-4] for p_ in os.listdir(
+        os.path.join(data, "annotations", "val")))
+    kernels.reset_launch_counts()
+    evm.SegEvaluator = RecordingEvaluator
+    t0 = time.perf_counter()
+    try:
+        res = evm.run_evaluation("em_group", "final-group", batch_size=B,
+                                 data_type="em", data_root=data,
+                                 results_root=tmp)
+    finally:
+        evm.SegEvaluator = SegEvaluator
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    ev = RecordingEvaluator.last
+    grun = os.path.join(tmp, "em_group")
+    model, _ = load_model(grun, os.path.join(grun, "checkpoints",
+                                             "final-group.pth"),
+                          dtype=torch.bfloat16, fast=False, device=dev)
+    preds = [p_ for b_ in ev.preds for p_ in b_]
+    agree = decided_agree = decided = 0
+    cm = np.zeros((2, 2), np.int64)
+    for i in range(0, len(names), B):
+        imgs = [np.load(os.path.join(data, "img_with_margin_0", "val",
+                                     n + ".npy")) for n in names[i:i + B]]
+        xn = torch.from_numpy(np.stack([evm.prepare_image(im, "em")
+                                        for im in imgs])).to(dev)
+        with torch.inference_mode():
+            lg = model(xn).logits.float().contiguous()
+        want = upsample_argmax_plain(lg, EM_SIZE, EM_SIZE).cpu().numpy()
+        sure = decided_labels(lg, EM_SIZE, EM_SIZE).cpu().numpy()
+        del lg
+        for j, n in enumerate(names[i:i + B]):
+            pred = preds[i + j]
+            same = pred == want[j]
+            agree += int(same.sum())
+            decided_agree += int(same[sure[j]].sum())
+            decided += int(sure[j].sum())
+            t = eval_targets(np.load(os.path.join(
+                data, "annotations", "val", n + ".npy")), "em") \
+                .astype(np.int64) - 1
+            valid = t >= 0
+            cm += np.bincount(t[valid] * 2 + pred[valid],
+                              minlength=4).reshape(2, 2)
+    del model
+    total = len(names) * EM_SIZE * EM_SIZE
+    agreement = agree / total
+    decided_agreement = decided_agree / max(decided, 1)
+    batches = math.ceil(len(names) / B)
+    log(f"em eval: mIoU {res['mean_iou']:.6f}, pixel acc "
+        f"{res['pixel_accuracy']:.6f}, {len(names) / secs:.3f} img/s "
+        f"({len(names)} frames at batch {B}, the load and sample renders "
+        f"included); confusion matrix equal to the host bincount: "
+        f"{np.array_equal(ev.cm, cm)}; labels agree with the plain path on "
+        f"{100 * agreement:.4f}% of {total} pixels, on "
+        f"{100 * decided_agreement:.4f}% of the {100 * decided / total:.3f}% "
+        f"decided beyond the upsample's fp32 rounding; launches {counts} "
+        f"on {smi}")
+    if not np.array_equal(ev.cm, cm):
+        raise AssertionError("em eval: confusion matrix differs from the "
+                             "host bincount")
+    if counts["aspp"] or counts["upsample"] != batches or \
+            max(agreement, decided_agreement) < 0.999:
+        raise AssertionError(f"em eval: agreement {agreement}, decided "
+                             f"{decided_agreement}, launches {counts}")
+    return dict(miou=res["mean_iou"], pixel_accuracy=res["pixel_accuracy"],
+                agreement=agreement, decided_agreement=decided_agreement,
+                img_per_s=len(names) / secs, counts=counts)
+
+
+def _em_phase_record(tag: str, res, steps: int) -> dict:
+    """A trainer phase's checks (its micro-steps, finite losses, K2 never
+    launched) and its numbers, logged."""
+    k2 = {k: res.launches[k] for k in TRAINING_KERNELS}
+    if res.steps_done != steps or any(k2.values()) or \
+            not all(math.isfinite(v) for v in res.losses):
+        raise AssertionError(f"{tag}: {res.steps_done} steps, K2 {k2}, "
+                             f"losses {res.losses}")
+    p = res.perf
+    log(f"{tag}: {steps} micro-steps, {res.validations} validations; "
+        f"launches {res.launches}; losses first {res.losses[0]:.4f} last "
+        f"{res.losses[-1]:.4f}, all finite; {p['img_per_s']} img/s, median "
+        f"step {p['step_ms_median']} ms, device idle share "
+        f"{p['device_idle_share']}, peak {p['peak_memory_mb']} MB")
+    return dict(p, losses=[res.losses[0], res.losses[-1]])
+
+
+def em_phase(tmp: str, dev, smi: str) -> dict:
+    """EM / ISBI-2012 at full width (UNet-ASPP of base 64 with a concat
+    ASPP of 4 x 64, 2 classes, 512 x 512 frames and crops): K1 and K3 at
+    EM's shapes; a synthetic EM root (20 train, 10 val frames);
+    ``scaleproto_em`` through ``train_wandb_multiscale.train
+    --gpu-recipe`` at batch 2 (20 joint micro-steps, push at full width
+    without the artifact pass, 5 last-layer), trainable BN (its statistics
+    moved and finite, its affine parameters untouched), the log lines of
+    the knobs the backbone turns off; the card's float32 micro-step
+    against the CPU's; ``group_scaleproto_em`` from its ``push_final`` (10
+    joint micro-steps; the backbone frozen, its statistics moving on);
+    ``baseline_em`` (6 joint, its BN frozen: no ``freeze_type``); the eval
+    of ``final-group`` over the 10 val frames and ``serve.main`` on them;
+    ``serve --quant8-static`` refused by name; K2 never launched."""
+    from scaleprotoseg_torch import (cli_common, finetune_wandb_group,
+                                     train_wandb, train_wandb_multiscale)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = dict(proto=check_proto_em(gen, dev, smi),
+               upsample=check_upsample_em(gen, dev, smi))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    data = write_em_root(os.path.join(tmp, "em"), seed=24)
+    log(f"em: {EM_SPLITS} frames of {EM_SIZE} x {EM_SIZE} written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the prototype phase: joint (warm-up 0), push, last layer
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trained = train_wandb_multiscale.train(
+        "scaleproto_em", "em_train", data_root=data, gin_overrides=[
+            f"train.joint_steps = {EM_STEPS[0]}",
+            f"train.finetune_steps = {EM_STEPS[1]}",
+            f"Trainer.val_check_interval = {EM_STEPS[0]}"],
+        gpu_recipe=True, results_root=tmp, push_artifacts=False)
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    if sorted(trained["phases"]) != [1, 2]:
+        raise AssertionError(f"em: phases {sorted(trained['phases'])}")
+    perf = {phase: _em_phase_record(f"em train phase {phase}",
+                                    trained["phases"][phase], steps)
+            for phase, steps in zip((1, 2), EM_STEPS)}
+    run = os.path.join(tmp, "em_train")
+    with open(os.path.join(run, "train.log")) as f:
+        knobs = [line.strip() for line in f if "train.fast_aspp" in line
+                 or "GPU recipe knobs" in line]
+    if not any("disabled for UNet-ASPP" in line for line in knobs) or \
+            not any("train_bn=True" in line for line in knobs):
+        raise AssertionError(f"em: knob lines {knobs}")
+    push = trained["push"]
+    out["push"] = dict(prototypes=int(push.winners.shape[0]),
+                       matched=int((push.winners >= 0).sum()),
+                       pruned=int(push.winners.shape[0] -
+                                  push.kept.shape[0]))
+    out["bn"] = check_em_bn(trained["final"], moved=True)
+    log(f"em: train_wandb_multiscale scaleproto_em took {secs:.1f} s; push "
+        f"over {EM_SPLITS['train']} frames at full width (scan only): "
+        f"{json.dumps(out['push'])}; BN of push_final: {json.dumps(out['bn'])}"
+        f" (affine bit-equal to init); knobs {knobs}; launches {counts}")
+
+    _, bindings = cli_common.load_config(os.path.join(run, "config.gin"))
+    batch = next(iter(cli_common.make_loaders(bindings, B, seed=5,
+                                              data_root=data)[0]))
+    step = em_step_check(bindings, os.path.join(run, "checkpoints",
+                                                "nopush_last"), batch, dev)
+    log(f"em: one train_bn micro-step, the card's float32 against the "
+        f"CPU's (and the bf16 recipe's beside them): {json.dumps(step)} on "
+        f"{smi}")
+    if not (step["loss_abs_err"] <= 1e-3 and step["grad_rel_l2"] <= 2e-2
+            and step["stats_max_abs_err"] <= 1e-3):
+        raise AssertionError(f"em card vs CPU micro-step {step}")
+    out["step_cmp"] = step
+
+    # the group phase: joint only, the backbone frozen
+    kernels.reset_launch_counts()
+    group = finetune_wandb_group.main(_coco_argv(
+        "group_scaleproto_em", "em_group", data, tmp,
+        [f"train.joint_steps = {EM_GROUP_STEPS}",
+         f"Trainer.val_check_interval = {EM_GROUP_STEPS}"],
+        ["--start-checkpoint", trained["final"]]))
+    group_counts = kernels.launch_counts()
+    if sorted(group["phases"]) != [1]:
+        raise AssertionError(f"em group: phases {sorted(group['phases'])}")
+    perf["group"] = _em_phase_record("em group phase 1", group["phases"][1],
+                                     EM_GROUP_STEPS)
+    before, _ = load_checkpoint(trained["final"])
+    after, _ = load_checkpoint(group["final"])
+    for k, v in before.items():
+        if k.startswith("features.") and "num_batches" not in k and \
+                torch.equal(after[k], v) == ("running_" in k):
+            raise AssertionError(f"em group: {k} "
+                                 f"{'unmoved' if 'running_' in k else 'moved'}")
+    out["group_bn"] = check_em_bn(group["final"], moved=True)
+
+    # the single-scale baseline: frozen BN
+    kernels.reset_launch_counts()
+    single = train_wandb.main(_coco_argv(
+        "baseline_em", "em_single", data, tmp,
+        [f"train.joint_steps = {EM_SINGLE_STEPS}",
+         "train.finetune_steps = 0", "train.push_proto = False",
+         f"Trainer.val_check_interval = {EM_SINGLE_STEPS}"]))
+    single_counts = kernels.launch_counts()
+    perf["single"] = _em_phase_record("em single (baseline_em)",
+                                      single["phases"][1], EM_SINGLE_STEPS)
+    out["single_bn"] = check_em_bn(single["final"], moved=False)
+    torch.cuda.empty_cache()
+
+    # eval and serving of final-group over the val frames; int8 refused
+    out["eval"] = em_eval(tmp, data, dev, smi)
+    torch.cuda.empty_cache()
+    val = os.path.join(data, "img_with_margin_0", "val")
+    out["serve"] = serve_checkpoint(tmp, "em_group", "final-group", dev,
+                                    smi, "em_serving",
+                                    size=(EM_SIZE, EM_SIZE), frames=val,
+                                    uses=EM_PATH_KERNELS)
+    if out["serve"]["counts"]["aspp"] or max(
+            out["serve"]["agreement"],
+            out["serve"]["decided_agreement"]) < 0.999:
+        raise AssertionError(f"em serving: {out['serve']}")
+    try:
+        serve.main(["em_group", "final-group", "--input", val,
+                    "--quant8-static", "--raw-output", "--results-root", tmp,
+                    "--output", os.path.join(tmp, "em_q8")])
+    except ValueError as e:
+        if "'unet_aspp'" not in str(e):
+            raise
+        log(f"em: serve --quant8-static refused by name: {e}")
+    else:
+        raise AssertionError("em: serve --quant8-static was not refused")
+    for path, c in (("training", counts), ("group", group_counts),
+                    ("single", single_counts)):
+        if any(c[k] for k in TRAINING_KERNELS):
+            raise AssertionError(f"em {path}: K2 launched {c}")
+    out.update(counts=counts, group_counts=group_counts,
+               single_counts=single_counts, perf=perf)
+    return out
+
+
 def main() -> None:
     if sys.argv[1:] == ["coco-push-artifacts"]:
         return coco_push_artifacts()
@@ -5237,6 +5774,8 @@ def main() -> None:
         coco = timed("coco", coco_phase, tmp, dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
         ade = timed("ade", ade_phase, tmp, dev, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        em = timed("em", em_phase, tmp, dev, smi)
     quant, evals = served["quant"], served["evals"]
     group, pruning = trained["group"], trained["pruning"]
     single, resume = trained["single"], trained["resume"]
@@ -5289,7 +5828,12 @@ def main() -> None:
                       "ade_single_training": ade["single_counts"][name],
                       "ade_eval": ade["eval"]["counts"][name],
                       "ade_eval_exact": ade["eval_exact"]["counts"][name],
-                      "ade_serving": ade["serve"]["counts"][name]}
+                      "ade_serving": ade["serve"]["counts"][name],
+                      "em_training": em["counts"][name],
+                      "em_group_training": em["group_counts"][name],
+                      "em_single_training": em["single_counts"][name],
+                      "em_eval": em["eval"]["counts"][name],
+                      "em_serving": em["serve"]["counts"][name]}
                for name in results}
     # the Pascal slice's own paths: K2's forward and backward in its
     # training, K1 and K3 in its test export and serving
@@ -5318,7 +5862,11 @@ def main() -> None:
                         ("aspp", "ade_group_training"),
                         ("upsample", "ade_eval"),
                         ("upsample", "ade_eval_exact"),
-                        *((k, "ade_serving") for k in SERVING_KERNELS)):
+                        *((k, "ade_serving") for k in SERVING_KERNELS),
+                        # EM's eval and serving at 512 x 512 (its training
+                        # and K2 run none: em_phase holds them at 0)
+                        ("upsample", "em_eval"),
+                        *((k, "em_serving") for k in EM_PATH_KERNELS)):
         if by_path[name][where] < 1:
             raise AssertionError(f"{name} never launched on {where}")
     # each kernel's launches in the main path of its slice: the training

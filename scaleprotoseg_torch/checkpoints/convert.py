@@ -39,19 +39,23 @@ def spec_from_meta(meta: Dict) -> ProtoSpec:
 
 
 def _convbn_to_statedict(tree: Dict, stats: Dict, out: Dict, prefix: str):
-    """Walk ``{conv: {kernel, bias}, bn: {scale, bias}}`` nodes into
-    deeplab-named torch keys (HWIO -> OIHW)."""
+    """Walk ``{conv: {kernel, bias}, bn: {scale, bias}}`` nodes (with the
+    ``batch_stats`` ``{bn: {mean, var}}`` beside them) and bare conv nodes
+    ``{kernel[, bias]}`` (the U-Net's ``outc``) into reference-named torch
+    keys (HWIO -> OIHW); other nodes are walked into.  An array this walk
+    cannot place raises: nothing is dropped without a word."""
     for name, node in tree.items():
         if not isinstance(node, dict):
-            continue
+            raise ValueError(f"{prefix}{name}: an array outside a conv or "
+                             "BN node cannot be carried")
         sub_stats = (stats or {}).get(name, {})
         if "conv" in node or "bn" in node:
+            unknown = sorted(set(node) - {"conv", "bn"})
+            if unknown:
+                raise ValueError(f"{prefix}{name}: entries {unknown} beside "
+                                 "conv / bn cannot be carried")
             conv = node.get("conv", {})
-            if "kernel" in conv:
-                out[f"{prefix}{name}.conv.weight"] = \
-                    np.asarray(conv["kernel"]).transpose(3, 2, 0, 1)
-            if "bias" in conv:
-                out[f"{prefix}{name}.conv.bias"] = np.asarray(conv["bias"])
+            _conv_to_statedict(conv, out, f"{prefix}{name}.conv.")
             bn = node.get("bn", {})
             sbn = sub_stats.get("bn", {})
             if bn:
@@ -65,8 +69,24 @@ def _convbn_to_statedict(tree: Dict, stats: Dict, out: Dict, prefix: str):
                         np.asarray(sbn["var"])
                 out[f"{prefix}{name}.bn.num_batches_tracked"] = \
                     np.asarray(0, np.int64)
+        elif "kernel" in node:
+            _conv_to_statedict(node, out, f"{prefix}{name}.")
         else:
             _convbn_to_statedict(node, sub_stats, out, f"{prefix}{name}.")
+
+
+def _conv_to_statedict(conv: Dict, out: Dict, prefix: str) -> None:
+    """A flax conv's ``{kernel[, bias]}`` -> ``<prefix>weight`` (OIHW) and
+    ``<prefix>bias``; any other entry raises."""
+    unknown = sorted(set(conv) - {"kernel", "bias"})
+    if unknown:
+        raise ValueError(f"{prefix[:-1]}: conv entries {unknown} cannot be "
+                         "carried")
+    if "kernel" in conv:
+        out[f"{prefix}weight"] = \
+            np.asarray(conv["kernel"]).transpose(3, 2, 0, 1)
+    if "bias" in conv:
+        out[f"{prefix}bias"] = np.asarray(conv["bias"])
 
 
 def ppnet_params_to_statedict(params: Dict, batch_stats: Optional[Dict],

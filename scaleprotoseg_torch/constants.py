@@ -9,11 +9,11 @@ VOC-2012 stores its raw ids (0-20, 255 void) and converts online too
 (``PASCAL_ID_MAPPING``: k -> k + 1, 255 -> 0).  COCO-Stuff's stored ids
 are final (``COCO_LUT`` is applied offline, when the dataset is
 preprocessed), and so are ADE20K's (0 void, class c stored as c + 1, the
-150 classes of ``ADE20K_LABELS``), so their online conversion is the
-identity, as in the JAX package.  EM training is not part of the port
-yet and is refused by name.  The evaluation reads COCO-Stuff, ADE20K and
-EM labels as they are stored and names their classes with the tables
-below.
+150 classes of ``ADE20K_LABELS``) and EM's (ISBI-2012: the grayscale
+label values mapped by ``EM_RGB_2_ID`` offline, 1 background, 2 cell), so
+their online conversion is the identity, as in the JAX package.  The
+evaluation reads COCO-Stuff, ADE20K and EM labels as they are stored and
+names their classes with the tables below.
 """
 
 from __future__ import annotations
@@ -128,7 +128,13 @@ COCO_LABELS = [
     "window-blind", "window-other", "wood",
 ]
 COCO_ID_2_LABEL = dict(enumerate(COCO_LABELS))
+
+# EM / ISBI-2012: the validation frames held out of the 30 training ones,
+# the grayscale label value -> label (0 reserved for void), the classes
+EM_VAL_SIZE = 10
+EM_RGB_2_ID = {0: 1, 255: 2}
 EM_ID_2_LABEL = {0: "background", 1: "cell"}
+CLASS_WEIGHTS = [1.0, 1.0]
 
 
 def mapping_to_lut(mapping: dict, size: int = 256,
@@ -147,12 +153,12 @@ PASCAL_LUT = mapping_to_lut(PASCAL_ID_MAPPING, size=256)
 COCO_LUT = mapping_to_lut(COCO_ID_MAPPING, size=256)
 IDENTITY_LUT = np.arange(256, dtype=np.uint8)
 _LUTS = {"cityscapes": CITYSCAPES_19_LUT, "pascal": PASCAL_LUT,
-         "coco": IDENTITY_LUT, "ade": IDENTITY_LUT}
+         "coco": IDENTITY_LUT, "ade": IDENTITY_LUT, "em": IDENTITY_LUT}
 
 
 def conversion_lut(data_type: str) -> np.ndarray:
     """The 256-entry online label conversion of a dataset (the identity
-    for COCO-Stuff and ADE20K, whose stored ids are final)."""
+    for COCO-Stuff, ADE20K and EM, whose stored ids are final)."""
     if data_type in _LUTS:
         return _LUTS[data_type]
     raise NotImplementedError(
@@ -162,6 +168,6 @@ def conversion_lut(data_type: str) -> np.ndarray:
 
 def convert_targets(targets: np.ndarray, data_type: str) -> np.ndarray:
     """Stored annotation -> labels (0 = void, class c as c + 1);
-    COCO-Stuff's and ADE20K's stored ids pass through unchanged."""
+    COCO-Stuff's, ADE20K's and EM's stored ids pass through unchanged."""
     lut = conversion_lut(data_type)
     return targets if lut is IDENTITY_LUT else lut[targets]

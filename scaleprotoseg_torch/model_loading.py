@@ -111,7 +111,9 @@ def load_model(model_path: str, checkpoint_path: str,
     ``quant8=True`` runs the layer4/5 convs as dynamic w8a8 int8 and drops
     ``fast``, as the JAX package does; ``quant8='static'`` uses calibrated
     per-site scales (``calibrate_quant_scales``) and keeps ``fast``.
-    Serving only; the state dict is the same either way."""
+    Serving only; the state dict is the same either way.  A U-Net
+    backbone (EM) refuses ``quant8`` by name; its trainable BN serves
+    with the running statistics."""
     if quant8 not in (False, True, "static"):
         raise ValueError(f"quant8 must be False, True or 'static', got "
                          f"{quant8!r}")
@@ -153,7 +155,8 @@ def load_model(model_path: str, checkpoint_path: str,
         scale_head_type=q("scale_head_type"), bindings=bindings, spec=spec,
         dtype=dtype, quant8=quant8)
     model.load_state_dict(sd, strict=True)
-    model.features.base.aspp.fast = fast
+    if model.aspp is not None:
+        model.aspp.fast = fast
     cast_convs(model, dtype)
     model.to(dev)
     if dev.type == "cuda":

@@ -158,6 +158,8 @@ class DeepLabV2(nn.Module):
     Output channels: ``n_out`` for 'sum', ``len(rates) * n_out`` for
     'concat'.  ``fast_gradconv``: see ``set_fast_gradconv``."""
 
+    trainable_bn = False          # every BN frozen (``FrozenBatchNorm2d``)
+
     def __init__(self, n_out: int, n_blocks: Tuple[int, ...] = (3, 4, 23, 3),
                  atrous_rates: Tuple[int, ...] = (6, 12, 18, 24),
                  aspp_mode: str = "concat", fast_aspp: bool = False,

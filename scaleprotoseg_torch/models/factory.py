@@ -3,12 +3,15 @@
 Covers the DeepLabV2 ResNet backbones of the Cityscapes and Pascal configs
 (``deeplabv2_resnet{101,50}`` with a summed ASPP and their ``_multiscale``
 concat-ASPP twins), with the MSC input pyramid of their ``scales``
-binding (1.0 entries dropped, as the JAX package does).  ``quant8``
-(int8 serving of layer4/5) applies to any of them, pyramid included: the
-pyramid calls the one backbone once per map, so a static site calibrates
-over all of them and serves every map with its one scale.  The other
-backbones and the scale head are not part of the port yet and are refused
-by name.
+binding (1.0 entries dropped, as the JAX package does), and EM's U-Nets
+(``unet_aspp``: ``unet_aspp_features.{unet_n_features, multiscale,
+scales, unet_base}``, a concat ASPP of ``n_features`` x 4 channels or a
+summed one of ``n_features``; ``unet``: ``unet_features.{unet_n_features,
+scales}`` at base 64).  ``quant8`` (int8 serving of layer4/5) applies to
+the DeepLab backbones, pyramid included: the pyramid calls the one
+backbone once per map, so a static site calibrates over all of them and
+serves every map with its one scale.  The other backbones and the scale
+head are not part of the port yet and are refused by name.
 """
 
 from __future__ import annotations
@@ -16,10 +19,12 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn as nn
 
 from scaleprotoseg_torch.configlib import Bindings, query
 from scaleprotoseg_torch.models.deeplab import DeepLabV2
 from scaleprotoseg_torch.models.ppnet import PPNet
+from scaleprotoseg_torch.models.unet import UNet, UNetASPP
 from scaleprotoseg_torch.spec import ProtoSpec
 
 RATES = (6, 12, 18, 24)
@@ -34,22 +39,48 @@ _BACKBONES = {
     "deeplabv2_resnet50_multiscale": (
         "deeplabv2_resnet50_features_multiscale", (3, 4, 6, 3), "concat"),
 }
+# EM's U-Nets: name -> config name
+_UNETS = {"unet_aspp": "unet_aspp_features", "unet": "unet_features"}
+
+
+def _required(bindings: Bindings, name: str, param: str) -> int:
+    value = query(bindings, name, param)
+    if value is None:
+        raise ValueError(f"{name}.{param} is REQUIRED")
+    return int(value)
+
+
+def _pyramid(bindings: Bindings, name: str) -> Tuple[float, ...]:
+    """The MSC pyramid of a ``scales`` binding: its entries but 1.0
+    (empty: none)."""
+    return tuple(float(s) for s in
+                 (query(bindings, name, "scales", ()) or ()) if s != 1.0)
 
 
 def build_backbone(base_architecture: str, bindings: Bindings,
-                   quant8=False) -> Tuple[DeepLabV2, int, Tuple[float, ...]]:
+                   quant8=False) -> Tuple[nn.Module, int, Tuple[float, ...]]:
     """(backbone, output channels, MSC pyramid scales) for a named
-    architecture; ``quant8`` as ``DeepLabV2``'s."""
+    architecture; ``quant8`` as ``DeepLabV2``'s (a U-Net refuses it)."""
+    if base_architecture in _UNETS:
+        name = _UNETS[base_architecture]
+        if quant8:
+            raise ValueError(f"quant8 serving needs a DeepLabV2 backbone; "
+                             f"got {base_architecture!r}")
+        n_features = _required(bindings, name, "unet_n_features")
+        if base_architecture == "unet":
+            return UNet(n_features), n_features, _pyramid(bindings, name)
+        multiscale = bool(query(bindings, name, "multiscale", False))
+        backbone = UNetASPP(n_features, RATES, multiscale,
+                            int(query(bindings, name, "unet_base", 64)))
+        out_ch = n_features * (len(RATES) if multiscale else 1)
+        return backbone, out_ch, _pyramid(bindings, name)
     if base_architecture not in _BACKBONES:
         raise NotImplementedError(
             f"backbone {base_architecture!r} is not ported yet; the port "
-            f"has {sorted(_BACKBONES)}")
+            f"has {sorted([*_BACKBONES, *_UNETS])}")
     name, n_blocks, mode = _BACKBONES[base_architecture]
-    n_features = query(bindings, name, "deeplab_n_features")
-    if n_features is None:
-        raise ValueError(f"{name}.deeplab_n_features is REQUIRED")
-    scales = tuple(float(s) for s in
-                   (query(bindings, name, "scales", ()) or ()) if s != 1.0)
+    n_features = _required(bindings, name, "deeplab_n_features")
+    scales = _pyramid(bindings, name)
     backbone = DeepLabV2(n_out=int(n_features), n_blocks=n_blocks,
                          atrous_rates=RATES, aspp_mode=mode, quant8=quant8)
     out_ch = int(n_features) * (len(RATES) if mode == "concat" else 1)

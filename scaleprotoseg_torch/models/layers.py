@@ -1,10 +1,13 @@
 """Conv building blocks with the reference's parameter names.
 
-BatchNorm is frozen, as the reference freezes all pretrained BN: the
-statistics and affine parameters are constants, applied in inference
-form ``(x - mean) * weight / sqrt(var + 1e-5) + bias`` whatever the
-module's train flag.  Its parameters stay float32 while the convolutions
-may run in bf16, in one of two ways:
+BatchNorm is frozen in the DeepLab backbones, as the reference freezes
+all pretrained BN: the statistics and affine parameters are constants,
+applied in inference form ``(x - mean) * weight / sqrt(var + 1e-5) +
+bias`` whatever the module's train flag.  The U-Net backbones of EM
+(``freeze_type = 'none'``) hold ``TrainableBatchNorm2d``, whose
+statistics a caller's ``train_bn`` updates, as flax's ``nn.BatchNorm``.
+Their parameters stay float32 while the convolutions may run in bf16, in
+one of two ways:
 
 - serving: ``cast_convs`` casts the conv weights themselves;
 - training: ``set_compute_dtype`` leaves the parameters float32 and each
@@ -38,9 +41,45 @@ class FrozenBatchNorm2d(nn.BatchNorm2d):
                             self.weight, self.bias, False, 0.0, self.eps)
 
 
+class TrainableBatchNorm2d(FrozenBatchNorm2d):
+    """flax's ``nn.BatchNorm(use_running_average=not train_bn,
+    momentum=0.999, epsilon=1e-5)`` with ``nn.BatchNorm2d``'s state-dict
+    keys.  ``train_bn=False`` normalizes with the running statistics.
+    ``train_bn=True`` normalizes with the batch's mean and its biased
+    variance, both in float32 whatever the input's dtype and the variance
+    as flax's ``E[x^2] - E[x]^2`` clipped at 0, and moves the running
+    statistics by ``0.999 * running + 0.001 * batch``, the variance
+    biased too (``nn.BatchNorm2d`` would move them by the unbiased one).
+    The output has the input's dtype; ``num_batches_tracked`` stays as it
+    was (flax keeps no count)."""
+
+    MOMENTUM = 0.999            # flax's: the weight of the running value
+
+    def forward(self, x: torch.Tensor, train_bn: bool = False
+                ) -> torch.Tensor:
+        if not train_bn:
+            return super().forward(x)
+        # at least float32, as flax promotes the statistics' dtype
+        xf = x if x.dtype == torch.float64 else x.float()
+        dims = (0, 2, 3)
+        mean = xf.mean(dims)
+        var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+        m = self.MOMENTUM
+        with torch.no_grad():
+            self.running_mean.copy_(m * self.running_mean +
+                                    (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + \
+            self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
 class ConvBN(nn.Module):
-    """Conv (no bias) -> frozen BN -> optional ReLU; ``conv`` / ``bn``
-    children.  Padding defaults to ``(k - 1) * dilation // 2``.
+    """Conv (no bias) -> BN -> optional ReLU; ``conv`` / ``bn`` children.
+    Padding defaults to ``(k - 1) * dilation // 2``.  The BN is frozen,
+    or with ``trainable_bn`` a ``TrainableBatchNorm2d`` that the
+    forward's ``train_bn`` trains.
 
     ``fast_grad`` (a 'same' stride-1 3x3 conv only) computes the conv
     through ``ops.gradconv.conv3x3_dilated``: the same forward, the
@@ -49,7 +88,7 @@ class ConvBN(nn.Module):
     def __init__(self, cin: int, cout: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1,
                  padding: Optional[int] = None, relu: bool = True,
-                 fast_grad: bool = False):
+                 fast_grad: bool = False, trainable_bn: bool = False):
         super().__init__()
         pad = (kernel_size - 1) * dilation // 2 if padding is None \
             else padding
@@ -60,12 +99,15 @@ class ConvBN(nn.Module):
         self.fast_grad = fast_grad
         self.conv = nn.Conv2d(cin, cout, kernel_size, stride, pad,
                               dilation, bias=False)
-        # momentum 0.001 is flax's 0.999; the statistics never update here
-        self.bn = FrozenBatchNorm2d(cout, eps=1e-5, momentum=0.001)
+        # momentum 0.001 is flax's 0.999 (TrainableBatchNorm2d updates by
+        # flax's rule, not by this attribute)
+        bn = TrainableBatchNorm2d if trainable_bn else FrozenBatchNorm2d
+        self.bn = bn(cout, eps=1e-5, momentum=0.001)
         self.relu = relu
         self.compute_dtype: Optional[torch.dtype] = None  # None: weight's
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train_bn: bool = False
+                ) -> torch.Tensor:
         conv = self.conv
         dt = self.compute_dtype or conv.weight.dtype
         x, w = as_dtype(x, dt), as_dtype(conv.weight, dt)
@@ -74,8 +116,27 @@ class ConvBN(nn.Module):
         else:
             x = F.conv2d(x, w, None, conv.stride, conv.padding,
                          conv.dilation)
-        x = self.bn(x)
+        if train_bn:
+            if not isinstance(self.bn, TrainableBatchNorm2d):
+                raise ValueError("train_bn on a frozen BatchNorm")
+            x = self.bn(x, train_bn=True)
+        else:
+            x = self.bn(x)
         return F.relu(x, inplace=True) if self.relu else x
+
+
+class HeadConv(nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``compute_dtype`` (None: its
+    weight's), parameters untouched, as ``ConvBN`` does: the U-Net's 1x1
+    head ``outc``."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or self.weight.dtype
+        bias = None if self.bias is None else as_dtype(self.bias, dt)
+        return F.conv2d(as_dtype(x, dt), as_dtype(self.weight, dt), bias,
+                        self.stride, self.padding, self.dilation)
 
 
 class QuantConvBN(ConvBN):
@@ -190,10 +251,11 @@ def cast_convs(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Run every ``ConvBN`` under ``module`` in ``dtype``, parameters
-    untouched (the training form of mixed precision)."""
+    """Run every ``ConvBN`` and ``HeadConv`` under ``module`` in
+    ``dtype``, parameters untouched (the training form of mixed
+    precision)."""
     for m in module.modules():
-        if isinstance(m, ConvBN):
+        if isinstance(m, (ConvBN, HeadConv)):
             m.compute_dtype = dtype
     return module
 

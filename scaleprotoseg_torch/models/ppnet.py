@@ -61,14 +61,24 @@ class PPNetOutput(NamedTuple):
 
 
 class Features(nn.Module):
-    """Holds the backbone as ``base`` (the reference's ``features.base``)."""
+    """Holds the backbone as ``base`` (the reference's ``features.base``).
+    ``train_bn`` trains the backbone's BatchNorm (the U-Nets'; a backbone
+    whose BN is frozen refuses it)."""
 
     def __init__(self, base: nn.Module):
         super().__init__()
         self.base = base
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.base(x)
+    def forward(self, x: torch.Tensor, train_bn: bool = False
+                ) -> torch.Tensor:
+        if not train_bn:
+            return self.base(x)
+        if not getattr(self.base, "trainable_bn", False):
+            raise NotImplementedError(
+                f"train_bn: {type(self.base).__name__}'s BatchNorm is "
+                "frozen in the port (trainable BN exists for the U-Net "
+                "backbones only)")
+        return self.base(x, train_bn=True)
 
 
 class AddOnLayers(nn.Module):
@@ -185,6 +195,12 @@ class PPNet(nn.Module):
         if grad is not None:
             grad.mul_(self._glw_own)
 
+    @property
+    def aspp(self) -> Optional[nn.Module]:
+        """The backbone's ASPP head (None for a backbone without one, the
+        plain U-Net)."""
+        return getattr(self.features.base, "aspp", None)
+
     def set_compute_dtype(self, dtype: torch.dtype) -> "PPNet":
         """Training form of mixed precision: parameters stay float32, the
         convs and the add-on compute in ``dtype``; the features then stay
@@ -198,17 +214,20 @@ class PPNet(nn.Module):
     # ------------------------------------------------------------------
     # Forward
     # ------------------------------------------------------------------
-    def backbone_features(self, x: torch.Tensor, train: bool = False
+    def backbone_features(self, x: torch.Tensor, train: bool = False,
+                          train_bn: bool = False
                           ) -> Union[torch.Tensor, List[torch.Tensor]]:
         """(B, H, W, 3) -> backbone features (B, S*D, Hp, Wp); with the
         MSC pyramid the fused map, or in training ``[base, *pyramid,
         fused]`` (the pyramid in ``msc_scales`` order, the max taken in
-        that order, as the JAX package does)."""
-        base = self.features(x.permute(0, 3, 1, 2))
+        that order, as the JAX package does).  ``train_bn``: the
+        backbone's BN normalizes with batch statistics and updates its
+        running ones (``Features``)."""
+        base = self.features(x.permute(0, 3, 1, 2), train_bn)
         if not self.msc_scales:
             return base
         pyramid = [self.features(
-            resize_bilinear_factor(x, p).permute(0, 3, 1, 2))
+            resize_bilinear_factor(x, p).permute(0, 3, 1, 2), train_bn)
             for p in self.msc_scales]
         hb, wb = base.shape[2], base.shape[3]
         fused = base
@@ -218,11 +237,12 @@ class PPNet(nn.Module):
                                                   fused.dtype))
         return [base, *pyramid, fused] if train else fused
 
-    def conv_features(self, x: torch.Tensor, train: bool = False
+    def conv_features(self, x: torch.Tensor, train: bool = False,
+                      train_bn: bool = False
                       ) -> Union[torch.Tensor, List[torch.Tensor]]:
         """(B, H, W, 3) -> post-add-on features (B, Hp, Wp, S*D); a list
         of them in training with the MSC pyramid."""
-        feats = self.backbone_features(x, train)
+        feats = self.backbone_features(x, train, train_bn)
         if isinstance(feats, list):
             return [self.add_on_layers(f).permute(0, 2, 3, 1) for f in feats]
         return self.add_on_layers(feats).permute(0, 2, 3, 1)
@@ -247,13 +267,16 @@ class PPNet(nn.Module):
                            activations=activations,
                            group_activations=group_act)
 
-    def forward(self, x: torch.Tensor, train: Optional[bool] = None
+    def forward(self, x: torch.Tensor, train: Optional[bool] = None,
+                train_bn: bool = False
                 ) -> Union[PPNetOutput, List[PPNetOutput]]:
         """The model's output; ``train`` (default: the module's training
         mode) returns one output per pyramid map, as ``backbone_features``
-        lists them, when the model has the MSC pyramid."""
+        lists them, when the model has the MSC pyramid.  ``train_bn``
+        trains the backbone's BN (a trainer with ``freeze_type =
+        'none'``); the module's mode alone never does."""
         feats = self.conv_features(
-            x, self.training if train is None else train)
+            x, self.training if train is None else train, train_bn)
         if isinstance(feats, list):
             return [self.forward_from_conv_features(f) for f in feats]
         return self.forward_from_conv_features(feats)

@@ -66,19 +66,22 @@ def float32_forward(model):
     """The model in eval mode with float32 convs and add-on, the ASPP's
     plain form (no K2) and TF32 off; the training recipe is restored on
     exit."""
-    aspp = model.features.base.aspp
-    saved = (model.dtype, aspp.fast, model.training,
+    aspp = model.aspp
+    saved = (model.dtype, aspp is not None and aspp.fast, model.training,
              torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
     model.set_compute_dtype(torch.float32)
-    aspp.fast = False
+    if aspp is not None:
+        aspp.fast = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model.eval()
     try:
         yield model
     finally:
-        dtype, aspp.fast, training, tf32_mm, tf32_conv = saved
+        dtype, fast, training, tf32_mm, tf32_conv = saved
+        if aspp is not None:
+            aspp.fast = fast
         model.set_compute_dtype(dtype)
         model.train(training)
         torch.backends.cuda.matmul.allow_tf32 = tf32_mm

@@ -151,11 +151,11 @@ def export_serving(model, *, height: int, width: int,
     if not set(platforms) <= set(PLATFORMS):
         raise ValueError(f"platforms must be among {PLATFORMS}, got "
                          f"{platforms}")
-    aspp = model.features.base.aspp
-    fast_aspp = aspp.fast
+    aspp = model.aspp
+    fast_aspp = aspp is not None and aspp.fast
     if len(platforms) > 1:
         fast = False
-    if batch is None or len(platforms) > 1:
+    if aspp is not None and (batch is None or len(platforms) > 1):
         aspp.fast = False
     forward = ServingForward(
         model, output=output, upsample=upsample, fast=fast,
@@ -172,7 +172,8 @@ def export_serving(model, *, height: int, width: int,
             exported = torch.export.export(forward, (x,),
                                            dynamic_shapes=dims, strict=False)
     finally:
-        aspp.fast = fast_aspp
+        if aspp is not None:
+            aspp.fast = fast_aspp
     exported.platforms = platforms
     return exported
 

@@ -26,9 +26,11 @@ parameter.  Frozen parameters get ``requires_grad_(False)``, so the
 backward never runs for them.
 
 Labels:
-  features_conv  backbone convs outside the ASPP
+  features_conv  backbone convs outside the ASPP (the U-Nets' ``outc``
+                 too)
   aspp_w/aspp_b  ASPP branch weights/biases (10x lr in the joint phase)
-  features_bn    frozen BatchNorm affine (no phase trains it)
+  features_bn    BatchNorm affine (no phase trains it; the U-Nets'
+                 trainable BN moves only its running statistics, buffers)
   add_on         add-on layers
   prototypes     prototype bank
   last_layer     the plain head's last layer

@@ -15,12 +15,24 @@ Knobs read from the ``train`` bindings:
                                      float32 (``PPNet.set_compute_dtype``)
   train.fast_aspp = True             the ASPP through K2's forward kernel
                                      and its tap-packed backward kernels
-                                     (needs compute_dtype bfloat16)
+                                     (needs compute_dtype bfloat16; off
+                                     for a UNet-ASPP backbone, as in the
+                                     JAX package)
   train.fast_gradconv = True         layer4/5's dilated 3x3 convs through
                                      the hybrid backward of
-                                     ``ops/gradconv.py`` (same forward)
+                                     ``ops/gradconv.py`` (same forward; no
+                                     effect on a backbone without them)
   train.remat = True                 the forward computed again in the
-                                     backward (``make_train_step``)
+                                     backward (``make_train_step``;
+                                     ignored with trainable BN)
+
+``PatchClassificationModule[MultiScale].freeze_type = 'none'`` trains the
+backbone's BatchNorm statistics (EM's U-Nets): every forward of every
+phase normalizes with the batch's statistics and moves the running ones,
+the last-layer and group phases' too, whose backbone takes no gradient;
+validation and eval use the running statistics.  The BN affine
+parameters are in no optimizer group, so no phase changes them.  Any
+other value keeps BN frozen, as the JAX package's trainer does.
   train.profile_steps = N            one ``torch.profiler`` trace of N
                                      micro-steps per trainer, from the
                                      phase's fourth micro-step, to
@@ -66,6 +78,7 @@ from scaleprotoseg_torch.checkpoints.state_io import (last_save_stats,
                                                       save_train_state,
                                                       wait_for_checkpoints)
 from scaleprotoseg_torch.configlib import Bindings, query
+from scaleprotoseg_torch.models.unet import UNetASPP
 from scaleprotoseg_torch.ops.prototype import pairwise_l2
 from scaleprotoseg_torch.profiling import StepProfiler
 from scaleprotoseg_torch.train.metrics import (BulkFetcher, MetricAccumulator,
@@ -86,10 +99,6 @@ def module_hparams(bindings: Bindings, variant: str) -> Dict:
     name = "PatchClassificationModule" if variant == "single" else \
         "PatchClassificationModuleMultiScale"
     q = lambda p, d: query(bindings, name, p, d)  # noqa: E731
-    if q("freeze_type", "all") != "all":
-        raise NotImplementedError("trainable BatchNorm (freeze_type "
-                                  f"{q('freeze_type', None)!r}) is not "
-                                  "ported; BN stays frozen")
     if variant != "group" and q("joint_last", None) is not None:
         # joint_last / joint_no_proto shape the group joint phase only; on
         # another variant they would do nothing
@@ -124,6 +133,7 @@ def module_hparams(bindings: Bindings, variant: str) -> Dict:
         ignore_void_class=q("ignore_void_class", True),
         joint_no_proto=q("joint_no_proto", False),
         joint_last=q("joint_last", True),
+        freeze_type=q("freeze_type", "all"),
     )
 
 
@@ -148,21 +158,45 @@ class PhaseTrainer:
         dt_name = query(bindings, "train", "compute_dtype", None)
         fast = bool(query(bindings, "train", "fast_aspp", False))
         self.remat = bool(query(bindings, "train", "remat", False))
+        self.train_bn = hparams.get("freeze_type", "all") == "none"
+        base = model.features.base
+        if self.train_bn and not getattr(base, "trainable_bn", False):
+            raise NotImplementedError(
+                f"freeze_type = 'none' (trainable BatchNorm) on "
+                f"{type(base).__name__}: its BN is frozen in the port; "
+                "trainable BN exists for the U-Net backbones (EM)")
+        if self.train_bn and self.remat:
+            log("train.remat: ignored with trainable BatchNorm "
+                "(freeze_type = 'none'): a recomputed forward would move "
+                "the running statistics twice")
+        unet_aspp = isinstance(base, UNetASPP)
         if query(bindings, "train", "fast_gradconv", False):
-            model.features.base.set_fast_gradconv(True)
+            if hasattr(base, "set_fast_gradconv"):
+                base.set_fast_gradconv(True)
+            else:
+                log(f"train.fast_gradconv: no effect on "
+                    f"{type(base).__name__} (no dilated ResNet layers)")
         if dt_name:
             model.set_compute_dtype(_DTYPES[dt_name])
         if fast:
-            if model.dtype == torch.bfloat16:
-                model.features.base.aspp.fast = True
+            if unet_aspp:
+                log("train.fast_aspp: disabled for UNet-ASPP (its ASPP "
+                    "input is full-resolution and shallow: 64 channels, "
+                    "below K2's 512)")
+            elif model.aspp is None:
+                log(f"train.fast_aspp: no effect on {type(base).__name__} "
+                    "(no ASPP)")
+            elif model.dtype == torch.bfloat16:
+                model.aspp.fast = True
             else:
                 log("WARNING: train.fast_aspp=True requires "
                     "train.compute_dtype='bfloat16'; the K2 kernels stay "
                     "off")
-        base = model.features.base
         log(f"GPU recipe knobs: compute_dtype={dt_name or 'float32'} "
-            f"fast_aspp={base.aspp.fast} "
-            f"fast_gradconv={base.fast_gradconv} remat={self.remat}")
+            f"fast_aspp={bool(model.aspp is not None and model.aspp.fast)} "
+            f"fast_gradconv={getattr(base, 'fast_gradconv', False)} "
+            f"remat={self.remat and not self.train_bn} "
+            f"train_bn={self.train_bn}")
         self.model = model.to(device)
         self.spec = spec
         self.variant = variant
@@ -219,7 +253,8 @@ class PhaseTrainer:
             hp["weights"], hp["ignore_void_class"],
             grad_mask_last_group=(grouped and phase == 1 and
                                   self.model.incorrect_strength == 0),
-            project_group_simplex=grouped, remat=self.remat)
+            project_group_simplex=grouped, remat=self.remat,
+            train_bn=self.train_bn)
         eval_fn = make_eval_step(hp["weights"], hp["ignore_void_class"])
         stage = self.stage_key(phase)
         val_every = val_every_steps or max(len(train_loader), 1)

@@ -12,9 +12,10 @@ from scaleprotoseg_torch.train.optim import PhaseOptimizer
 
 @dataclasses.dataclass
 class TrainState:
-    """The model (all parameters, trainable and frozen, and the frozen BN
-    statistics), the phase optimizer over its trainable partition, and
-    the count of micro-steps taken."""
+    """The model (all parameters, trainable and frozen, and the BN
+    statistics: frozen, or with ``freeze_type = 'none'`` the running ones
+    a relaunch resumes on), the phase optimizer over its trainable
+    partition, and the count of micro-steps taken."""
 
     model: torch.nn.Module
     optimizer: PhaseOptimizer

@@ -120,7 +120,7 @@ def make_train_step(weights: LossWeights, ignore_void: bool = True,
                     class_weights: Optional[torch.Tensor] = None,
                     grad_mask_last_group: bool = False,
                     project_group_simplex: bool = False,
-                    remat: bool = False
+                    remat: bool = False, train_bn: bool = False
                     ) -> Callable[[TrainState, torch.Tensor, torch.Tensor],
                                   Metrics]:
     """``step(state, image, target) -> metrics``: one micro-step of
@@ -131,12 +131,19 @@ def make_train_step(weights: LossWeights, ignore_void: bool = True,
     group projections back on the simplex after the update (idempotent
     on accumulation micro-steps, which update nothing).
 
+    ``train_bn`` (``freeze_type = 'none'``): the forward normalizes with
+    the batch's BN statistics and moves the running ones, whether or not
+    the backbone takes a gradient in this phase, as the JAX package's
+    ``make_train_step(train_bn=True)``.
+
     ``remat``: the model's whole forward runs under non-reentrant
     ``torch.utils.checkpoint`` and is computed again in the backward, as
-    ``jax.checkpoint`` over ``model.apply`` in the JAX package (BN is
-    frozen in the port, so its ``not train_bn`` condition always holds).
-    The numbers are the plain step's; K2's forward launches twice a
-    micro-step (its packed weights come from the cache both times)."""
+    ``jax.checkpoint`` over ``model.apply`` in the JAX package.  It is
+    ignored with ``train_bn``, as there (the recomputed forward would
+    move the running statistics a second time).  The numbers are the
+    plain step's; K2's forward launches twice a micro-step (its packed
+    weights come from the cache both times)."""
+    remat = remat and not train_bn
 
     def step(state: TrainState, image: torch.Tensor,
              target: torch.Tensor) -> Metrics:
@@ -148,7 +155,7 @@ def make_train_step(weights: LossWeights, ignore_void: bool = True,
                 "freeze the backbone); reload without quant8 to train")
         model.train()
         out = checkpoint(model, image, use_reentrant=False) if remat \
-            else model(image)
+            else model(image, train_bn=train_bn)
         loss, metrics = compute_losses(model, out, target, weights,
                                        ignore_void, class_weights)
         loss.backward()

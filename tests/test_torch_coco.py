@@ -135,11 +135,13 @@ def test_coco_tables_match_jax():
     names = teval.class_names("coco", 182)
     assert names == jeval.class_names("coco", 182)
     assert "traffic light" in names
-    # ADE's stored ids are final too (tests/test_torch_ade.py); EM stays
+    # ADE's and EM's stored ids are final too (tests/test_torch_ade.py,
+    # tests/test_torch_em.py); a data type the port does not know is
     # refused by name
     assert constants.conversion_lut("ade") is constants.IDENTITY_LUT
-    with pytest.raises(NotImplementedError, match="em"):
-        constants.conversion_lut("em")
+    assert constants.conversion_lut("em") is constants.IDENTITY_LUT
+    with pytest.raises(NotImplementedError, match="camvid"):
+        constants.conversion_lut("camvid")
 
 
 @pytest.mark.parametrize("name", CONFIGS)

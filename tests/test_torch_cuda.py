@@ -281,8 +281,41 @@ def test_proto_kernel_matches_plain(dev, gen, grouped, bank):
                                rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("bank", ["24x4", "24x4_group", "20x1"])
+def test_proto_kernel_at_em_shapes(dev, gen, bank):
+    """EM's banks on EM's grid: 2 x 512 x 512 pixels (the largest grid of
+    any path: 134 M feature elements at 4 scales) against 24 prototypes
+    over 4 scales of 3 a class (plain and 3 groups a class) and
+    ``baseline_em``'s 20 on one scale, 2 classes."""
+    scales = 1 if bank == "20x1" else 4
+    g = 3 if bank.endswith("group") else 0
+    spec = ProtoSpec.equal_allocation(20 if scales == 1 else 24, 64,
+                                      num_classes=2, num_scales=scales,
+                                      num_groups=g)
+    feats = torch.rand((2, 512, 512, 64 * scales), device=dev,
+                       generator=torch.Generator(dev).manual_seed(3)).to(
+        torch.bfloat16)
+    protos = torch.from_numpy(gen.random((spec.num_prototypes, 64),
+                                         np.float32)).to(dev)
+    kw, last = {}, None
+    if g:
+        mask = (spec.class_proto_index >= 0).astype(np.float32)
+        gw = gen.random((2, g, spec.max_protos_per_class)) * mask[:, None, :]
+        kw = dict(group_projection=torch.from_numpy(
+            (gw / gw.sum(-1, keepdims=True)).astype(np.float32)).to(dev),
+            last_layer_group=torch.from_numpy(gen.standard_normal(
+                (2 * g, 2)).astype(np.float32) * 0.5).to(dev))
+    else:
+        last = torch.from_numpy(gen.standard_normal(
+            (spec.num_prototypes, 2)).astype(np.float32)).to(dev)
+    got = kernels.fused_proto_logits(feats, protos, last, spec, **kw)
+    want = proto_plain(feats, protos, last, spec, **kw)
+    assert got.shape == (2, 512, 512, 2)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
 BANKS = {"cityscapes": (228, 19), "coco_stuff": (2054, 182),
-         "ade20k": (1800, 150)}
+         "ade20k": (1800, 150), "em": (24, 2)}
 
 
 def _bank(name, groups):
@@ -376,6 +409,7 @@ def test_upsample_kernel_matches_plain(dev, gen):
     ((2, 33, 41, 182), (257, 330)),    # COCO-Stuff's classes
     ((1, 61, 81, 182), (480, 640)),    # and one of its image sizes
     ((1, 5, 300, 7), (37, 2400)),      # spans of one band side by side
+    ((2, 512, 512, 2), (512, 512)),    # EM: two classes at scale 1
 ])
 def test_upsample_kernel_shapes(dev, gen, shape, out_hw):
     lg = torch.from_numpy(gen.standard_normal(shape).astype(
