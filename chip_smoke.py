@@ -10,7 +10,8 @@ seconds are printed before the kernels line):
 
 1. device: torch / CUDA versions and the card's name and power limit;
 2. build: every kernel from ``scaleprotoseg_torch/csrc``, one ``nvcc``
-   per source, all started together;
+   per source, all started together, and beside them the image decoders
+   (``native/codecs.cc``, g++), its seconds printed;
 3. kernels: K2 (ASPP), K1 (prototype head) and K3 (upsample + argmax) at
    the flagship serving shapes (batch 2 at 1024 x 2048), each against its
    plain PyTorch version on the same inputs: K2 within 2 bf16 ulps of
@@ -306,7 +307,30 @@ seconds are printed before the kernels line):
    batch 2 on them (labels against the plain path); ``serve
    --quant8-static`` refused by name; K2 launched 0 times on the EM path
    (64 ASPP input channels: the shifted-matmul form);
-11. one line per kernel with its times, bound and launches, for the six
+11. the preprocessing slice, on a machine without PIL: the committed
+   fixtures (``tests/torch_fixtures/codecs``: JPEGs at Pascal's, COCO's,
+   ADE20K's and EM's sizes, baseline 4:2:0 and 4:4:4, gray, progressive;
+   a PIL-filtered PNG, a palette PNG, an LZW TIFF) decoded by
+   ``codecs`` to the SHA-256 of PIL's decode in their manifest; raw
+   trees of every dataset at its own size (Cityscapes PNGs at 2048 x
+   1024, each scanline filtered with one of the five filters by this
+   script's own encoder; Pascal, ADE20K and COCO from the JPEG fixtures
+   with label PNGs, one the palette fixture; the ISBI stacks, 30 frames
+   of 512 x 512, and 32-bit panoptic-parts TIFFs, by a minimal TIFF
+   writer here); the eight CLIs (``python -m
+   scaleprotoseg_torch.data.preprocess_*``, ``img_to_numpy``, the part
+   decoders) in fresh interpreters, 128 jobs to a pooled CLI at n_jobs 8
+   (two chunks of 8 a worker; images/s each, on the wall clock and by the
+   CLI's own closing line), every output against its raw source (labels through their tables, EM's
+   seeded split); host ms per decode at the datasets' sizes; then the
+   preprocessed Cityscapes root on the card: 3 joint micro-steps of the
+   flagship group model on its train split through the port's dataset
+   (K2's forward and backward on each) and ``run_evaluation`` of its val
+   images (K2, K3); and ``serve.main`` of raw ``.png`` / ``.jpg`` inputs
+   (K2, K1, K3) without ``--raw-output`` (``--canvas 1024 2048``), its PNG
+   labels read back by ``imageio.read_png`` equal to the serve of the
+   ``.npy`` mirrors the CLIs wrote;
+12. one line per kernel with its times, bound and launches, for the six
    kernels since redesigned the earlier design's recorded times beside
    the new ones, the card's name and power limit, the kernels
    line (every kernel with its status),
@@ -316,19 +340,24 @@ seconds are printed before the kernels line):
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import zlib
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from scaleprotoseg_torch import codecs
 from scaleprotoseg_torch import eval_valid_multiscale as evm
 from scaleprotoseg_torch import kernels
 from scaleprotoseg_torch.checkpoints.convert import (load_checkpoint,
@@ -337,6 +366,8 @@ from scaleprotoseg_torch.checkpoints.convert import (load_checkpoint,
 from scaleprotoseg_torch.configlib import parse_config
 from scaleprotoseg_torch.constants import (CITYSCAPES_19_EVAL_CATEGORIES,
                                            IMAGENET_MEAN, IMAGENET_STD)
+from scaleprotoseg_torch.data import preprocess
+from scaleprotoseg_torch.data.panoptic_parts_lite import decode_uids
 from scaleprotoseg_torch.eval.miou import SegEvaluator
 from scaleprotoseg_torch.eval_valid_multiscale import eval_targets
 from scaleprotoseg_torch.imageio import read_png
@@ -592,12 +623,31 @@ def device_phase() -> str:
 
 
 def build_phase() -> None:
+    """The CUDA sources with nvcc and, beside them, the image decoders
+    (``native/codecs.cc``) with g++."""
     t0 = time.perf_counter()
+    codec_build = {}
+
+    def build_codecs():
+        t = time.perf_counter()
+        try:
+            codecs.load_library()
+        except Exception as e:  # raised below, in the main thread
+            codec_build["error"] = e
+        codec_build["seconds"] = time.perf_counter() - t
+
+    thread = threading.Thread(target=build_codecs)
+    thread.start()
     report = kernels.build()
+    thread.join()
+    if "error" in codec_build:
+        raise codec_build["error"]
     for name, r in report.items():
         ptxas = [ln.strip() for ln in r["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
         log(f"build {name}: {r['seconds']:.1f} s  " + " | ".join(ptxas))
+    log(f"build codecs.cc (g++, the image decoders): "
+        f"{codec_build['seconds']:.1f} s")
     log(f"build: {time.perf_counter() - t0:.1f} s wall")
 
 
@@ -5731,6 +5781,518 @@ def em_phase(tmp: str, dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the preprocessing slice: raw files -> the CLIs -> the card
+# ---------------------------------------------------------------------------
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_fixtures", "codecs")
+# Each pooled CLI gets 128 jobs, so that every one of its 8 workers takes
+# two chunks of 8 and its rate is the pool's, not its start-up's.  The
+# first PREP_DISTINCT files of a split are written; the rest are hard
+# links to them.
+PREP_CITY = (("train", 126), ("val", 2))  # 2048 x 1024 images per split
+PREP_JPEG_SPLITS = {"pascal": (("train_aug", 96), ("train", 12),
+                               ("val", 12), ("test", 8)),
+                    "ade": (("training", 116), ("validation", 12)),
+                    "coco": (("train2017", 116), ("val2017", 12))}
+PREP_JPEG = {"pascal": "pascal_420.jpg", "ade": "ade_progressive.jpg",
+             "coco": "coco_444.jpg"}
+PREP_PARTS = {"city": 8, "pascal": 16}  # panoptic-parts TIFFs (serial CLIs)
+PREP_DISTINCT = 4
+PREP_STEPS = 3                           # joint micro-steps on the card
+PREP_EM_FRAMES = 30                      # ISBI-2012's volume
+
+
+def png_filtered(pixels: np.ndarray) -> bytes:
+    """An 8-bit gray or RGB PNG whose scanline r uses filter r % 5 (none,
+    sub, up, average, Paeth), as PIL's adaptive encoder mixes them;
+    ``codecs.encode_png`` writes filter 0 only."""
+    a = pixels if pixels.ndim == 3 else pixels[..., None]
+    h, w, c = a.shape
+    raw = a.reshape(h, w * c).astype(np.int16)
+    zeros = np.zeros((h, c), np.int16)
+    up = np.vstack([np.zeros((1, w * c), np.int16), raw[:-1]])
+    left = np.hstack([zeros, raw[:, :-c]])
+    upleft = np.hstack([zeros, up[:, :-c]])
+    enc = raw.copy()
+    enc[1::5] -= left[1::5]
+    enc[2::5] -= up[2::5]
+    enc[3::5] -= (left[3::5] + up[3::5]) // 2
+    lf, u, ul = left[4::5], up[4::5], upleft[4::5]
+    p = lf + u - ul
+    pa, pb, pc = np.abs(p - lf), np.abs(p - u), np.abs(p - ul)
+    enc[4::5] -= np.where((pa <= pb) & (pa <= pc), lf,
+                          np.where(pb <= pc, u, ul))
+    kind = np.arange(h) % 5
+    rows = np.hstack([kind[:, None], enc % 256]).astype(np.uint8)
+    header = np.array([w, h], ">u4").tobytes() + bytes([8, 2 if c == 3
+                                                        else 0, 0, 0, 0])
+    return (b"\x89PNG\r\n\x1a\n" + codecs._chunk(b"IHDR", header) +
+            codecs._chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) +
+            codecs._chunk(b"IEND", b""))
+
+
+def write_tiff(path: str, pages) -> None:
+    """A little-endian multi-page TIFF of 2-D uint8 or int32 pages, one
+    uncompressed strip each: the ISBI volume's and the panoptic-parts
+    labels' layout."""
+    out = bytearray(b"II*\x00\x00\x00\x00\x00")
+    prev = 4                      # where the previous IFD offset goes
+    for page in pages:
+        page = np.ascontiguousarray(page)
+        h, w = page.shape
+        data_at = len(out)
+        out += page.astype("<" + page.dtype.str[1:]).tobytes()
+        if len(out) % 2:
+            out += b"\x00"
+        ifd_at = len(out)
+        out[prev:prev + 4] = ifd_at.to_bytes(4, "little")
+        bits = page.dtype.itemsize * 8
+        fmt = 2 if page.dtype.kind == "i" else 1
+        tags = [(256, 4, w), (257, 4, h), (258, 3, bits), (259, 3, 1),
+                (262, 3, 1), (273, 4, data_at), (277, 3, 1), (278, 4, h),
+                (279, 4, page.nbytes), (339, 3, fmt)]
+        out += len(tags).to_bytes(2, "little")
+        for tag, typ, value in tags:
+            out += tag.to_bytes(2, "little") + typ.to_bytes(2, "little")
+            out += (1).to_bytes(4, "little") + value.to_bytes(4, "little")
+        prev = len(out)
+        out += b"\x00\x00\x00\x00"
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
+def check_fixtures() -> dict:
+    """Every committed fixture decoded by ``codecs`` on this machine
+    (which has no PIL) to the SHA-256, mode, dtype and shape of PIL's
+    decode in the manifest; ms per decode of each file."""
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    ms = {}
+    for name, want in sorted(manifest.items()):
+        path = os.path.join(FIXTURES, name)
+        mode, a, _ = codecs.read_image(path)
+        got = dict(mode=mode, dtype=str(a.dtype), shape=list(a.shape),
+                   sha256=hashlib.sha256(a.tobytes()).hexdigest())
+        if got != want:
+            raise AssertionError(f"fixture {name}: {got}, want {want}")
+        # the host clock: a decode runs no device work
+        ms[name] = enqueue_ms(lambda: codecs.read_image(path), 1, 5)
+    log(f"preprocess: {len(manifest)} fixtures decoded to PIL's hashes; ms "
+        f"per decode {json.dumps({k: round(v, 3) for k, v in ms.items()})}")
+    return ms
+
+
+def _write_or_link(path: str, k: int, first: list, write) -> str:
+    """``write(path)`` for the first ``PREP_DISTINCT`` files of a split
+    (recorded in ``first``), else a hard link to one of them; returns the
+    written file the path holds."""
+    if k < PREP_DISTINCT:
+        write(path)
+        first.append(path)
+        return path
+    src = first[k % len(first)]
+    os.link(src, path)
+    return src
+
+
+def write_raw_trees(raw: str, seed: int) -> dict:
+    """The datasets' raw downloads at their own sizes: Cityscapes PNGs at
+    2048 x 1024 (filtered with all five filters), Pascal, ADE20K and COCO
+    from the JPEG fixtures with gray label PNGs (one Pascal label the
+    palette fixture), the ISBI stacks (30 frames of 512 x 512) and 32-bit
+    panoptic-parts TIFFs; past ``PREP_DISTINCT`` files a split, hard links
+    to them.  Returns what each CLI must reproduce."""
+    rng = np.random.default_rng(seed)
+    lut = preprocess._city_lut()
+    cats = [0] + [next(k for k, v in CITYSCAPES_19_EVAL_CATEGORIES.items()
+                       if v == c) for c in range(1, 20)]
+    official = [int(np.flatnonzero(lut == k)[0]) for k in cats]
+    palette = rng.integers(48, 208, (256, 3)).astype(np.int16)
+    want = {"city": {}}
+    bh, bw = HEIGHT // 4, WIDTH // 5 + 1
+    for split, n in PREP_CITY:
+        gt = os.path.join(raw, "city", "gtFine", split, "zurich")
+        img = os.path.join(raw, "city", "leftImg8bit", split, "zurich")
+        os.makedirs(gt)
+        os.makedirs(img)
+        pairs = []
+        for i in range(n):
+            # ids unique over the splits, as Cityscapes' are
+            stem = f"zurich_{len(want['city']):06d}_000019"
+            if i >= PREP_DISTINCT:
+                first, label, image = pairs[i % len(pairs)]
+                os.link(os.path.join(gt, first + "_gtFine_labelIds.png"),
+                        os.path.join(gt, stem + "_gtFine_labelIds.png"))
+                os.link(os.path.join(img, first + "_leftImg8bit.png"),
+                        os.path.join(img, stem + "_leftImg8bit.png"))
+                want["city"][stem] = (split, label, image, first)
+                continue
+            grid = rng.permutation(official).reshape(4, 5)
+            label = np.repeat(np.repeat(grid, bh, 0), bw, 1)[:HEIGHT, :WIDTH]
+            label = label.astype(np.uint8)
+            noise = rng.integers(-16, 17, (HEIGHT, WIDTH, 3), np.int16)
+            image = np.clip(palette[lut[label]] + noise, 0, 255) \
+                .astype(np.uint8)
+            with open(os.path.join(gt, stem + "_gtFine_labelIds.png"),
+                      "wb") as f:
+                f.write(png_filtered(label))
+            with open(os.path.join(img, stem + "_leftImg8bit.png"),
+                      "wb") as f:
+                f.write(png_filtered(image))
+            pairs.append((stem, lut[label], image))
+            want["city"][stem] = (split, lut[label], image, stem)
+    for ds, splits in PREP_JPEG_SPLITS.items():
+        with open(os.path.join(FIXTURES, PREP_JPEG[ds]), "rb") as f:
+            jpeg = f.read()
+        h, w = codecs.decode(jpeg)[1].shape[:2]
+        root = os.path.join(raw, ds)
+        want[ds] = {}
+        for split, n in splits:
+            ids = [f"{split}_{i:04d}" for i in range(n)]
+            if ds == "pascal":
+                img_dir = os.path.join(root, "JPEGImages")
+                lab_dir = os.path.join(root, "SegmentationClassAug")
+                lists = os.path.join(root, "ImageSets", "SegmentationAug")
+                for d in (img_dir, lab_dir, lists):
+                    os.makedirs(d, exist_ok=True)
+                with open(os.path.join(lists, split + ".txt"), "w") as f:
+                    f.writelines(f"/JPEGImages/{i}.jpg "
+                                 f"/SegmentationClassAug/{i}.png\n"
+                                 for i in ids)
+            else:
+                img_dir = os.path.join(root, "images", split)
+                lab_dir = os.path.join(root, "annotations", split)
+                os.makedirs(img_dir)
+                os.makedirs(lab_dir)
+            first = []
+            for k, i in enumerate(ids):
+                with open(os.path.join(img_dir, i + ".jpg"), "wb") as f:
+                    f.write(jpeg)
+                if split == "test":
+                    want[ds][i] = None
+                    continue
+
+                def write_label(path, k=k):
+                    if ds == "pascal" and k == 0:
+                        with open(os.path.join(FIXTURES, "palette.png"),
+                                  "rb") as src, open(path, "wb") as f:
+                            f.write(src.read())
+                        return
+                    label = rng.integers(0, 256, (h // 25 + 1, w // 25 + 1))
+                    label = np.repeat(np.repeat(label, 25, 0), 25,
+                                      1)[:h, :w].astype(np.uint8)
+                    codecs.write_png(path, label)
+                want[ds][i] = _write_or_link(os.path.join(lab_dir, i + ".png"),
+                                             k, first, write_label)
+    em = os.path.join(raw, "em")
+    os.makedirs(em)
+    frames = rng.integers(0, 256, (PREP_EM_FRAMES, 512, 512), np.uint8)
+    cells = rng.integers(0, 2, (PREP_EM_FRAMES, 512, 512)).astype(np.uint8)
+    write_tiff(os.path.join(em, "train-volume.tif"), frames)
+    write_tiff(os.path.join(em, "train-labels.tif"), cells * 255)
+    want["em"] = (frames, cells + 1)
+    uids = np.array([0, 7, 24, 26_001, 24_012, 2_400_105, 2_612_399],
+                    np.int32)
+    want["parts"] = {}
+    for ds, size in (("city", (HEIGHT, WIDTH)), ("pascal", (375, 500))):
+        d = os.path.join(raw, ds, "gtFinePanopticParts", "val", "zurich") \
+            if ds == "city" else os.path.join(
+                raw, ds, "pascal_panoptic_parts", "labels", "val")
+        os.makedirs(d)
+        first, written = [], {}
+        for i in range(PREP_PARTS[ds]):
+            name = (f"zurich_{i:06d}_000019_gtFinePanopticParts.tif"
+                    if ds == "city" else f"val_{i:04d}.tif")
+
+            def write_parts(path):
+                written[path] = rng.choice(uids, size=size).astype(np.int32)
+                write_tiff(path, [written[path]])
+            src = _write_or_link(os.path.join(d, name), i, first,
+                                 write_parts)
+            want["parts"][(ds, name.split("_gtFine")[0].split(".")[0])] = \
+                written[src]
+    return want
+
+
+def run_cli(module: str, args, images: int, env=None) -> dict:
+    """``python -m scaleprotoseg_torch.data.<module> ARGS`` in a fresh
+    interpreter: the wall seconds (interpreter start included) and the
+    seconds the CLI reports for its own work (listing, pool start, every
+    file written), each with its images/s."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m",
+                          f"scaleprotoseg_torch.data.{module}", *args],
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, **(env or {})},
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    if res.returncode:
+        raise AssertionError(f"{module} exited {res.returncode}:\n"
+                             f"{res.stdout}\n{res.stderr}")
+    said = res.stdout.strip().splitlines()[-1]
+    m = re.fullmatch(rf".*: {images} (?:images|frames).* in ([0-9.]+) s "
+                     r"\([0-9.]+ images/s\)", said)
+    if m is None:
+        raise AssertionError(f"{module}: {said!r}, want {images} images")
+    own = float(m.group(1))
+    return dict(images=images, seconds=secs, img_per_s=images / secs,
+                cli_seconds=own, cli_img_per_s=images / own)
+
+
+def check_prep_outputs(out: dict, want: dict) -> None:
+    """Each CLI's outputs against the raw trees it read: index, labels
+    through their tables, images equal to the decoded sources."""
+    from scaleprotoseg_torch.constants import COCO_LUT, EM_VAL_SIZE
+    city = out["city"]
+    with open(os.path.join(city, "all_images.json")) as f:
+        index = json.load(f)
+    pngs = {}
+    for stem, (split, label, image, first) in want["city"].items():
+        if stem not in index[split]:
+            raise AssertionError(f"cityscapes: {stem} not in {split}")
+        ann = np.load(os.path.join(city, "annotations", split, stem + ".npy"))
+        img = np.load(os.path.join(city, "img_with_margin_0", split,
+                                   stem + ".npy"))
+        path = os.path.join(city, "img_with_margin_0", split, stem + ".png")
+        # a link's PNG is byte-equal to its source's, decoded once
+        with open(path, "rb") as f:
+            data = f.read()
+        if first == stem:
+            pngs[stem] = data
+            same = np.array_equal(codecs.decode(data)[1], image)
+        else:
+            same = data == pngs[first]
+        if not (same and np.array_equal(ann, label)
+                and np.array_equal(img, image)):
+            raise AssertionError(f"cityscapes {stem}: outputs differ")
+    if sum(map(len, index.values())) != len(want["city"]):
+        raise AssertionError(f"cityscapes index {index}")
+    labels = {}
+    for ds in PREP_JPEG_SPLITS:
+        image = codecs.read_rgb(os.path.join(FIXTURES, PREP_JPEG[ds]))
+        with open(os.path.join(out[ds], "all_images.json")) as f:
+            index = json.load(f)
+        if sum(map(len, index.values())) != len(want[ds]):
+            raise AssertionError(f"{ds} index {index}")
+        splits = {"training": "train", "validation": "val",
+                  "train2017": "train", "val2017": "val"}
+        for i, lab_path in want[ds].items():
+            split = splits.get(i.rsplit("_", 1)[0], i.rsplit("_", 1)[0])
+            if i not in index[split]:
+                raise AssertionError(f"{ds}: {i} not in {split}")
+            img = np.load(os.path.join(out[ds], "img_with_margin_0", split,
+                                       i + ".npy"))
+            if not np.array_equal(img, image):
+                raise AssertionError(f"{ds} {i}: image differs")
+            if lab_path is None:
+                continue
+            ann = np.load(os.path.join(out[ds], "annotations", split,
+                                       i + ".npy"))
+            if lab_path not in labels:
+                labels[lab_path] = COCO_LUT[codecs.read_l(lab_path)] \
+                    if ds == "coco" else codecs.read_rgb(lab_path)[:, :, 0]
+            if not np.array_equal(ann, labels[lab_path]):
+                raise AssertionError(f"{ds} {i}: label differs")
+    frames, labels = want["em"]
+    with open(os.path.join(out["em"], "all_images.json")) as f:
+        index = json.load(f)
+    val = np.random.RandomState(42).choice(PREP_EM_FRAMES, EM_VAL_SIZE,
+                                           replace=False).tolist()
+    if index["val"] != [str(i) for i in val] or len(index["train"]) != \
+            PREP_EM_FRAMES - EM_VAL_SIZE:
+        raise AssertionError(f"em split {index}")
+    for split, ids in index.items():
+        for i in ids:
+            img = np.load(os.path.join(out["em"], "img_with_margin_0", split,
+                                       i + ".npy"))
+            ann = np.load(os.path.join(out["em"], "annotations", split,
+                                       i + ".npy"))
+            if not (np.array_equal(img, np.repeat(frames[int(i)][..., None],
+                                                  3, 2))
+                    and np.array_equal(ann, labels[int(i)])):
+                raise AssertionError(f"em frame {i} differs")
+    for (ds, stem), uids in want["parts"].items():
+        for kind, arr in zip(("SIDS", "IIDS", "PIDS"), decode_uids(uids)):
+            got = np.load(os.path.join(out[ds], f"annotations_{kind}", "val",
+                                       stem + ".npy"))
+            if not np.array_equal(got, arr):
+                raise AssertionError(f"{ds} parts {stem} {kind} differ")
+
+
+def preprocess_phase(tmp: str, dev, smi: str) -> dict:
+    """The preprocessing slice on the card's machine, which has no PIL:
+    the fixtures decoded to PIL's hashes, ms per decode at the datasets'
+    sizes, raw trees of every dataset through the eight CLIs (each in a
+    fresh interpreter at n_jobs 8: images/s), their outputs against the
+    raw files; then the preprocessed Cityscapes data on the card (joint
+    micro-steps, ``run_evaluation`` of its val images) and ``serve.main``
+    of raw ``.png`` / ``.jpg`` inputs writing PNGs, against the serve of
+    their ``.npy`` mirrors."""
+    from scaleprotoseg_torch import cli_common
+    from scaleprotoseg_torch.train.runner import module_hparams
+    from scaleprotoseg_torch.train.steps import compute_losses
+    t_phase = time.perf_counter()
+    fixture_ms = check_fixtures()
+    t0 = time.perf_counter()
+    raw = os.path.join(tmp, "raw")
+    want = write_raw_trees(raw, seed=31)
+    log(f"preprocess: raw trees written in {time.perf_counter() - t0:.1f} s")
+    city_stem = next(iter(want["city"]))
+    city_img = os.path.join(raw, "city", "leftImg8bit", "train", "zurich",
+                            city_stem + "_leftImg8bit.png")
+    city_lab = os.path.join(raw, "city", "gtFine", "train", "zurich",
+                            city_stem + "_gtFine_labelIds.png")
+    em_tif = codecs.TiffFile(os.path.join(raw, "em", "train-volume.tif"))
+    decode_ms = {
+        "png_rgb_2048x1024": enqueue_ms(
+            lambda: codecs.read_image(city_img), 1, 5),
+        "png_label_2048x1024": enqueue_ms(
+            lambda: codecs.read_image(city_lab), 1, 5),
+        "jpeg_500x375": fixture_ms["pascal_420.jpg"],
+        "tiff_page_512x512": enqueue_ms(lambda: em_tif.page(7), 1, 5)}
+    log(f"preprocess: host ms per decode {json.dumps(decode_ms)} on {smi}")
+
+    out = {ds: os.path.join(tmp, "prep", ds) for ds in
+           ("city", "pascal", "ade", "coco", "em")}
+    counts = {"city": sum(n for _, n in PREP_CITY),
+              **{ds: sum(n for _, n in s)
+                 for ds, s in PREP_JPEG_SPLITS.items()},
+              "em": PREP_EM_FRAMES}
+    clis = {}
+    for ds, module in (("city", "preprocess_cityscapes"),
+                       ("pascal", "preprocess_pascal"),
+                       ("ade", "preprocess_ade"), ("coco", "preprocess_coco"),
+                       ("em", "preprocess_em")):
+        clis[module] = run_cli(module, ["8", "--source",
+                                        os.path.join(raw, ds), "--target",
+                                        out[ds]], counts[ds])
+    for module, ds in (("preprocess_part_cityscapes", "city"),
+                       ("preprocess_part_pascal", "pascal")):
+        clis[module] = run_cli(module, ["--source", os.path.join(raw, ds),
+                                        "--target", out[ds]],
+                               PREP_PARTS[ds])
+    pascal_npy = os.path.join(out["pascal"], "img_with_margin_0")
+    before = {(s, f): np.load(os.path.join(pascal_npy, s, f))
+              for s in os.listdir(pascal_npy)
+              for f in os.listdir(os.path.join(pascal_npy, s))
+              if f.endswith(".npy")}
+    clis["img_to_numpy"] = run_cli("img_to_numpy", ["pascal"],
+                                   counts["pascal"],
+                                   env={"DATA_PATH_PASCAL": out["pascal"]})
+    if len(before) != counts["pascal"] or any(
+            not np.array_equal(a, np.load(os.path.join(pascal_npy, *k)))
+            for k, a in before.items()):
+        raise AssertionError("img_to_numpy changed a Pascal mirror")
+    check_prep_outputs(out, want)
+    log("preprocess: CLIs in a fresh interpreter each (the pooled ones at "
+        "n_jobs 8, chunks of 8; cli_seconds: the CLI's own report, the "
+        "pool's start included, the interpreter's not) " + json.dumps(
+            {m: {k: round(v, 3) for k, v in r.items()}
+             for m, r in clis.items()}) + f"; every output equal to its raw "
+        f"source; on {smi}")
+
+    # onto the card: the preprocessed Cityscapes root in the port's
+    # dataset, a few joint micro-steps and the eval of its val images
+    run = write_run(tmp, seed=9, dev=dev)
+    sd, meta = load_checkpoint(os.path.join(run, "checkpoints",
+                                            "push_final"))
+    spec = ProtoSpec.from_meta(meta["spec"])
+    _, bindings = cli_common.load_config("group_scaleproto_cityscapes")
+    weights = module_hparams(bindings, "group")["weights"]
+    model, _ = construct_ppnet(
+        "group", "deeplabv2_resnet101_multiscale", num_classes=19,
+        bindings=bindings, spec=spec)
+    model.load_state_dict(sd, strict=True)
+    model.set_compute_dtype(torch.bfloat16)
+    model.features.base.aspp.fast = True
+    model.to(dev).train()
+    loader = cli_common.make_loaders(bindings, B, seed=5,
+                                     data_root=out["city"], log=log)[0]
+    kernels.reset_launch_counts()
+    losses = []
+    for _, batch in zip(range(PREP_STEPS), loader):
+        model.zero_grad(set_to_none=True)
+        x = torch.from_numpy(batch[0]).to(dev)
+        t = torch.from_numpy(batch[1]).to(dev)
+        loss, _ = compute_losses(model, model(x), t, weights)
+        loss.backward()
+        losses.append(loss.item())
+    train_counts = kernels.launch_counts()
+    del model
+    torch.cuda.empty_cache()
+    want_train = {k: PREP_STEPS for k in TRAINING_KERNELS}
+    if len(losses) != PREP_STEPS or not all(map(math.isfinite, losses)) or \
+            train_counts != {**train_counts, **want_train}:
+        raise AssertionError(f"preprocess micro-steps: losses {losses}, "
+                             f"launches {train_counts}")
+    kernels.reset_launch_counts()
+    res = evm.run_evaluation("city_flagship", "push_final", batch_size=B,
+                             data_root=out["city"], results_root=tmp)
+    eval_counts = kernels.launch_counts()
+    # eval's forward runs K2 and K3; K1 runs on the serving path below
+    if not math.isfinite(res["mean_iou"]) or \
+            min(eval_counts[k] for k in ("aspp", "upsample")) < 1:
+        raise AssertionError(f"preprocess eval: {res['mean_iou']} "
+                             f"{eval_counts}")
+    log(f"preprocess: {PREP_STEPS} joint micro-steps on the preprocessed "
+        f"Cityscapes train split (losses {[round(v, 4) for v in losses]}, "
+        f"launches {train_counts}); eval of its {dict(PREP_CITY)['val']} "
+        f"val images: mIoU {res['mean_iou']:.6f}, launches {eval_counts}")
+
+    # serve: raw .png / .jpg inputs, PNGs written without PIL, against the
+    # serve of the .npy mirrors the CLIs wrote
+    raw_in, npy_in = os.path.join(tmp, "serve_raw"), os.path.join(
+        tmp, "serve_npy")
+    os.makedirs(raw_in)
+    os.makedirs(npy_in)
+    pairs = []
+    for k, (stem, (split, *_)) in enumerate(list(want["city"].items())[:2]):
+        pairs.append((os.path.join(raw, "city", "leftImg8bit", split,
+                                   "zurich", stem + "_leftImg8bit.png"),
+                      os.path.join(out["city"], "img_with_margin_0", split,
+                                   stem + ".npy"), f"city_{k}"))
+    for ds, split in (("pascal", "train_aug"), ("ade", "training")):
+        i = f"{split}_0001"
+        jpg = os.path.join(raw, ds, "JPEGImages" if ds == "pascal" else
+                           os.path.join("images", split), i + ".jpg")
+        pairs.append((jpg, os.path.join(out[ds], "img_with_margin_0",
+                                        "train_aug" if ds == "pascal"
+                                        else "train", i + ".npy"), ds))
+    for src, mirror, name in pairs:
+        ext = os.path.splitext(src)[1]
+        os.symlink(src, os.path.join(raw_in, name + ext))
+        os.symlink(mirror, os.path.join(npy_in, name + ".npy"))
+    served = {}
+    for tag, src_dir, extra in (("raw", raw_in, []),
+                                ("npy", npy_in, ["--raw-output"])):
+        kernels.reset_launch_counts()
+        served[tag] = serve.main(["city_flagship", "push_final", "--input",
+                                  src_dir, "--output",
+                                  os.path.join(tmp, f"labels_{tag}"),
+                                  "--batch", str(B), "--results-root", tmp,
+                                  "--canvas", str(HEIGHT), str(WIDTH),
+                                  *extra])
+        served[tag]["counts"] = kernels.launch_counts()
+    for _, _, name in pairs:
+        png = read_png(os.path.join(tmp, "labels_raw", name + ".png"))
+        npy = np.load(os.path.join(tmp, "labels_npy", name + ".npy"))
+        if png.dtype != np.uint8 or not np.array_equal(png, npy):
+            raise AssertionError(f"serve {name}: the .png / .jpg input's "
+                                 "labels differ from its .npy mirror's")
+    serve_counts = served["raw"]["counts"]
+    if min(serve_counts[k] for k in SERVING_KERNELS) < 1:
+        raise AssertionError(f"preprocess serve: launches {serve_counts}")
+    secs = time.perf_counter() - t_phase
+    log(f"preprocess: serve.main of {len(pairs)} raw .png / .jpg inputs "
+        f"(--canvas {HEIGHT} {WIDTH}) wrote PNG labels equal to the serve "
+        f"of their .npy mirrors; launches {serve_counts}; the phase took "
+        f"{secs:.1f} s on {smi}")
+    return dict(clis=clis, decode_ms=decode_ms, fixture_ms=fixture_ms,
+                counts=train_counts, eval_counts=eval_counts,
+                serve_counts=serve_counts, seconds=secs)
+
+
 def main() -> None:
     if sys.argv[1:] == ["coco-push-artifacts"]:
         return coco_push_artifacts()
@@ -5776,6 +6338,8 @@ def main() -> None:
         ade = timed("ade", ade_phase, tmp, dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
         em = timed("em", em_phase, tmp, dev, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        prep = timed("preprocess", preprocess_phase, tmp, dev, smi)
     quant, evals = served["quant"], served["evals"]
     group, pruning = trained["group"], trained["pruning"]
     single, resume = trained["single"], trained["resume"]
@@ -5833,7 +6397,10 @@ def main() -> None:
                       "em_group_training": em["group_counts"][name],
                       "em_single_training": em["single_counts"][name],
                       "em_eval": em["eval"]["counts"][name],
-                      "em_serving": em["serve"]["counts"][name]}
+                      "em_serving": em["serve"]["counts"][name],
+                      "preprocess_training": prep["counts"][name],
+                      "preprocess_eval": prep["eval_counts"][name],
+                      "preprocess_serving": prep["serve_counts"][name]}
                for name in results}
     # the Pascal slice's own paths: K2's forward and backward in its
     # training, K1 and K3 in its test export and serving
@@ -5866,7 +6433,15 @@ def main() -> None:
                         # EM's eval and serving at 512 x 512 (its training
                         # and K2 run none: em_phase holds them at 0)
                         ("upsample", "em_eval"),
-                        *((k, "em_serving") for k in EM_PATH_KERNELS)):
+                        *((k, "em_serving") for k in EM_PATH_KERNELS),
+                        # the preprocessed Cityscapes data on the card, and
+                        # serve of raw .png / .jpg inputs
+                        *((k, "preprocess_training")
+                          for k in TRAINING_KERNELS),
+                        ("aspp", "preprocess_eval"),
+                        ("upsample", "preprocess_eval"),
+                        *((k, "preprocess_serving")
+                          for k in SERVING_KERNELS)):
         if by_path[name][where] < 1:
             raise AssertionError(f"{name} never launched on {where}")
     # each kernel's launches in the main path of its slice: the training

@@ -1,10 +1,12 @@
 """PNG images without PIL, cv2 or matplotlib.
 
 The GPU machine has none of the three, yet the push artifacts, the
-nearest-patch artifacts and the test-split export write PNGs.  This module
-writes them with the standard library (``zlib`` + ``struct``), each
-scanline built in numpy behind filter byte 0, and decodes such files back.
-It reproduces the pixels of the JAX package's renderers:
+nearest-patch artifacts, the test-split export, the serve CLI's labels and
+the preprocessed datasets write PNGs.  ``codecs`` writes them with the
+standard library (``zlib`` + ``struct``), each scanline built in numpy
+behind filter byte 0 (``encode_png``, ``write_png`` and ``save_gray``,
+re-exported here), and reads any PNG back (``read_png``).  This module
+reproduces the pixels of the JAX package's renderers:
 
 - ``imsave_rgb``: ``matplotlib.pyplot.imsave`` of a float (H, W, 3) image
   in [0, 1] is an RGBA PNG whose channels are ``(x * 255).astype(uint8)``
@@ -26,21 +28,13 @@ Decoded pixels are what match, not file bytes: matplotlib adds a
 
 from __future__ import annotations
 
-import struct
-import zlib
-
 import numpy as np
 import torch
 
-# zlib level of every PNG written here; decoded pixels do not depend on it.
-# Level 0 stores the scanlines uncompressed, 6 is PIL's default; 1 is the
-# cheapest level that compresses.  chip_smoke.zlib_levels prints the seconds
-# and sizes of all three on a run's own push artifacts.
-ZLIB_LEVEL = 1
-
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_COLOR_TYPE = {1: 0, 3: 2, 4: 6}          # channels -> PNG colour type
-_CHANNELS = {v: k for k, v in _COLOR_TYPE.items()}
+from scaleprotoseg_torch import codecs
+# the PNG writer lives beside the decoders, which import no torch
+from scaleprotoseg_torch.codecs import (ZLIB_LEVEL, encode_png,  # noqa: F401
+                                        save_gray, write_png)
 
 # matplotlib's ``_cm._jet_data``: (x, y0, y1) segments per channel
 _JET_DATA = {
@@ -60,61 +54,11 @@ _TAB20_HEX = ("1f77b4", "aec7e8", "ff7f0e", "ffbb78", "2ca02c", "98df8a",
               "17becf", "9edae5")
 
 
-def _chunk(kind: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + kind + data +
-            struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-
-def encode_png(pixels: np.ndarray, level: int = ZLIB_LEVEL) -> bytes:
-    """PNG bytes of a uint8 (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA
-    array; every scanline behind filter byte 0."""
-    a = np.asarray(pixels)
-    if a.dtype != np.uint8:
-        raise TypeError(f"encode_png takes uint8 pixels, got {a.dtype}")
-    if a.ndim == 2:
-        a = a[..., None]
-    if a.ndim != 3 or a.shape[2] not in _COLOR_TYPE or 0 in a.shape[:2]:
-        raise ValueError(f"encode_png: unsupported shape {pixels.shape}")
-    h, w, c = a.shape
-    rows = np.zeros((h, 1 + w * c), np.uint8)
-    rows[:, 1:] = a.reshape(h, w * c)
-    header = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
-    return (_SIGNATURE + _chunk(b"IHDR", header) +
-            _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) +
-            _chunk(b"IEND", b""))
-
-
-def write_png(path: str, pixels: np.ndarray) -> None:
-    with open(path, "wb") as f:
-        f.write(encode_png(pixels))
-
-
 def read_png(path: str) -> np.ndarray:
-    """Decode an 8-bit, non-interlaced PNG whose scanlines all use filter
-    0 (what ``encode_png`` writes): (H, W) for gray, else (H, W, C)."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != _SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
-    pos, idat, header = 8, [], None
-    while pos < len(data):
-        n, = struct.unpack(">I", data[pos:pos + 4])
-        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        pos += 12 + n
-    w, h, depth, color, _, _, interlace = header
-    if depth != 8 or interlace or color not in _CHANNELS:
-        raise ValueError(f"{path}: only 8-bit non-interlaced gray/RGB/RGBA")
-    c = _CHANNELS[color]
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8) \
-        .reshape(h, 1 + w * c)
-    if rows[:, 0].any():
-        raise ValueError(f"{path}: a scanline uses a filter other than 0")
-    out = rows[:, 1:].reshape(h, w, c)
-    return out[..., 0] if c == 1 else out
+    """``np.asarray(Image.open(path))`` of any PNG (every bit depth and
+    colour type, all five filters, Adam7) or other image ``codecs``
+    reads: (H, W) for gray and palette indices, else (H, W, C)."""
+    return codecs.read_image(path)[1]
 
 
 def rgba_bytes(image: torch.Tensor) -> np.ndarray:
@@ -135,12 +79,6 @@ def rgba_bytes(image: torch.Tensor) -> np.ndarray:
 def imsave_rgb(path: str, image: torch.Tensor) -> None:
     """``plt.imsave(path, image)`` of a float RGB image in [0, 1]."""
     write_png(path, rgba_bytes(image))
-
-
-def save_gray(path: str, labels: np.ndarray) -> None:
-    """``Image.fromarray(labels).convert("L").save(path)`` of uint8
-    (H, W) labels."""
-    write_png(path, np.asarray(labels, np.uint8))
 
 
 def _segment_lut(data, n: int) -> np.ndarray:

@@ -15,6 +15,11 @@ trainer) never load a half-written library.  A failed build raises with
 the compiler's output; nothing falls back quietly.  ``SPS_NATIVE_AUG=0``
 in the environment opts out: ``native_available()`` is then False and
 the datasets take the numpy pipeline.
+
+``build(source)`` builds any other source of this directory the same way
+(``codecs.cc``, the image decoders of ``scaleprotoseg_torch.codecs``).
+The module imports neither torch nor PIL, so that preprocessing workers
+start quickly.
 """
 
 from __future__ import annotations
@@ -28,8 +33,6 @@ from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
-
-from scaleprotoseg_torch.ops.resize import _nearest_index
 
 SOURCE = Path(__file__).resolve().parent / "fastaug.cc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
@@ -57,31 +60,36 @@ _ARGTYPES = [
 ]
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
+def library_path(source: Optional[Path] = None) -> Path:
+    """``build/native/lib<stem>-<hash>.so`` of ``source`` (``fastaug.cc``
+    by default)."""
+    source = SOURCE if source is None else Path(source)
+    digest = hashlib.sha256(source.read_bytes())
     digest.update(" ".join((COMPILER, *FLAGS)).encode())
-    return BUILD_DIR / f"libfastaug-{digest.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:12]}.so"
 
 
-def build() -> Path:
+def build(source: Optional[Path] = None) -> Path:
     """The library's path, compiled first if it is missing.  Raises
     ``RuntimeError`` with the compiler's output if the build fails."""
-    out = library_path()
+    source = SOURCE if source is None else Path(source)
+    out = library_path(source)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}"
                         ".tmp")
-    cmd = [COMPILER, *FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [COMPILER, *FLAGS, "-o", str(tmp), str(source)]
+    what = f"native {source.name}"
     try:
         res = subprocess.run(cmd, capture_output=True, text=True,
                              timeout=300)
     except (OSError, subprocess.TimeoutExpired) as e:
-        raise RuntimeError(f"native augmentation: cannot build with "
+        raise RuntimeError(f"{what}: cannot build with "
                            f"{' '.join(cmd)}: {e}") from e
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"native augmentation: {' '.join(cmd)} exited "
+        raise RuntimeError(f"{what}: {' '.join(cmd)} exited "
                            f"{res.returncode}:\n{res.stderr}")
     os.replace(tmp, out)
     return out
@@ -143,6 +151,7 @@ def fastaug(image: np.ndarray, label: np.ndarray, lut: np.ndarray,
     std32 = np.ascontiguousarray(std, np.float32)
     if mean32.shape != (3,) or std32.shape != (3,):
         raise ValueError("fastaug: mean and std take 3 values")
+    from scaleprotoseg_torch.ops.resize import _nearest_index
     rows = np.ascontiguousarray(_nearest_index(rs_h, in_h), np.int32)
     cols = np.ascontiguousarray(_nearest_index(rs_w, in_w), np.int32)
     out_img = np.empty((win_h, win_w, 3), np.float32)

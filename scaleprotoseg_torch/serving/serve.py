@@ -19,12 +19,14 @@ at the first image's size and ``--batch`` (``--dynamic-batch``: a
 symbolic batch; ``--platforms cpu,cuda``: a program for both devices;
 both take the plain path).
 
-Input: ``.npy`` uint8 images (or ``.png``/``.jpg``) of one shape, less
-``--margin`` pixels on each side; ``--canvas H W`` serves a mixed-size
-directory by bottom/right-padding each image to H x W and cropping each
-prediction back (an image larger than the canvas is refused).  Output:
-one grayscale PNG of train ids per image (``--raw-output``: ``.npy``
-arrays) and a JSON throughput line.
+Input: ``.npy`` uint8 images (or ``.png``/``.jpg``, decoded by
+``scaleprotoseg_torch.codecs`` as PIL's ``convert("RGB")`` gives them) of
+one shape, less ``--margin`` pixels on each side; ``--canvas H W`` serves
+a mixed-size directory by bottom/right-padding each image to H x W and
+cropping each prediction back (an image larger than the canvas is
+refused).  Output:
+one grayscale PNG of train ids per image, written by ``codecs`` without
+PIL (``--raw-output``: ``.npy`` arrays) and a JSON throughput line.
 
 The device is ``cuda`` unless ``--device`` names another; without a card
 that is an error, not a silent CPU run.  On the card the fast path runs
@@ -54,7 +56,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from scaleprotoseg_torch import settings
+from scaleprotoseg_torch import codecs, settings
 from scaleprotoseg_torch.constants import IMAGENET_MEAN, IMAGENET_STD
 
 
@@ -69,8 +71,7 @@ def _list_images(input_dir: str, limit: Optional[int]) -> List[str]:
 def _load(path: str) -> np.ndarray:
     if path.endswith(".npy"):
         return np.load(path)
-    from PIL import Image
-    return np.asarray(Image.open(path).convert("RGB"))
+    return codecs.read_rgb(path)
 
 
 def _make_preprocess(input_dir: str, margin: int = 0, canvas=None,
@@ -140,9 +141,8 @@ def run_serving(predict, names, preprocess, out_dir: str, batch_size: int,
             np.save(os.path.join(out_dir, f"{stem}.npy"),
                     pred.astype(np.uint8))
         else:
-            from PIL import Image   # only for PNGs: --raw-output needs none
-            Image.fromarray(pred.astype(np.uint8)).convert("L").save(
-                os.path.join(out_dir, f"{stem}.png"))
+            codecs.save_gray(os.path.join(out_dir, f"{stem}.png"),
+                             pred.astype(np.uint8))
 
     for _ in engine.run((n, n) for n in names[:batch_size]):
         pass

@@ -3,7 +3,9 @@ in the working directory: ``RESULTS_DIR`` (default ``results``) and the
 preprocessed dataset roots (``DATA_PATH_CITY`` for Cityscapes,
 ``DATA_PATH_PASCAL`` for Pascal VOC-2012, ``DATA_PATH_COCO`` for
 COCO-Stuff, ``DATA_PATH_ADE`` for ADE20K, and ``DATA_PATH_EM`` for the
-evaluation of EM)."""
+evaluation of EM), and the raw downloads the preprocessing reads
+(``SOURCE_DATA_PATH_CITY`` and the other four, each named as its
+``DATA_PATH_*``)."""
 
 from __future__ import annotations
 
@@ -48,3 +50,14 @@ def data_path(data_type: str) -> str:
         raise RuntimeError(f"{key} is not set; point it at the preprocessed "
                            f"{data_type} directory (or pass --data-root)")
     return path
+
+
+def source_data_path(data_type: str) -> str:
+    """The raw download of ``data_type`` (``SOURCE_DATA_PATH_CITY``, ...);
+    the empty string when unset, so paths under it are relative to the
+    working directory, as in the JAX package."""
+    if data_type not in _DATA_ENV:
+        raise NotImplementedError(
+            f"data type {data_type!r} is not ported yet; the port reads "
+            f"{sorted(_DATA_ENV)}")
+    return _env("SOURCE_" + _DATA_ENV[data_type])

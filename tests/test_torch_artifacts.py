@@ -40,6 +40,7 @@ from scaleprotoseg_torch import imageio
 from scaleprotoseg_torch.ops.resize import resize_linear_cv2
 from scaleprotoseg_torch.push import push as tpush
 from scaleprotoseg_torch.push.artifacts import save_push_artifacts as tsave
+from torch_parity import two_threads  # noqa: F401 (autouse)
 from torch_parity import port_model, port_spec
 
 SIDE = 33

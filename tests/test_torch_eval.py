@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from scaleprotoseg_torch.eval.miou import SegEvaluator, iou_from_confusion
 from scaleprotoseg_torch.ops.resize import bilinear_sample, resize_bilinear
+from torch_parity import two_threads  # noqa: F401 (autouse)
 
 C, P = 5, 12
 

@@ -33,6 +33,7 @@ from scaleprotoseg_torch.serving.export import (export_serving,
                                                 load_artifact,
                                                 make_serving_fn,
                                                 save_artifact)
+from torch_parity import two_threads  # noqa: F401 (autouse)
 from torch_parity import jax_flagship, labels_equal_outside_ties, port_model
 
 SIDE = 33

@@ -25,6 +25,7 @@ from scaleprotoseg_torch.models.ppnet import PPNet
 from scaleprotoseg_torch.ops.gradconv import conv3x3_dilated
 from scaleprotoseg_torch.spec import ProtoSpec
 from scaleprotoseg_torch.train.runner import PhaseTrainer, module_hparams
+from torch_parity import two_threads  # noqa: F401 (autouse)
 from torch_parity import own_sigterm_guard  # noqa: F401 (autouse)
 
 TINY_BLOCKS = (1, 1, 1, 1)

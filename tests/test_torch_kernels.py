@@ -37,6 +37,7 @@ from scaleprotoseg_torch.kernels.proto import pack_head, proto_plain
 from scaleprotoseg_torch.models import deeplab as tdeeplab
 from scaleprotoseg_torch.ops.prototype import (distance_to_similarity,
                                                scale_l2_distances)
+from torch_parity import two_threads  # noqa: F401 (autouse)
 from torch_parity import emulate_proto_kernel as _emulate_proto_kernel
 from torch_parity import labels_equal_outside_ties, port_spec
 

@@ -18,6 +18,7 @@ from scaleprotoseg_tpu.ops.resize import resize_bilinear_matrix
 from scaleprotoseg_torch.kernels import launch_counts
 from scaleprotoseg_torch.models import ppnet as tppnet
 from scaleprotoseg_torch.serving.export import make_serving_fn
+from torch_parity import two_threads  # noqa: F401 (autouse)
 from torch_parity import jax_flagship, labels_equal_outside_ties, port_model
 
 SIDE = 33

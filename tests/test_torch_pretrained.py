@@ -33,6 +33,7 @@ from scaleprotoseg_torch.checkpoints.pretrained import (
     torchvision_key_to_deeplab, torchvision_resnet_to_backbone)
 from scaleprotoseg_torch.cli_common import CONFIGS_DIR
 from e2e_utils import build_synthetic_dataset
+from torch_parity import two_threads  # noqa: F401 (autouse)
 from torch_parity import jax_flagship, port_model, port_spec, to_numpy_tree
 from torch_parity import own_sigterm_guard  # noqa: F401 (autouse)
 

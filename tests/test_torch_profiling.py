@@ -30,6 +30,7 @@ from scaleprotoseg_torch.spec import ProtoSpec
 from scaleprotoseg_torch.train.runner import PhaseTrainer, module_hparams
 from e2e_utils import build_synthetic_dataset
 from test_torch_train_step import TINY
+from torch_parity import two_threads  # noqa: F401 (autouse)
 from torch_parity import own_sigterm_guard  # noqa: F401 (autouse)
 
 SPAN = profiling.STEP_SPAN

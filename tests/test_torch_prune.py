@@ -65,6 +65,7 @@ from scaleprotoseg_torch.train import optim as toptim
 from e2e_utils import build_synthetic_dataset
 from test_torch_train_step import (_batch, _jax_steps, _names, _offsets,
                                    _port_step_fn, HP)
+from torch_parity import two_threads  # noqa: F401 (autouse)
 from torch_parity import (labels_equal_outside_ties, port_model, port_spec,
                           to_numpy_tree)
 from torch_parity import own_sigterm_guard  # noqa: F401 (autouse)

@@ -45,6 +45,7 @@ from scaleprotoseg_torch.models.ppnet import PPNet
 from scaleprotoseg_torch.push import push as tpush
 from scaleprotoseg_torch.spec import ProtoSpec as TProtoSpec
 from e2e_utils import build_synthetic_dataset
+from torch_parity import two_threads  # noqa: F401 (autouse)
 from torch_parity import (emulate_proto_kernel, port_model, port_spec,
                           to_numpy_tree)
 from torch_parity import own_sigterm_guard  # noqa: F401 (autouse)

@@ -24,6 +24,7 @@ from scaleprotoseg_torch.kernels.int8 import (int8_conv3x3, int8_mm,
 from scaleprotoseg_torch.model_loading import (calibrate_quant_scales,
                                                quant_sites, set_quant_scales)
 from scaleprotoseg_torch.ops import quant as tq
+from torch_parity import two_threads  # noqa: F401 (autouse)
 from torch_parity import jax_flagship, labels_equal_outside_ties, port_model
 
 SIDE = 33

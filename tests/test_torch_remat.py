@@ -24,6 +24,7 @@ from test_torch_group import HP as GROUP_HP
 from test_torch_group import WEIGHTS as GROUP_WEIGHTS
 from test_torch_train_step import (HP, WEIGHTS, _batch, _pair,
                                    check_step_against_jax)
+from torch_parity import two_threads  # noqa: F401 (autouse)
 from torch_parity import jax_flagship, port_model
 
 

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 from scaleprotoseg_torch.constants import IMAGENET_MEAN, IMAGENET_STD
 from scaleprotoseg_torch.serving.engine import ServingEngine
+from torch_parity import two_threads  # noqa: F401 (autouse)
 from torch_parity import labels_equal_outside_ties
 
 SIDE = 33
@@ -63,15 +64,31 @@ def _serve(main, root, images, out, extra=()):
                  "--results-root", str(root), *extra])
 
 
-def test_port_serve_matches_jax_serve(run_dir, tmp_path):
+@pytest.fixture(scope="module")
+def port_serve(run_dir, tmp_path_factory):
+    """The port's float32 serve of the run with ``--raw-output`` and PIL
+    blocked (the card machine has none), shared by the two tests that
+    read it: (record, output directory)."""
+    import sys
+
+    from scaleprotoseg_torch.serving.serve import main as port_main
+
+    root, images, _, _, _ = run_dir
+    out = tmp_path_factory.mktemp("port_serve") / "nopil"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "PIL", None)
+        mp.setitem(sys.modules, "PIL.Image", None)
+        rec = _serve(port_main, root, images, out, ("--device", "cpu"))
+    return rec, out
+
+
+def test_port_serve_matches_jax_serve(run_dir, port_serve, tmp_path):
     from scaleprotoseg_tpu.serving.export import make_serving_fn
     from scaleprotoseg_tpu.serving.serve import main as jax_main
-    from scaleprotoseg_torch.serving.serve import main as port_main
 
     root, images, raw, model, variables = run_dir
     rec_j = _serve(jax_main, root, images, tmp_path / "jax")
-    rec_t = _serve(port_main, root, images, tmp_path / "port",
-                   ("--device", "cpu"))
+    rec_t, port_out = port_serve
     assert rec_j["images"] == rec_t["images"] == 3
     assert rec_t["preprocess"] == "device" and rec_t["fast"] is False
 
@@ -79,7 +96,7 @@ def test_port_serve_matches_jax_serve(run_dir, tmp_path):
         model, output="logits", normalize_to=jnp.float32))(variables, raw))
     for i in range(3):
         want = np.load(tmp_path / "jax" / f"frame_{i}.npy")
-        got = np.load(tmp_path / "port" / f"frame_{i}.npy")
+        got = np.load(port_out / f"frame_{i}.npy")
         assert got.shape == (SIDE, SIDE) and got.dtype == np.uint8
         labels_equal_outside_ties(got, want, up[i])
 
@@ -161,18 +178,10 @@ def test_port_quant8_serve_matches_jax_serve(run_dir, tmp_path, flag):
         labels_equal_outside_ties(got, want, up[i])
 
 
-def test_raw_output_serves_without_pil(run_dir, tmp_path, monkeypatch):
+def test_raw_output_serves_without_pil(port_serve):
     """``--raw-output`` writes ``.npy`` labels and needs no PIL: the card
-    machine has none."""
-    import sys
-
-    from scaleprotoseg_torch.serving.serve import main as port_main
-
-    root, images, _, _, _ = run_dir
-    monkeypatch.setitem(sys.modules, "PIL", None)
-    monkeypatch.setitem(sys.modules, "PIL.Image", None)
-    rec = _serve(port_main, root, images, tmp_path / "nopil",
-                 ("--device", "cpu"))
+    machine has none (the shared serve ran with PIL blocked)."""
+    rec, out = port_serve
     assert rec["images"] == 3
-    assert sorted(os.listdir(tmp_path / "nopil")) == [
+    assert sorted(os.listdir(out)) == [
         f"frame_{i}.npy" for i in range(3)]

@@ -13,6 +13,7 @@ refused by name.
 import builtins
 import json
 import os
+import time
 
 import pytest
 
@@ -66,7 +67,12 @@ def test_tensorboard_sink_matches_jax(tmp_path):
     assert got_tensors == want_tensors and \
         any("hparams" in t for t in got_tensors)
 
-    # a relaunch appends to the same event directory
+    # a relaunch appends to the same event directory.  A relaunch is a
+    # later process, and its event file (named by the second, the host,
+    # the pid and a per-process counter) sorts after the first one; here
+    # both are made in one process, where within one second the counter
+    # decides and "10" sorts before "9": start it in the next second
+    time.sleep(1.0 - time.time() % 1.0 + 0.01)
     _log(tmetrics, trun, [({"train_loss": 0.5}, 15)], tlogs)
     again, _ = _read(os.path.join(trun, "logs", "tb"))
     assert again["train_loss"] == [(5, 1.25), (10, 0.75), (15, 0.5)]

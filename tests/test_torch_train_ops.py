@@ -45,6 +45,7 @@ from scaleprotoseg_torch.ops.prototype import pairwise_l2, scale_l2_distances
 from scaleprotoseg_torch.ops.resize import _nearest_index as t_nearest
 from scaleprotoseg_torch.ops.resize import resize_label_nearest
 from test_torch_kernels import bf16_ulps
+from torch_parity import two_threads  # noqa: F401 (autouse)
 from torch_parity import port_spec
 
 RATES = (2, 4, 6, 8)

@@ -40,6 +40,7 @@ from scaleprotoseg_torch.train import optim as toptim
 from scaleprotoseg_torch.train import steps as tsteps
 from scaleprotoseg_torch.train.state import TrainState
 from e2e_utils import build_synthetic_dataset
+from torch_parity import two_threads  # noqa: F401 (autouse)
 from torch_parity import port_model, port_spec, to_numpy_tree
 from torch_parity import own_sigterm_guard  # noqa: F401 (autouse)
 

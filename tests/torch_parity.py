@@ -26,6 +26,18 @@ from scaleprotoseg_torch.spec import ProtoSpec as TProtoSpec
 
 
 @pytest.fixture(autouse=True, scope="module")
+def two_threads():
+    """Import into a test module whose port runs are heavy: two intra-op
+    threads for the module, the count before it after.  The Tier-1 run
+    shares the host's cores among six workers, and torch's default of one
+    thread per core makes each worker's threads wait on the others'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
 def own_sigterm_guard():
     """Import into a test module that runs the port's trainers: its
     trainers get a fresh SIGTERM guard, and the handler before it comes
