@@ -72,8 +72,10 @@ seconds are printed before the kernels line):
    ``serve.main --export`` writes three artifacts of the run at full width
    (bf16 fast at batch 2 with the normalization inside, static quant8 fast
    calibrated on the first 8 images with its scales shipped, and a
-   ``--dynamic-batch`` float32 plain one); a fresh interpreter loads each
-   (timed) and serves it through ``serve.main --artifact`` (bf16 and
+   ``--dynamic-batch`` float32 plain one); a fresh interpreter (one for
+   the script, started before the build: the flagship's and the MSC
+   model's artifacts) loads each (timed) and serves it through
+   ``serve.main --artifact`` (bf16 and
    quant8 over the 160 images, the plain one over the first 8), printing
    its launch counts and the modules it imported: K1, K2 and K3 once a
    batch (and the int8 kernels' 54 / 26 / 80 under quant8), no kernel in
@@ -132,7 +134,18 @@ seconds are printed before the kernels line):
    version (rtol = atol = 1e-4), on the served features (pushed
    prototypes, d ~ 0) against the float64 head within ``pushed_bound``
    (the inputs' conditioning times fp32 rounding, at most 2e-2 of its
-   largest logit at Cityscapes' 19 classes).  Then the pruning slice on
+   largest logit at Cityscapes' 19 classes).  Then the interpretability
+   analysis of ``final-group`` (``analysis_phase``): 8 val images of
+   1024 x 2048 with part ids written by ``preprocess_part_cityscapes``
+   from uid TIFFs, ``threshold_save`` at 0.05 for ``--group-name``, and
+   every analysis CLI through its ``main`` (consistency, stability, the
+   overlaps, group composition, nearest images and prototypes, the
+   samples and failure cases): each CLI's seconds, its outputs' sizes and
+   ranges, no kernel launch; on every image the device part pass held row
+   for row against the plain one (run on 4 worker processes beside the
+   CLIs), the forward's device ms (CUDA events) against the part pass's
+   device ms (the profiler, a replay) and host ms and the plain form's
+   host ms; both scores.  Then the pruning slice on
    the same runs: the push artifacts the trainer wrote (seconds, files, one
    ``bb.npy`` row per prototype of the scanned bank, every matched box
    inside 1024 x 2048); ``run_pruning.main`` (k = 6, threshold 3, the 24
@@ -164,7 +177,7 @@ seconds are printed before the kernels line):
    baseline's joint phase at ResNet-50 depth, as every trainer process
    of this and the data phase runs it (20 micro-steps, ``iter_size`` 5, a
    validation every 5, ``det_seed`` bound) through the trainer CLI in
-   processes of its own, twice straight (the two must agree bit for bit).
+   a process of its own, straight.
    The training data path, on the same data root: first, before
    the flagship's trainer, the native augmentation (``native/fastaug.cc``)
    built with g++ (a failed build fails the script) and held bit for bit
@@ -181,8 +194,9 @@ seconds are printed before the kernels line):
    first validation's state has committed (exit 143, the state committed
    at the step it stopped, its loader workers gone) and relaunched (exit
    0, the state restored at that step); unjittered on threads with numpy
-   augmentation (``SPS_NATIVE_AUG=0``), against the resume phase's second
-   straight run (the same command with native items). The relaunch on
+   augmentation (``SPS_NATIVE_AUG=0``), against the resume phase's
+   straight run (the same command with native items: two straight
+   processes on the same items must agree bit for bit). The relaunch on
    processes ends on the bits of the straight run on threads, the numpy
    run on the native one's (each checkpoint and metrics row); K2's
    kernels launch in every run; the state's MB, the blocking snapshot's
@@ -245,8 +259,9 @@ seconds are printed before the kernels line):
    in static quant8; then the bf16 fast, static quant8 fast and
    ``--dynamic-batch`` plain artifacts written by ``serve.main --export``
    (export, save seconds, MB, the program's nodes and frame) and served by
-   ``serve.main --artifact`` in a fresh interpreter (load seconds, img/s
-   beside the run dir's, launches, labels >= 99.99% equal to the run-dir
+   ``serve.main --artifact`` in the flagship's fresh interpreter (load
+   seconds, img/s beside the run dir's, launches, labels >= 99.99% equal
+   to the run-dir
    serve's, no model module imported), and the host ms to enqueue a batch
    at five call depths through ``predict`` and through the module alone;
 8. COCO-Stuff at full width (182 classes, ResNet-101): K1 at its banks
@@ -340,9 +355,12 @@ seconds are printed before the kernels line):
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import json
 import math
+import multiprocessing
+import queue
 import os
 import re
 import statistics
@@ -422,10 +440,10 @@ SINGLE_STEPS = (10, 10, 5)    # the baseline's warm-up, joint, last layer
 SINGLE_VAL_EVERY = 10
 RESUME_STEPS, RESUME_VAL_EVERY = 20, 5   # the resumed joint phase
 # the resume and data phases' trainer processes run the baseline at
-# ResNet-50 depth (the widths kept): six processes, each paying its
+# ResNet-50 depth (the widths kept): five processes, each paying its
 # start-up, the model's build and its states' writes.  The data phase's
-# unjittered native run on threads is the resume phase's second straight
-# run (the same command), and the SIGTERM'd run on worker processes,
+# unjittered native run on threads is the resume phase's straight run
+# (the same command), and the SIGTERM'd run on worker processes,
 # relaunched, is held against the straight run on threads.
 TRAINER_DEPTH = ("construct_PPNet.base_architecture = 'deeplabv2_resnet50'",
                  "deeplabv2_resnet50_features.deeplab_n_features = 64")
@@ -1431,7 +1449,7 @@ def serve_run(run_root: str, img_dir: str, out_dir: str) -> dict:
     return dict(record, counts=counts)
 
 
-def serving_phase(dev, smi: str) -> dict:
+def serving_phase(dev, smi: str, server: ArtifactServer) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         run = write_run(tmp, seed=0, dev=dev)
@@ -1508,7 +1526,7 @@ def serving_phase(dev, smi: str) -> dict:
         quant = quant8_phase(tmp, run, img_dir, out_dir, dev, smi)
         art = artifact_phase(tmp, img_dir, out_dir,
                              os.path.join(tmp, "labels_q8"), dev, smi, rates,
-                             quant["img_per_s"])
+                             quant["img_per_s"], server)
         for name, run_ms, run_queue, run_prof in (
                 ("bf16", batch_ms, queue_ms, breakdown),
                 ("quant8", quant["batch_ms"], quant["enqueue_ms"],
@@ -1724,28 +1742,109 @@ def dynamic_with_kernels(run: str, img_dir: str, names, dev,
 
 # served in a fresh interpreter, as a deployment would: each artifact loaded
 # once on its own (the load timed), then served through serve.main
-# --artifact with the launch counts from zero; the last line names every
-# model, config or JAX module the interpreter imported (none may be)
+# --artifact with the launch counts from zero; each result line names
+# every model, config or JAX module the interpreter imported (none may be)
 ARTIFACT_SERVE = r"""
 import json, sys, time
+t0 = time.perf_counter()
+import io
+import torch
 from scaleprotoseg_torch import kernels
 from scaleprotoseg_torch.serving import serve
 from scaleprotoseg_torch.serving.export import load_artifact
-out = {}
-for name, art, img_dir, out_dir in json.loads(sys.argv[1]):
-    t0 = time.perf_counter()
-    load_artifact(art)
-    load_s = time.perf_counter() - t0
-    kernels.reset_launch_counts()
-    rec = serve.main(["--artifact", art, "--input", img_dir, "--output",
-                      out_dir, "--batch", "2", "--raw-output",
-                      "--workers", "4"])
-    out[name] = dict(rec, load_s=load_s, counts=kernels.launch_counts())
-out["modules"] = sorted(m for m in sys.modules if m.startswith((
-    "scaleprotoseg_torch.models", "scaleprotoseg_torch.configlib",
-    "scaleprotoseg_tpu", "jax", "flax")))
-print(json.dumps(out))
+torch.cuda.init()
+# torch.export's machinery imported and a program loaded once, while the
+# script works on: what the first artifact's load paid before
+class Warm(torch.nn.Module):
+    def forward(self, x):
+        return x * 2
+buf = io.BytesIO()
+torch.export.save(torch.export.export(Warm(), (torch.ones(2),)), buf)
+buf.seek(0)
+torch.export.load(buf).module()(torch.ones(2))
+print("ARTIFACT_SERVER " + json.dumps({"ready_s": time.perf_counter() - t0}),
+      flush=True)
+for line in sys.stdin:
+    out = {}
+    for name, art, img_dir, out_dir in json.loads(line):
+        t0 = time.perf_counter()
+        load_artifact(art)
+        load_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        rec = serve.main(["--artifact", art, "--input", img_dir, "--output",
+                          out_dir, "--batch", "2", "--raw-output",
+                          "--workers", "4"])
+        out[name] = dict(rec, load_s=load_s, counts=kernels.launch_counts())
+    out["modules"] = sorted(m for m in sys.modules if m.startswith((
+        "scaleprotoseg_torch.models", "scaleprotoseg_torch.configlib",
+        "scaleprotoseg_tpu", "jax", "flax")))
+    print("ARTIFACT_SERVER " + json.dumps(out), flush=True)
 """
+
+
+class ArtifactServer:
+    """One fresh interpreter that serves the script's artifacts, the
+    flagship's and the MSC model's, through ``serve.main --artifact``
+    (``ARTIFACT_SERVE``): started once, its imports, CUDA context and
+    ``torch.export`` machinery made ready while this process works on, a
+    job list a line on its stdin, a JSON result a line on its stdout
+    (``ARTIFACT_SERVER`` lines; ``serve.main`` prints its own lines between
+    them); it imports no model module, which each result reports."""
+
+    def __init__(self):
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.err = tempfile.TemporaryFile(mode="w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", ARTIFACT_SERVE], cwd=root,
+            env=dict(os.environ, PYTHONPATH=root), stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=self.err, text=True)
+        self.lines = queue.Queue()
+
+        def read():
+            for line in self.proc.stdout:
+                if line.startswith("ARTIFACT_SERVER "):
+                    self.lines.put(json.loads(line.split(" ", 1)[1]))
+            self.lines.put(None)
+
+        threading.Thread(target=read, daemon=True).start()
+        self.ready = None
+
+    def _next(self, timeout: float) -> dict:
+        try:
+            got = self.lines.get(timeout=timeout)
+        except queue.Empty:
+            got = None
+        if got is None:
+            self.err.seek(0)
+            err = self.err.read()[-6000:]
+            self.close()
+            raise AssertionError(f"artifact serving failed (exit "
+                                 f"{self.proc.returncode}):\n{err}")
+        return got
+
+    def serve(self, jobs: list, timeout: float = 900) -> dict:
+        """``{name: serve record + load_s + counts, "modules": [...]}`` of
+        ``jobs`` ((name, artifact, input dir, output dir) each)."""
+        if self.ready is None:
+            self.ready = self._next(timeout)["ready_s"]
+            log(f"artifact server: a fresh interpreter, ready (torch, the "
+                f"kernels' module, the CUDA context, torch.export's "
+                f"machinery) {self.ready:.1f} s after its start")
+        self.proc.stdin.write(json.dumps(jobs) + "\n")
+        self.proc.stdin.flush()
+        return self._next(timeout)
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.stdin.close()
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.err.close()
+
+
 ARTIFACTS = {   # name -> serve.main flags of its export
     "bf16": [],
     "quant8": ["--quant8-static", "--calib-images", str(N_CALIB)],
@@ -1810,7 +1909,8 @@ def enqueue_by_depth(model, x, depths=(0, 3, 7, 12, 20)) -> dict:
 
 
 def artifact_phase(tmp: str, img_dir: str, bf16_dir: str, q8_dir: str,
-                   dev, smi: str, rates, q8_rates) -> dict:
+                   dev, smi: str, rates, q8_rates,
+                   server: ArtifactServer) -> dict:
     """The deploy step and the artifact served: three artifacts of the run
     written through ``serve.main --export`` at full width (bf16 fast at
     batch 2 with the normalization inside, static quant8 fast with its
@@ -1875,18 +1975,11 @@ def artifact_phase(tmp: str, img_dir: str, bf16_dir: str, q8_dir: str,
     out_dirs = {n: os.path.join(tmp, f"labels_art_{n}") for n in arts}
     jobs = [(n, arts[n]["path"], few if n == "dynamic_batch" else img_dir,
              out_dirs[n]) for n in arts]
-    root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", ARTIFACT_SERVE, json.dumps(jobs)], cwd=root,
-        env=dict(os.environ, PYTHONPATH=root), capture_output=True,
-        text=True, timeout=900)
-    if proc.returncode:
-        raise AssertionError(f"artifact serving failed (exit "
-                             f"{proc.returncode}):\n{proc.stderr[-6000:]}")
-    served = json.loads(proc.stdout.strip().splitlines()[-1])
-    log(f"artifact: the fresh interpreter took {time.perf_counter() - t0:.1f}"
-        f" s; model, config or JAX modules imported: {served['modules']}")
+    served = server.serve(jobs)
+    log(f"artifact: the fresh interpreter served them in "
+        f"{time.perf_counter() - t0:.1f} s; model, config or JAX modules "
+        f"imported: {served['modules']}")
     if served["modules"]:
         raise AssertionError(f"serving an artifact imported "
                              f"{served['modules']}")
@@ -2202,6 +2295,8 @@ def training_phase(dev, smi: str) -> dict:
         del served, logits, x
         torch.cuda.empty_cache()
         group = group_phase(tmp, data, out["final"], batch, dev, smi)
+        analysis = analysis_phase(tmp, "city_group", "final-group", dev, smi)
+        torch.cuda.empty_cache()
         pruning = pruning_phase(tmp, data, out, artifacts, dev, smi)
         torch.cuda.empty_cache()
         single = single_phase(tmp, data, dev, smi)
@@ -2212,7 +2307,8 @@ def training_phase(dev, smi: str) -> dict:
         return dict(counts=counts, step_cmp=step_cmp, pushed_cmp=pushed_cmp,
                     profiles=step_profiles,
                     perf={p: out["phases"][p].perf for p in (0, 1)},
-                    push=push_stats, group=group, pruning=pruning,
+                    push=push_stats, group=group, analysis=analysis,
+                    pruning=pruning,
                     single=single, resume=resume,
                     data=dict(loaders=loaders, trainers=data_run),
                     knobs=knobs)
@@ -2407,30 +2503,20 @@ def _metric_rows(run: str) -> list:
 def resume_phase(tmp: str, data: str, smi: str) -> dict:
     """The baseline's joint phase at ResNet-50 depth (``RESUME_STEPS``
     micro-steps, ``iter_size`` 5, a validation every
-    ``RESUME_VAL_EVERY``, ``det_seed`` bound) through the trainer CLI in
-    processes of its own, twice straight: the two runs must agree bit for
-    bit (else the relaunches of ``data_trainer_phase`` are held within
-    their difference).  The stop by SIGTERM and the relaunch run on the
-    worker-process loader in ``data_trainer_phase``."""
+    ``RESUME_VAL_EVERY``, ``det_seed`` bound) through the trainer CLI in a
+    process of its own, straight.  ``data_trainer_phase`` holds a second
+    straight process (the same command on numpy items, which the loaders
+    give bit for bit) to its bits, the stop by SIGTERM and the relaunch on
+    the worker-process loader to a straight run on threads."""
     results = os.path.join(tmp, "resume")
     os.makedirs(results)
-    runs = {}
-    for name in ("straight_a", "straight_b"):
-        rc, text, secs, *_ = _run_trainer(data, results, name)
-        if rc != 0:
-            raise AssertionError(f"resume: {name} exited {rc}:\n"
-                                 + text[-3000:])
-        runs[name] = text
-        log(f"resume: {name} exit 0 in {secs:.1f} s")
-    a, b = (os.path.join(results, n) for n in ("straight_a", "straight_b"))
-    repeat = _checkpoint_diffs(a, b)
-    rows_repeat = _metric_rows(a) == _metric_rows(b)
-    log(f"resume: straight run twice, largest |difference| per checkpoint "
-        f"{json.dumps(repeat)}; metrics rows equal: {rows_repeat}")
-    return dict(straight_repeat=repeat,
-                bitwise=not any(repeat.values()) and rows_repeat,
-                native_run=b, native_perf=_phase_perf(runs["straight_b"]),
-                native_launches=_phase_launches(runs["straight_b"]))
+    rc, text, secs, *_ = _run_trainer(data, results, "straight")
+    if rc != 0:
+        raise AssertionError(f"resume: straight exited {rc}:\n" + text[-3000:])
+    log(f"resume: straight exit 0 in {secs:.1f} s")
+    return dict(native_run=os.path.join(results, "straight"),
+                native_perf=_phase_perf(text),
+                native_launches=_phase_launches(text))
 
 
 # ---------------------------------------------------------------------------
@@ -2584,14 +2670,14 @@ def data_trainer_phase(tmp: str, data: str, smi: str, resume: dict) -> dict:
     once the first validation's state has committed (exit 143, the state
     committed at the step it stopped, no loader worker left) and relaunched
     (exit 0, the state restored at that step); unjittered on threads with
-    numpy items, against the resume phase's second straight run (the same
+    numpy items, against the resume phase's straight run (the same
     command, native items).  The relaunch on processes must end on the
     bits of the straight run on threads (every checkpoint and metrics row:
     so the processes' stream is the threads' and the relaunch the straight
-    run), the numpy run on the native run's (or, where the resume phase
-    found that two straight runs do not repeat, within their difference).
-    The state's MB, the blocking snapshot's host ms, the commit and restore
-    seconds are printed."""
+    run), the numpy run on the native run's (two straight processes on
+    the same items repeat bit for bit: cuDNN's algorithm choice repeats on
+    one card and library version).  The state's MB, the blocking
+    snapshot's host ms, the commit and restore seconds are printed."""
     results = os.path.join(tmp, "data")
     os.makedirs(results)
     procs = ["PatchClassificationDataModule.loader_backend = "
@@ -2659,18 +2745,12 @@ def data_trainer_phase(tmp: str, data: str, smi: str, resume: dict) -> dict:
         d = _checkpoint_diffs(runs[a], runs[b])
         rows = _metric_rows(runs[a]) == _metric_rows(runs[b])
         diffs[f"{a} vs {b}"] = dict(checkpoints=d, rows_equal=rows)
-        if resume["bitwise"]:
-            bad = any(d.values()) or not rows
-        else:
-            bad = any(v > max(resume["straight_repeat"].values())
-                      for v in d.values())
-        if bad:
+        if any(d.values()) or not rows:
             raise AssertionError(f"data: {a} and {b} end apart: {d}, "
                                  f"metrics rows equal {rows}")
-    held = "bit for bit" if resume["bitwise"] else \
-        "within two straight runs' difference (resume phase)"
     log(f"data: largest |difference| per checkpoint {json.dumps(diffs)}, "
-        f"held {held}")
+        f"held bit for bit (two straight processes on the same items "
+        f"repeat, and the relaunch ends on the straight run)")
     for name in ("threads_jitter", "killed"):
         for k in TRAINING_KERNELS:
             if launches[name][k] < 1:
@@ -4281,7 +4361,8 @@ def program_frame(path: str) -> dict:
                 locals=code.co_nlocals, stack=code.co_stacksize)
 
 
-def msc_artifact_phase(tmp: str, msc: dict, dev, smi: str) -> dict:
+def msc_artifact_phase(tmp: str, msc: dict, dev, smi: str,
+                       server: ArtifactServer) -> dict:
     """The artifacts of Pascal's MSC ``final-group`` written through
     ``serve.main --export`` (bf16 fast at batch 2 with the normalization
     inside, static quant8 fast with its scales, ``--dynamic-batch``
@@ -4339,18 +4420,10 @@ def msc_artifact_phase(tmp: str, msc: dict, dev, smi: str) -> dict:
     out_dirs = {n: os.path.join(tmp, f"labels_msc_art_{n}") for n in arts}
     jobs = [(n, arts[n]["path"], few if n == "dynamic_batch" else img_dir,
              out_dirs[n]) for n in arts]
-    root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", ARTIFACT_SERVE, json.dumps(jobs)], cwd=root,
-        env=dict(os.environ, PYTHONPATH=root), capture_output=True,
-        text=True, timeout=900)
-    if proc.returncode:
-        raise AssertionError(f"msc artifact serving failed (exit "
-                             f"{proc.returncode}):\n{proc.stderr[-6000:]}")
-    served = json.loads(proc.stdout.strip().splitlines()[-1])
-    log(f"msc artifact: the fresh interpreter took "
-        f"{time.perf_counter() - t0:.1f} s; model, config or JAX modules "
+    served = server.serve(jobs)
+    log(f"msc artifact: the fresh interpreter (the flagship's) served them "
+        f"in {time.perf_counter() - t0:.1f} s; model, config or JAX modules "
         f"imported: {served['modules']}")
     if served["modules"]:
         raise AssertionError(f"serving an artifact imported "
@@ -6293,12 +6366,325 @@ def preprocess_phase(tmp: str, dev, smi: str) -> dict:
                 serve_counts=serve_counts, seconds=secs)
 
 
+# ---------------------------------------------------------------------------
+# the interpretability analysis: consistency and stability on the panoptic
+# parts, overlaps, group composition, nearest images and prototypes,
+# samples and failure cases
+# ---------------------------------------------------------------------------
+N_ANALYSIS = 8                          # val images of 1024 x 2048
+# parts a block holds: part id -> boxes as fractions (y0, x0, y1, x1) of
+# the block; humans: torso, head, arms, legs; vehicles: windows, wheels,
+# lights, license plate over the chassis, and part 6 (above MAX_PARTS_CITY)
+HUMAN_PARTS = {1: [(.30, .35, .65, .65)], 2: [(.05, .40, .25, .60)],
+               3: [(.30, .10, .60, .30), (.30, .70, .60, .90)],
+               4: [(.70, .20, .95, .45), (.70, .55, .95, .80)]}
+VEHICLE_PARTS = {5: [(.35, .20, .70, .80)],
+                 1: [(.10, .10, .30, .40), (.10, .60, .30, .90)],
+                 2: [(.75, .10, .95, .30), (.75, .70, .95, .90)],
+                 3: [(.40, .02, .50, .10), (.40, .90, .50, .98)],
+                 4: [(.60, .45, .70, .55)], 6: [(.02, .45, .06, .55)]}
+PART_CLASSES = {"person": (24, HUMAN_PARTS), "rider": (25, HUMAN_PARTS),
+                "car": (26, VEHICLE_PARTS), "truck": (27, VEHICLE_PARTS),
+                "bus": (28, VEHICLE_PARTS)}
+
+
+def write_part_tiffs(raw: str, data: str) -> None:
+    """A Cityscapes-Panoptic-Parts uid TIFF for each val image of
+    ``data``: in the block of each class with parts (its label id ``sid``)
+    the parts of ``PART_CLASSES`` as blobs, uid sid * 10^5 + 100 + part;
+    the rest of the block instance 1 (sid * 1000 + 1), every other pixel
+    its class's label id (no part: -1 once decoded)."""
+    from scaleprotoseg_torch.constants import CITYSCAPES_CATEGORIES
+    out = os.path.join(raw, "gtFinePanopticParts", "val", "frankfurt")
+    os.makedirs(out)
+    with open(os.path.join(data, "all_images.json")) as f:
+        ids = json.load(f)["val"]
+    for img_id in ids:
+        label = np.load(os.path.join(data, "annotations", "val",
+                                     img_id + ".npy"))
+        uids = label.astype(np.int32)
+        for name, (sid, parts) in PART_CLASSES.items():
+            ys, xs = np.nonzero(label == CITYSCAPES_CATEGORIES.index(name))
+            if not len(ys):
+                continue
+            y0, x0 = int(ys.min()), int(xs.min())
+            h, w = int(ys.max()) + 1 - y0, int(xs.max()) + 1 - x0
+            block = np.full((h, w), sid * 1000 + 1, np.int32)
+            for pid, boxes in parts.items():
+                for a, b, c, d in boxes:
+                    block[int(a * h):int(c * h), int(b * w):int(d * w)] = \
+                        sid * 100_000 + 100 + pid
+            uids[y0:y0 + h, x0:x0 + w] = block
+        write_tiff(os.path.join(out, img_id + "_gtFinePanopticParts.tif"),
+                   [uids])
+
+
+def _rows_equal(a: list, b: list) -> bool:
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if x[-3:] != y[-3:]:
+            return False
+        u, v = np.array(x[:-3], np.float64), np.array(y[:-3], np.float64)
+        if not np.array_equal(u, v, equal_nan=True):
+            return False
+    return True
+
+
+PLAIN_WORKERS = 4                       # processes holding the plain form
+
+
+def plain_part_pass(d: np.ndarray, cls_ann: np.ndarray,
+                    part_ann: np.ndarray, kw: dict) -> tuple:
+    """(rows, host ms) of the plain part pass (numpy + scipy), in a
+    worker process."""
+    from scaleprotoseg_torch.analysis.metrics.parts import \
+        part_intersect_plain
+    t0 = time.perf_counter()
+    rows = part_intersect_plain(d, cls_ann, part_ann, **kw)
+    return rows, (time.perf_counter() - t0) * 1e3
+
+
+def hold_part_pass(pool, per_image: list):
+    """Wrap the part pass and the forward of ``analysis.metrics.
+    consistency`` (which stability shares): each image's device form is
+    timed (host clock; on consistency's images also the device ms of the
+    same call replayed under the profiler) and its distances go to
+    ``pool``, where the plain form runs
+    on them (its own host ms) while the CLIs go on; the forward is timed
+    with CUDA events.  ``per_image`` gets a record and the plain form's
+    future an image.  Returns the function that restores them."""
+    from torch.profiler import ProfilerActivity, profile
+    from scaleprotoseg_torch.analysis.metrics import consistency
+    real_pass, real_make = consistency.part_intersect, \
+        consistency.make_distance_fn
+    fwd = []
+
+    def make_distance_fn(model):
+        fn = real_make(model)
+
+        def timed(x):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            d = fn(x)
+            ev[1].record()
+            ev[1].synchronize()
+            fwd.append(ev[0].elapsed_time(ev[1]))
+            return d
+        return timed
+
+    def held(d, cls_ann, part_ann, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = real_pass(d, cls_ann, part_ann, **kw)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        rec = dict(img_id=kw["img_id"], rows=len(rows),
+                   forward_device_ms=round(fwd[-1], 3),
+                   pass_host_ms=round(host_ms, 3), device_rows=rows,
+                   replay_equal=True)
+        if len(per_image) < N_ANALYSIS:        # consistency's images
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                again = real_pass(d, cls_ann, part_ann, **kw)
+                torch.cuda.synchronize()
+            rec.update(pass_device_ms=round(sum(
+                _device_us(e) for e in prof.key_averages()) / 1e3, 3),
+                replay_equal=_rows_equal(rows, again))
+        rec["plain"] = pool.submit(plain_part_pass, d.cpu().numpy(), cls_ann,
+                                   part_ann, kw)
+        per_image.append(rec)
+        return rows
+
+    consistency.part_intersect = held
+    consistency.make_distance_fn = make_distance_fn
+
+    def restore():
+        consistency.part_intersect = real_pass
+        consistency.make_distance_fn = real_make
+    return restore
+
+
+def held_against_plain(per_image: list) -> None:
+    """Each image's device rows against its plain form's, row for row;
+    the plain form's host ms into its record, which is printed."""
+    for rec in per_image:
+        plain, ms = rec.pop("plain").result()
+        rows = rec.pop("device_rows")
+        rec.update(plain_host_ms=round(ms, 3),
+                   equal=rec.pop("replay_equal") and _rows_equal(rows, plain))
+        log(f"analysis: part pass {json.dumps(rec)}")
+        if not rec["equal"]:
+            raise AssertionError(f"analysis: the device part pass differs "
+                                 f"from the plain form on {rec['img_id']}")
+
+
+def _csv_rows(path: str) -> list:
+    import csv
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def analysis_phase(tmp: str, run_name: str, phase: str, dev,
+                   smi: str) -> dict:
+    """The analysis CLIs on run ``run_name`` at ``phase`` (a grouped run,
+    with ``checkpoints/nopush-group_last``), in this interpreter, through
+    their ``main``: ``N_ANALYSIS`` Cityscapes-size val images (class
+    labels, part ids from uid TIFFs through ``preprocess_part_cityscapes``),
+    ``threshold_save`` at 0.05 for ``--group-name``, then every CLI with
+    its defaults: seconds each, the outputs' sizes and ranges, the device
+    part pass against the plain one on every image, both scores; no
+    kernel launches (float32, no fast path, as the JAX package's)."""
+    from scaleprotoseg_torch.analysis import (failure_cases,
+                                              group_composition,
+                                              group_overlap, nearest_img,
+                                              nearest_proto,
+                                              prototype_overlap,
+                                              sample_activations_group,
+                                              sample_activations_prototype,
+                                              threshold_save)
+    from scaleprotoseg_torch.analysis.metrics import consistency, stability
+    from scaleprotoseg_torch.data.preprocess_part_cityscapes import \
+        preprocess_part_cityscapes
+    t_phase = time.perf_counter()
+    data = write_city_root(os.path.join(tmp, "analysis_city"), seed=1,
+                           splits=(("val", N_ANALYSIS),))
+    raw = os.path.join(tmp, "analysis_raw")
+    write_part_tiffs(raw, data)
+    preprocess_part_cityscapes(source=raw, target=data, splits=("val",))
+    threshold_save.main([run_name, "nopush-group", "0.05",
+                         "--results-root", tmp])
+    log(f"analysis: {N_ANALYSIS} val images, their part ids and the "
+        f"thresholded group checkpoint in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    env = {"RESULTS_DIR": tmp, "DATA_PATH_CITY": data}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    base = [run_name, phase, "cityscapes"]
+    group = ["--group-name", run_name]
+    clis = [("consistency", consistency, base + group),
+            ("stability", stability, base + group),
+            ("prototype_overlap", prototype_overlap,
+             base + ["--n-images", str(N_ANALYSIS)]),
+            ("group_overlap", group_overlap,
+             base + ["--n-images", str(N_ANALYSIS)]),
+            ("group_composition", group_composition, base[:2]),
+            ("nearest_img", nearest_img, base),
+            ("nearest_proto", nearest_proto,
+             base + ["--n-images", str(N_ANALYSIS)]),
+            ("sample_activations_prototype", sample_activations_prototype,
+             base),
+            ("sample_activations_group", sample_activations_group, base),
+            ("failure_cases", failure_cases, base)]
+    per_image, seconds, out = [], {}, {}
+    kernels.reset_launch_counts()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(PLAIN_WORKERS,
+                                                mp_context=ctx) as pool:
+        restore = hold_part_pass(pool, per_image)
+        try:
+            for name, mod, argv in clis:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[name] = mod.main(argv)
+                torch.cuda.synchronize()
+                seconds[name] = round(time.perf_counter() - t0, 2)
+                log(f"analysis: {name} {' '.join(argv)}: {seconds[name]} s")
+                torch.cuda.empty_cache()
+        finally:
+            restore()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        t0 = time.perf_counter()
+        held_against_plain(per_image)
+        log(f"analysis: waited {time.perf_counter() - t0:.1f} s for the "
+            f"plain part passes ({PLAIN_WORKERS} worker processes, beside "
+            f"the CLIs)")
+    counts = kernels.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"analysis launched kernels: {counts}")
+
+    run = os.path.join(tmp, run_name)
+    metrics = os.path.join(run, "metrics", phase)
+    presence = _csv_rows(os.path.join(
+        metrics, "part_presence_th_0.8_qt_0.8.csv"))
+    means = _csv_rows(os.path.join(
+        metrics, "part_presence_mean_th_0.8_qt_0.8.csv"))
+    tot = _csv_rows(os.path.join(metrics, "tot_presence_stab_qt_0.8.csv"))
+    n_rows = sum(r["rows"] for r in per_image[:N_ANALYSIS])
+    scores = {"consistency": out["consistency"],
+              "stability": out["stability"]}
+    if len(per_image) != 3 * N_ANALYSIS or \
+            len(presence) - 1 != n_rows or len(tot) - 1 != n_rows or \
+            not 0 < len(means) - 1 <= n_rows or \
+            not all(0.0 <= v <= 1.0 for v in scores.values()):
+        raise AssertionError(f"analysis: {len(per_image)} part passes, "
+                             f"{len(presence)} / {len(tot)} / {len(means)} "
+                             f"CSV lines for {n_rows} rows, scores {scores}")
+    # push may have pruned the bank: the counts follow the run's spec
+    spec = ProtoSpec.from_meta(load_checkpoint(os.path.join(
+        run, "checkpoints", phase))[1]["spec"])
+    counts_c = spec.class_counts.tolist()
+    n_pairs = N_ANALYSIS * sum(n * (n - 1) // 2 for n in counts_c)
+    ious = [r[-1] for r in out["prototype_overlap"]] + \
+        [r[-1] for r in out["group_overlap"]]
+    comp = out["group_composition"]
+    if len(out["prototype_overlap"]) != n_pairs or \
+            len(out["group_overlap"]) != N_ANALYSIS * 19 * 3 or \
+            not all(0.0 <= v <= 1.0 for v in ious) or len(comp) != 19 * 3 \
+            or not all(comp[f"class_{c}_group_{k}"] for c, n in
+                       enumerate(counts_c) if n for k in range(3)):
+        raise AssertionError(
+            f"analysis: overlap or composition outputs: "
+            f"{len(out['prototype_overlap'])} prototype pairs (want "
+            f"{n_pairs}), {len(out['group_overlap'])} group pairs, IoUs in "
+            f"[{min(ious)}, {max(ious)}], {len(comp)} groups")
+    P = spec.num_active_prototypes
+    figures = {}
+    for name, n_png in (("nearest_img", P), ("nearest_proto", N_ANALYSIS),
+                        ("sample_activations_prototype", 5),
+                        ("sample_activations_group", 5),
+                        ("failure_cases", 5)):
+        d = os.path.join(run, "analysis", name, phase)
+        pngs = sorted(f for f in os.listdir(d) if f.endswith(".png"))
+        px = read_png(os.path.join(d, pngs[0]))
+        figures[name] = dict(files=len(pngs), shape=list(px.shape))
+        if len(pngs) != n_png or px.ndim != 3 or px.shape[2] != 3:
+            raise AssertionError(f"analysis {name}: {figures[name]}")
+    nearest = out["nearest_img"]
+    if len(nearest) != P or any(len(v) != 5 for v in nearest.values()) \
+            or len(out["nearest_proto"]) != N_ANALYSIS:
+        raise AssertionError("analysis: nearest image / prototype indices")
+    secs = time.perf_counter() - t_phase
+    summary = {k: round(statistics.median(r[k] for r in per_image
+                                          if k in r), 3)
+               for k in ("forward_device_ms", "pass_host_ms",
+                         "pass_device_ms", "plain_host_ms")}
+    log(f"analysis: consistency {scores['consistency']}, stability "
+        f"{scores['stability']}; {len(per_image)} part passes "
+        f"({n_rows} rows a pass over {N_ANALYSIS} images), each equal to "
+        f"the plain form row for row; medians {json.dumps(summary)}; CLI "
+        f"seconds {json.dumps(seconds)}; figures {json.dumps(figures)}; "
+        f"kernel launches {counts}; the phase took {secs:.1f} s on {smi}")
+    return dict(scores=scores, seconds=seconds, per_image=per_image,
+                medians=summary, counts=counts, phase_seconds=secs)
+
+
 def main() -> None:
     if sys.argv[1:] == ["coco-push-artifacts"]:
         return coco_push_artifacts()
     t_start = time.perf_counter()
     smi = device_phase()
     log(smi)
+    server = ArtifactServer()
+    try:
+        run_all(t_start, smi, server)
+    finally:
+        server.close()
+
+
+def run_all(t_start: float, smi: str, server: ArtifactServer) -> None:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6325,13 +6711,13 @@ def main() -> None:
         torch.cuda.empty_cache()
         return out
 
-    served = timed("serving", serving_phase, dev, smi)
+    served = timed("serving", serving_phase, dev, smi, server)
     trained = timed("training", training_phase, dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
         pascal = timed("pascal", pascal_phase, tmp, dev, smi)
         msc = timed("msc_quant8", msc_quant8_phase, tmp, dev, smi)
         msc_art = timed("msc_artifact", msc_artifact_phase, tmp, msc, dev,
-                        smi)
+                        smi, server)
     with tempfile.TemporaryDirectory() as tmp:
         coco = timed("coco", coco_phase, tmp, dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
@@ -6342,6 +6728,7 @@ def main() -> None:
         prep = timed("preprocess", preprocess_phase, tmp, dev, smi)
     quant, evals = served["quant"], served["evals"]
     group, pruning = trained["group"], trained["pruning"]
+    spans["analysis (in training)"] = trained["analysis"]["phase_seconds"]
     single, resume = trained["single"], trained["resume"]
     data_run = trained["data"]["trainers"]
     art = served["artifact"]["counts"]
@@ -6355,6 +6742,7 @@ def main() -> None:
                       "training": trained["counts"][name],
                       "group_training": group["counts"][name],
                       "group_serving": group["serve"]["counts"][name],
+                      "analysis": trained["analysis"]["counts"][name],
                       "pruned_finetune":
                           pruning["finetune"]["launches"][name],
                       "pruned_serving":

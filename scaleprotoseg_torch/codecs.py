@@ -55,7 +55,7 @@ import struct
 import threading
 import zlib
 from pathlib import Path
-from typing import Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -531,9 +531,11 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def encode_png(pixels: np.ndarray, level: int = ZLIB_LEVEL) -> bytes:
+def encode_png(pixels: np.ndarray, level: int = ZLIB_LEVEL,
+               text: Optional[Dict[str, str]] = None) -> bytes:
     """PNG bytes of a uint8 (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA
-    array; every scanline behind filter byte 0."""
+    array; every scanline behind filter byte 0; ``text``: a ``tEXt`` chunk
+    per keyword (Latin-1)."""
     a = np.asarray(pixels)
     if a.dtype != np.uint8:
         raise TypeError(f"encode_png takes uint8 pixels, got {a.dtype}")
@@ -547,12 +549,16 @@ def encode_png(pixels: np.ndarray, level: int = ZLIB_LEVEL) -> bytes:
     header = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[c], 0, 0, 0)
     return (_PNG_SIGNATURE + _chunk(b"IHDR", header) +
             _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) +
+            b"".join(_chunk(b"tEXt", k.encode("latin-1") + b"\0" +
+                            v.encode("latin-1", "replace"))
+                     for k, v in (text or {}).items()) +
             _chunk(b"IEND", b""))
 
 
-def write_png(path: str, pixels: np.ndarray) -> None:
+def write_png(path: str, pixels: np.ndarray,
+              text: Optional[Dict[str, str]] = None) -> None:
     with open(path, "wb") as f:
-        f.write(encode_png(pixels))
+        f.write(encode_png(pixels, text=text))
 
 
 def save_gray(path: str, labels: np.ndarray) -> None:

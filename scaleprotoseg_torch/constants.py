@@ -60,6 +60,12 @@ PASCAL_CATEGORIES = ["void", "__background__"] + [
     "pottedplant", "sheep", "sofa", "train", "tvmonitor",
 ]
 
+# The part metrics (``analysis/metrics``): the largest part id counted, and
+# the Pascal class ids (stored, 1 + raw id) they leave out.
+MAX_PARTS_CITY = 5
+MAX_PARTS_PASCAL = 24
+PASCAL_FILTER_CLASS = [1, 5, 10, 11, 19]
+
 
 # ADE20K (SceneParsing, 150 classes): class c is stored as c + 1, 0 is void
 ADE20K_LABELS = [

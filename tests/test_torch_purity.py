@@ -1,12 +1,16 @@
-"""The port imports neither JAX, flax nor the JAX package, nor an image
-library the GPU machine lacks.
+"""The port imports neither JAX, flax nor the JAX package, nor a library
+the GPU machine lacks.
 
 Checked in a fresh interpreter: every module of ``scaleprotoseg_torch``
 and the ``chip_smoke.py`` script are imported, then ``sys.modules`` must
 hold no ``jax``/``flax`` module, nothing of ``scaleprotoseg_tpu``, and
-none of ``cv2``, ``grain``, ``PIL`` or ``tifffile``, which the GPU
-machine does not have.  And no line of the port's sources or of
-``chip_smoke.py`` imports any of them, not even inside a function.
+none of ``cv2``, ``grain``, ``PIL``, ``tifffile``, ``pandas`` or
+``matplotlib``, which the GPU machine does not have.  And no line of the
+port's sources or of ``chip_smoke.py`` imports any of them but
+matplotlib, not even inside a function; no line under
+``scaleprotoseg_torch/analysis/`` imports matplotlib either (the
+evaluation CLI's optional plots, outside that folder, import it where it
+is installed).
 """
 
 import os
@@ -27,7 +31,8 @@ import chip_smoke  # noqa: F401
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "scaleprotoseg_tpu", "cv2", "grain",
-                                    "PIL", "tifffile"))
+                                    "PIL", "tifffile", "pandas",
+                                    "matplotlib"))
 missing = sorted({"scaleprotoseg_torch." + m for m in (
     "ops.simplex", "push.push", "models.group_init",
     "finetune_wandb_group", "push.artifacts", "find_nearest", "prune",
@@ -35,7 +40,15 @@ missing = sorted({"scaleprotoseg_torch." + m for m in (
     "imageio", "helpers", "native", "data.jitter",
     "data.worker_loader", "ops.gradconv", "profiling", "codecs",
     "data.preprocess", "data.preprocess_cityscapes",
-    "data.preprocess_part_pascal")} - set(names))
+    "data.preprocess_part_pascal", "analysis.common",
+    "analysis.equivariance", "analysis.metrics.parts",
+    "analysis.metrics.consistency", "analysis.metrics.stability",
+    "analysis.tables", "analysis.panels", "analysis.prototype_overlap",
+    "analysis.group_overlap", "analysis.group_composition",
+    "analysis.nearest_img", "analysis.nearest_proto",
+    "analysis.sample_activations_prototype",
+    "analysis.sample_activations_group",
+    "analysis.failure_cases")} - set(names))
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 20 else 0)
 """
@@ -49,19 +62,25 @@ def test_port_imports_no_jax():
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(PIL|cv2|tifffile|jax|jaxlib|"
-                     r"flax|scaleprotoseg_tpu)\b", re.M)
+                     r"flax|scaleprotoseg_tpu|pandas)\b", re.M)
+_MATPLOTLIB = re.compile(r"^\s*(?:import|from)\s+matplotlib\b", re.M)
 
 
 def test_no_source_line_imports_pil_cv2_tifffile_or_jax():
     """Lazy imports inside functions count too: ``serve`` once decoded
-    ``.png`` / ``.jpg`` inputs and wrote its PNGs through PIL there."""
+    ``.png`` / ``.jpg`` inputs and wrote its PNGs through PIL there.
+    pandas counts too, and matplotlib under ``analysis/``."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "scaleprotoseg_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = []
     for path in files:
         with open(path) as f:
-            for m in _IMPORT.finditer(f.read()):
-                bad.append(f"{os.path.relpath(path, REPO)}: {m.group(0)}")
+            text = f.read()
+        rel = os.path.relpath(path, REPO)
+        found = list(_IMPORT.finditer(text))
+        if rel.startswith(os.path.join("scaleprotoseg_torch", "analysis")):
+            found += list(_MATPLOTLIB.finditer(text))
+        bad += [f"{rel}: {m.group(0)}" for m in found]
     assert len(files) > 40
     assert not bad, bad
