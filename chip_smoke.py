@@ -72,7 +72,9 @@ seconds are printed before the kernels line):
    ``serve.main --export`` writes three artifacts of the run at full width
    (bf16 fast at batch 2 with the normalization inside, static quant8 fast
    calibrated on the first 8 images with its scales shipped, and a
-   ``--dynamic-batch`` float32 plain one); a fresh interpreter (one for
+   ``--dynamic-batch`` float32 plain one), each export in a fresh
+   interpreter, the three started together (``export_artifacts``); a
+   fresh interpreter (one for
    the script, started before the build: the flagship's and the MSC
    model's artifacts) loads each (timed) and serves it through
    ``serve.main --artifact`` (bf16 and
@@ -137,7 +139,9 @@ seconds are printed before the kernels line):
    largest logit at Cityscapes' 19 classes).  Then the interpretability
    analysis of ``final-group`` (``analysis_phase``): 8 val images of
    1024 x 2048 with part ids written by ``preprocess_part_cityscapes``
-   from uid TIFFs, ``threshold_save`` at 0.05 for ``--group-name``, and
+   from uid TIFFs, ``threshold_save`` at 0.05 for ``--group-name``, each
+   CLI entered with TF32 on (the library's default) and held to turn it
+   off for its forwards and restore it, and
    every analysis CLI through its ``main`` (consistency, stability, the
    overlaps, group composition, nearest images and prototypes, the
    samples and failure cases): each CLI's seconds, its outputs' sizes and
@@ -258,7 +262,8 @@ seconds are printed before the kernels line):
    agreement with bf16 reported; ``run_evaluation`` with Pascal's protocol
    in static quant8; then the bf16 fast, static quant8 fast and
    ``--dynamic-batch`` plain artifacts written by ``serve.main --export``
-   (export, save seconds, MB, the program's nodes and frame) and served by
+   (the three started together, each in a fresh interpreter; export, save
+   seconds, MB, the program's nodes and frame) and served by
    ``serve.main --artifact`` in the flagship's fresh interpreter (load
    seconds, img/s beside the run dir's, launches, labels >= 99.99% equal
    to the run-dir
@@ -322,7 +327,28 @@ seconds are printed before the kernels line):
    batch 2 on them (labels against the plain path); ``serve
    --quant8-static`` refused by name; K2 launched 0 times on the EM path
    (64 ASPP input channels: the shifted-matmul form);
-11. the preprocessing slice, on a machine without PIL: the committed
+11. checkpoint conversion and the DeepLab-family models
+   (``conversion_phase``): the flagship's seeded weights pickled as the
+   reference's whole module, under class names of its packages that the
+   loading side lacks, converted in this interpreter by
+   ``convert_checkpoint.main(["reference", ..., "--config",
+   "group_scaleproto_cityscapes"])`` and served by ``serve.main`` in bf16
+   at 1024 x 2048 (K1-K3 on every batch), its labels equal to the same
+   weights served from the port-written run and to the plain path where
+   decided beyond fp32 rounding; the committed JAX ``.ckpt`` fixture
+   (``tests/torch_fixtures/jax_ckpt``, EM's UNet-ASPP) served from its run
+   directory with no msgpack, flax or JAX module imported, its logits
+   bit-equal to its ``export-torch`` twin's; then each DeepLab-family
+   model at full width (the flagship's group config rebound to
+   ``deeplabv2_vgg16_multiscale``, ``deeplabv3_resnet101_multiscale``,
+   ``deeplabv2_resnet101_multiscaleplus``, the 'bottleneck' add-on at one
+   scale and the 'concat' scale head; 228 x 64 bank, 19 classes) served
+   at batch 2 in bf16: labels against the plain path where decided
+   (>= 99.9%), ms a batch, K1 / K3 launches (K1 none with the scale head,
+   whose head K1 does not compute; K2 only on DeepLabV2's 'sum' /
+   'concat' ASPP), and 2 joint micro-steps of the VGG16 model in the
+   bf16 recipe (losses finite, every trainable label's parameters moved);
+12. the preprocessing slice, on a machine without PIL: the committed
    fixtures (``tests/torch_fixtures/codecs``: JPEGs at Pascal's, COCO's,
    ADE20K's and EM's sizes, baseline 4:2:0 and 4:4:4, gray, progressive;
    a PIL-filtered PNG, a palette PNG, an LZW TIFF) decoded by
@@ -345,7 +371,7 @@ seconds are printed before the kernels line):
    (K2, K1, K3) without ``--raw-output`` (``--canvas 1024 2048``), its PNG
    labels read back by ``imageio.read_png`` equal to the serve of the
    ``.npy`` mirrors the CLIs wrote;
-12. one line per kernel with its times, bound and launches, for the six
+13. one line per kernel with its times, bound and launches, for the six
    kernels since redesigned the earlier design's recorded times beside
    the new ones, the card's name and power limit, the kernels
    line (every kernel with its status),
@@ -389,7 +415,8 @@ from scaleprotoseg_torch.data.panoptic_parts_lite import decode_uids
 from scaleprotoseg_torch.eval.miou import SegEvaluator
 from scaleprotoseg_torch.eval_valid_multiscale import eval_targets
 from scaleprotoseg_torch.imageio import read_png
-from scaleprotoseg_torch.kernels.aspp import (aspp_plain, aspp_trainable,
+from scaleprotoseg_torch.kernels.aspp import (KERNEL_MIN_C, aspp_plain,
+                                              aspp_trainable,
                                               grad_pack_plain,
                                               grad_weight_plain, pack_weights,
                                               shifted_sum)
@@ -1289,8 +1316,10 @@ def _device_us(evt) -> float:
 # ---------------------------------------------------------------------------
 # phase 4: the serving slice
 # ---------------------------------------------------------------------------
-def write_run(root: str, seed: int, dev) -> str:
-    """The flagship run directory with seeded weights that give varied
+def write_run(root: str, seed: int, dev, config: str = CONFIG,
+              name: str = "city_flagship") -> str:
+    """The flagship run directory (or another grouped model of ``config``
+    under ``name``) with seeded weights that give varied
     labels: ``synthetic_state_dict``, except that the last BN of every
     residual branch is scaled by 0.1 (activations stay bounded at full
     depth instead of growing ~1e8-fold), the group last layer keeps the
@@ -1298,13 +1327,17 @@ def write_run(root: str, seed: int, dev) -> str:
     prototype sits on the features of a seeded pixel of a seeded image, as
     push places it.  With random weights throughout every pixel takes the
     same class, and a label comparison would prove little."""
-    run = os.path.join(root, "city_flagship")
+    run = os.path.join(root, name)
     os.makedirs(run)
     with open(os.path.join(run, "config.gin"), "w") as f:
-        f.write(CONFIG)
+        f.write(config)
+    bindings = parse_config(config)
+    q = bindings["construct_PPNet_Group"]
     model, spec = construct_ppnet(
-        "group", "deeplabv2_resnet101_multiscale", (228, 64, 1, 1), 19,
-        add_on_layers_type="deeplab_simple", bindings=parse_config(CONFIG))
+        "group", q["base_architecture"], tuple(q["prototype_shape"]),
+        q["num_classes"], add_on_layers_type=q["add_on_layers_type"],
+        scale_head_type=q.get("scale_head_type"), bindings=bindings,
+        log=lambda _: None)
     sd = synthetic_state_dict(model, seed=seed)
     for key in sd:
         if key.endswith(".increase.bn.weight"):
@@ -1317,16 +1350,18 @@ def write_run(root: str, seed: int, dev) -> str:
                                         dtype=np.uint8)).to(dev)
     mean = torch.tensor(IMAGENET_MEAN, device=dev)
     std = torch.tensor(IMAGENET_STD, device=dev)
+    depth = spec.proto_depth
     with torch.no_grad():
         feats = model.to(dev).eval().conv_features(
-            (img.float() / 255.0 - mean) / std).reshape(-1, 256).cpu()
+            (img.float() / 255.0 - mean) / std).reshape(
+                -1, spec.num_scales * depth).cpu()
     pixels = rng.choice(feats.shape[0], size=spec.num_prototypes,
                         replace=False)
     protos = sd["prototype_vectors"]
     for s_, (lo, hi) in enumerate(spec.scale_bounds):
         for p in range(lo, hi):
-            protos[p] = feats[pixels[p], s_ * 64:(s_ + 1) * 64].numpy() \
-                .reshape(protos[p].shape)
+            protos[p] = feats[pixels[p], s_ * depth:(s_ + 1) * depth] \
+                .numpy().reshape(protos[p].shape)
     del model
     save_checkpoint(os.path.join(run, "checkpoints", "push_final"), sd, spec,
                     extra={"variant": "group"})
@@ -1347,22 +1382,27 @@ def plain_labels(model):
     """``fn(xn, h, w)`` for normalized batches (in the dtype the path under
     test hands its model: the MSC pyramid resizes that input): the labels
     of the fast path at (h, w) with every kernel replaced by its plain
-    version (K2 by
-    ``aspp_plain``, the float32-accumulated ASPP rounded to bf16 as the
-    kernel rounds its output; K1 by ``proto_plain``; K3 by
+    version (K2, where the served ASPP takes it, by ``aspp_plain``, the
+    float32-accumulated ASPP rounded to bf16 as the kernel rounds its
+    output; K1 by ``proto_plain``, or a head K1 does not compute (the
+    scale head) by the model's own; K3 by
     ``upsample_argmax_plain``; the int8 kernels by ``static_int8_conv`` /
     ``dynamic_int8_conv``); ``fn.logits(xn)``: the logits before K3's
     plain version."""
     base = model.features.base
-    base.aspp.fast = False
-    base.aspp.register_forward_hook(
-        lambda m, i, out: out.to(torch.bfloat16).float())
+    if getattr(base, "takes_fast_aspp", False) and \
+            base.aspp.mode != "concat_plus":
+        base.aspp.fast = False
+        base.aspp.register_forward_hook(
+            lambda m, i, out: out.to(torch.bfloat16).float())
     for _, m in quant_sites(model):
         m.plain = True
 
     @torch.inference_mode()
     def logits(xn: torch.Tensor) -> torch.Tensor:
         feats = model.conv_features(xn).contiguous()
+        if not model.kernel_head:
+            return model.forward_from_conv_features(feats).logits
         return proto_plain(feats, model.prototypes(), spec=model.spec,
                            **head_kw(model))
 
@@ -1852,26 +1892,90 @@ ARTIFACTS = {   # name -> serve.main flags of its export
 }
 
 
-def time_exports(spans: dict):
-    """Wrap ``serving.export``'s ``export_serving`` and ``save_artifact``
-    so that each call appends its host seconds to ``spans``; returns the
-    function that restores them."""
-    from scaleprotoseg_torch.serving import export
-    real = {n: getattr(export, n) for n in ("export_serving",
-                                            "save_artifact")}
+EXPORT_JOB = r"""
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+from scaleprotoseg_torch.serving import export, serve
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+spans = {}
+real = {n: getattr(export, n) for n in ("export_serving", "save_artifact")}
 
-    def timed(name):
-        def call(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return real[name](*args, **kwargs)
-            finally:
-                spans.setdefault(name, []).append(time.perf_counter() - t0)
-        return call
 
-    for name in real:
-        setattr(export, name, timed(name))
-    return lambda: [setattr(export, n, f) for n, f in real.items()]
+def timed(name):
+    def call(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return real[name](*args, **kwargs)
+        finally:
+            spans[name] = time.perf_counter() - t
+    return call
+
+
+for name in real:
+    setattr(export, name, timed(name))
+start_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+rec = serve.main(json.loads(sys.argv[1]))
+print("EXPORTED " + json.dumps(dict(record=rec, cli_s=time.perf_counter() - t0,
+                                    start_s=start_s, **spans), default=str),
+      flush=True)
+"""
+
+
+def export_artifacts(argv_by_name: dict, meanwhile=None,
+                     timeout: float = 900) -> dict:
+    """Each ``serve.main --export`` of ``argv_by_name`` in a fresh
+    interpreter (``EXPORT_JOB``), all started together: ``torch.export``'s
+    tracing is host work of one core each, so three exports take about
+    the time of the longest; ``meanwhile()`` (an untimed step of this
+    process) runs while they do.  ``{name: {record, cli_s, start_s,
+    export_serving, save_artifact}}``, the seconds each process measured
+    (``start_s``: its imports); every process is waited for, and a failed
+    one raises with its error output."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    for name, argv in argv_by_name.items():
+        files = [tempfile.TemporaryFile(mode="w+") for _ in range(2)]
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-c", EXPORT_JOB, json.dumps(argv)], cwd=root,
+            env=dict(os.environ, PYTHONPATH=root), stdout=files[0],
+            stderr=files[1], text=True), files)
+    out, failed = {}, []
+    try:
+        if meanwhile is not None:
+            meanwhile()
+    finally:
+        for name, (proc, files) in procs.items():
+            _wait_export(name, proc, files, timeout, out, failed)
+    if failed:
+        raise AssertionError("artifact exports failed:\n" +
+                             "\n".join(failed))
+    return out
+
+
+def _wait_export(name, proc, files, timeout, out, failed) -> None:
+    """``export_artifacts``' wait for one process (its output and error
+    output in ``files``): its result into ``out``, or its error output
+    into ``failed``."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    stdout, err = files
+    stdout.seek(0)
+    lines = [ln for ln in stdout.read().splitlines()
+             if ln.startswith("EXPORTED ")]
+    if proc.returncode or not lines:
+        err.seek(0)
+        failed.append(f"{name}: exit {proc.returncode}\n"
+                      f"{err.read()[-4000:]}")
+    else:
+        out[name] = json.loads(lines[-1].split(" ", 1)[1])
+    stdout.close()
+    err.close()
 
 
 def _agreement(got_dir: str, want_dir: str, names) -> tuple:
@@ -1912,7 +2016,8 @@ def artifact_phase(tmp: str, img_dir: str, bf16_dir: str, q8_dir: str,
                    dev, smi: str, rates, q8_rates,
                    server: ArtifactServer) -> dict:
     """The deploy step and the artifact served: three artifacts of the run
-    written through ``serve.main --export`` at full width (bf16 fast at
+    written through ``serve.main --export`` (``export_artifacts``: three
+    fresh interpreters started together) at full width (bf16 fast at
     batch 2 with the normalization inside, static quant8 fast with its
     scales, a ``--dynamic-batch`` plain one), served by ``serve.main
     --artifact`` in a fresh interpreter (the bf16 and quant8 ones over the
@@ -1926,18 +2031,35 @@ def artifact_phase(tmp: str, img_dir: str, bf16_dir: str, q8_dir: str,
         os.symlink(os.path.join(img_dir, n), os.path.join(few, n))
     run_args = ["city_flagship", "push_final", "--results-root", tmp,
                 "--batch", str(B), "--workers", "4"]
-    arts = {}
-    for name, flags in ARTIFACTS.items():
-        path = os.path.join(tmp, f"artifact_{name}")
-        spans = {}
-        restore = time_exports(spans)
-        t0 = time.perf_counter()
+    paths = {name: os.path.join(tmp, f"artifact_{name}") for name in
+             ARTIFACTS}
+    # the plain artifact's reference, made while the exports run: the
+    # run-dir serve of the same images in float32, under the library
+    # defaults the fresh interpreter has (cuDNN may take TF32 for a
+    # float32 conv)
+    plain_dir = os.path.join(tmp, "labels_f32")
+
+    def plain_serve():
+        torch.backends.cudnn.allow_tf32 = True
         try:
-            rec = serve.main([*run_args, "--input", few, "--export", path,
-                              *flags])
+            serve.main([*run_args, "--input", few, "--output", plain_dir,
+                        "--raw-output", "--no-fast"])
         finally:
-            restore()
-        cli_s = time.perf_counter() - t0
+            torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    exported = export_artifacts({
+        name: [*run_args, "--input", few, "--export", paths[name], *flags]
+        for name, flags in ARTIFACTS.items()}, meanwhile=plain_serve)
+    log(f"artifact: the {len(ARTIFACTS)} exports, each in a fresh "
+        f"interpreter, all started together, took "
+        f"{time.perf_counter() - t0:.1f} s (the float32 run-dir serve "
+        f"of their reference labels beside them)")
+    arts = {}
+    for name in ARTIFACTS:
+        path, res = paths[name], exported[name]
+        rec, cli_s = res["record"], res["cli_s"]
+        spans = {k: [res[k]] for k in ("export_serving", "save_artifact")}
         with open(os.path.join(path, "meta.json")) as f:
             meta = json.load(f)
         want = [None if name == "dynamic_batch" else B, HEIGHT, WIDTH, 3]
@@ -1955,21 +2077,11 @@ def artifact_phase(tmp: str, img_dir: str, bf16_dir: str, q8_dir: str,
         arts[name]["frame"] = program_frame(path)
         log(f"artifact {name}: serve --export {cli_s:.2f} s (export_serving "
             f"{arts[name]['export_s']:.2f} s, save_artifact "
-            f"{arts[name]['save_s']:.2f} s), {mb:.1f} MB {arts[name]['files']}"
-            f"; input {meta['input']}; program "
+            f"{arts[name]['save_s']:.2f} s, beside the other exports; the "
+            f"interpreter's imports {res['start_s']:.2f} s), {mb:.1f} MB "
+            f"{arts[name]['files']}; input {meta['input']}; program "
             f"{json.dumps(arts[name]['frame'])}; on {smi}")
-        torch.cuda.empty_cache()
 
-    # the plain artifact's reference: the run-dir serve of the same images
-    # in float32, under the library defaults the fresh interpreter has
-    # (cuDNN may take TF32 for a float32 conv)
-    plain_dir = os.path.join(tmp, "labels_f32")
-    torch.backends.cudnn.allow_tf32 = True
-    try:
-        serve.main([*run_args, "--input", few, "--output", plain_dir,
-                    "--raw-output", "--no-fast"])
-    finally:
-        torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
 
     out_dirs = {n: os.path.join(tmp, f"labels_art_{n}") for n in arts}
@@ -4380,18 +4492,35 @@ def msc_artifact_phase(tmp: str, msc: dict, dev, smi: str,
         os.symlink(os.path.join(img_dir, n), os.path.join(few, n))
     run_args = ["pascal_group", "final-group", "--results-root", tmp,
                 "--batch", str(B), "--workers", "4"]
-    arts = {}
-    for name, flags in ARTIFACTS.items():
-        path = os.path.join(tmp, f"msc_artifact_{name}")
-        spans = {}
-        restore = time_exports(spans)
-        t0 = time.perf_counter()
+    paths = {name: os.path.join(tmp, f"msc_artifact_{name}") for name in
+             ARTIFACTS}
+    # the plain artifact's reference, made while the exports run: the
+    # run-dir serve of the same images in float32, under the library
+    # defaults the fresh interpreter has (cuDNN may take TF32 for a
+    # float32 conv)
+    plain_dir = os.path.join(tmp, "labels_msc_f32")
+
+    def plain_serve():
+        torch.backends.cudnn.allow_tf32 = True
         try:
-            rec = serve.main([*run_args, "--input", few, "--export", path,
-                              *flags])
+            serve.main([*run_args, "--input", few, "--output", plain_dir,
+                        "--raw-output", "--no-fast"])
         finally:
-            restore()
-        cli_s = time.perf_counter() - t0
+            torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    exported = export_artifacts({
+        name: [*run_args, "--input", few, "--export", paths[name], *flags]
+        for name, flags in ARTIFACTS.items()}, meanwhile=plain_serve)
+    log(f"msc artifact: the {len(ARTIFACTS)} exports, each in a fresh "
+        f"interpreter, all started together, took "
+        f"{time.perf_counter() - t0:.1f} s (the float32 run-dir serve "
+        f"of their reference labels beside them)")
+    arts = {}
+    for name in ARTIFACTS:
+        path, res = paths[name], exported[name]
+        rec, cli_s = res["record"], res["cli_s"]
+        spans = {k: [res[k]] for k in ("export_serving", "save_artifact")}
         want = [None if name == "dynamic_batch" else B, PASCAL_EVAL,
                 PASCAL_EVAL, 3]
         if rec["input"] != want:
@@ -4404,17 +4533,10 @@ def msc_artifact_phase(tmp: str, msc: dict, dev, smi: str,
                           frame=program_frame(path))
         log(f"msc artifact {name}: serve --export {cli_s:.2f} s "
             f"(export_serving {arts[name]['export_s']:.2f} s, save_artifact "
-            f"{arts[name]['save_s']:.2f} s), {mb:.1f} MB; program "
-            f"{json.dumps(arts[name]['frame'])}; on {smi}")
-        torch.cuda.empty_cache()
+            f"{arts[name]['save_s']:.2f} s, beside the other exports; the "
+            f"interpreter's imports {res['start_s']:.2f} s), {mb:.1f} MB; "
+            f"program {json.dumps(arts[name]['frame'])}; on {smi}")
 
-    plain_dir = os.path.join(tmp, "labels_msc_f32")
-    torch.backends.cudnn.allow_tf32 = True
-    try:
-        serve.main([*run_args, "--input", few, "--output", plain_dir,
-                    "--raw-output", "--no-fast"])
-    finally:
-        torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
 
     out_dirs = {n: os.path.join(tmp, f"labels_msc_art_{n}") for n in arts}
@@ -6582,11 +6704,22 @@ def analysis_phase(tmp: str, run_name: str, phase: str, dev,
         restore = hold_part_pass(pool, per_image)
         try:
             for name, mod, argv in clis:
+                # entered with the library defaults (TF32 on): each CLI
+                # turns TF32 off for its forwards and restores the flags
+                torch.backends.cuda.matmul.allow_tf32 = True
+                torch.backends.cudnn.allow_tf32 = True
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 out[name] = mod.main(argv)
                 torch.cuda.synchronize()
                 seconds[name] = round(time.perf_counter() - t0, 2)
+                flags = (torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.allow_tf32)
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.backends.cudnn.allow_tf32 = False
+                if flags != (True, True):
+                    raise AssertionError(f"analysis {name} left the TF32 "
+                                         f"flags at {flags}")
                 log(f"analysis: {name} {' '.join(argv)}: {seconds[name]} s")
                 torch.cuda.empty_cache()
         finally:
@@ -6671,6 +6804,363 @@ def analysis_phase(tmp: str, run_name: str, phase: str, dev,
                 medians=summary, counts=counts, phase_seconds=secs)
 
 
+# ---------------------------------------------------------------------------
+# checkpoint conversion and the DeepLab-family models
+# ---------------------------------------------------------------------------
+JAX_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "torch_fixtures", "jax_ckpt")
+EM_SIDE = 512                 # the fixture's EM frames
+# the flagship's group config rebound per model: the served bank stays 228 x
+# 64 over 19 classes (one scale for the bottleneck add-on, whose output is
+# the prototypes' depth)
+FAMILY = {
+    "vgg16_multiscale": (
+        "construct_PPNet_Group.base_architecture = "
+        "'deeplabv2_vgg16_multiscale'",
+        "deeplabv2_vgg16_features_multiscale.deeplab_n_features = 64"),
+    "v3_multiscale": (
+        "construct_PPNet_Group.base_architecture = "
+        "'deeplabv3_resnet101_multiscale'",
+        "deeplabv3_resnet101_features_multiscale.deeplab_n_features = 64"),
+    "multiscaleplus": (
+        "construct_PPNet_Group.base_architecture = "
+        "'deeplabv2_resnet101_multiscaleplus'",
+        "deeplabv2_resnet101_features_multiscaleplus.deeplab_n_features = "
+        "64"),
+    "bottleneck": ("construct_PPNet_Group.add_on_layers_type = 'bottleneck'",
+                   "PPNetMultiScale.num_scales = 1"),
+    "scale_head_concat": (
+        "construct_PPNet_Group.scale_head_type = 'concat'",),
+}
+FAMILY_STEPS = 2              # joint micro-steps of the VGG16 model
+REFERENCE_MODULES = {"PPNet": ("segmentation.model.model_multiscale_group",
+                               "PPNetMultiScale"),
+                     "Features": ("segmentation.utils", "MSC")}
+REFERENCE_BACKBONE = "deeplab_pytorch.libs.models.deeplabv2_multiscale"
+
+
+def reference_pickle(model, spec, path: str) -> None:
+    """``model`` saved as the reference's ``torch.save(ppnet)`` holds it: a
+    module tree of classes from the reference's packages, which the
+    loading side lacks (``segmentation.model.model_multiscale_group.
+    PPNetMultiScale``, ``segmentation.utils.MSC``, the backbone's under
+    ``deeplab_pytorch``), each with ``nn.Module``'s state and its
+    parameters and persistent buffers, the constant ``ones`` bank and the
+    attributes the reference keeps (``num_scales``,
+    ``scale_num_prototypes``, ``num_groups``, ``prototype_class_identity``,
+    ``epsilon``).  The stand-in modules exist only while it is saved."""
+    import types
+    made = []
+
+    def cls_of(mod):
+        modname, name = REFERENCE_MODULES.get(
+            type(mod).__name__, (REFERENCE_BACKBONE, type(mod).__name__))
+        parts = modname.split(".")
+        for i in range(1, len(parts) + 1):
+            pkg = ".".join(parts[:i])
+            if pkg not in sys.modules:
+                sys.modules[pkg] = types.ModuleType(pkg)
+                made.append(pkg)
+        module = sys.modules[modname]
+        if not hasattr(module, name):
+            setattr(module, name, type(name, (torch.nn.Module,),
+                                       {"__module__": modname}))
+        return getattr(module, name)
+
+    state = set(torch.nn.Module().__dict__)
+
+    def clone(mod):
+        new = object.__new__(cls_of(mod))
+        new.__dict__.update({k: v for k, v in mod.__dict__.items()
+                             if k in state})
+        new.__dict__["_buffers"] = {
+            k: v for k, v in mod._buffers.items()
+            if k not in mod._non_persistent_buffers_set}
+        new.__dict__["_non_persistent_buffers_set"] = set()
+        new.__dict__["_modules"] = {k: clone(c) for k, c in
+                                    mod._modules.items() if c is not None}
+        return new
+
+    try:
+        top = clone(model.cpu())
+        top._parameters["ones"] = torch.nn.Parameter(
+            torch.ones_like(model.prototype_vectors), requires_grad=False)
+        top.num_scales = spec.num_scales
+        top.scale_num_prototypes = dict(enumerate(spec.scale_bounds))
+        top.num_groups = spec.num_groups
+        top.prototype_class_identity = torch.from_numpy(spec.class_identity)
+        top.epsilon = EPSILON
+        torch.save(top, path)
+    finally:
+        for pkg in made:
+            sys.modules.pop(pkg, None)
+
+
+def serve_family(tmp: str, name: str, img_dir: str, dev, smi: str,
+                 size=None, phase: str = "push_final",
+                 check: bool = True) -> dict:
+    """Run ``name`` at ``phase`` through ``serve.main`` in bf16 over the
+    images of ``img_dir`` (launches from zero); with ``check``, its labels
+    against the plain path where decided beyond fp32 rounding
+    (``decided_labels``) and the ms of a resident batch (the fast path's
+    forward and K3, CUDA events)."""
+    from scaleprotoseg_torch.model_loading import resolve_checkpoint
+    size = size or (HEIGHT, WIDTH)
+    out_dir = os.path.join(tmp, f"labels_{name}")
+    kernels.reset_launch_counts()
+    rec = serve.main([name, phase, "--input", img_dir, "--output", out_dir,
+                      "--batch", str(B), "--raw-output", "--results-root",
+                      tmp, "--workers", "2"])
+    counts = kernels.launch_counts()
+    if not check:
+        return dict(record=rec, counts=counts)
+    names = sorted(os.listdir(img_dir))
+    model, spec = load_model(os.path.join(tmp, name), resolve_checkpoint(
+        os.path.join(tmp, name), phase), dtype=torch.bfloat16, fast=True,
+        device=dev)
+    x = torch.from_numpy(np.stack([np.load(os.path.join(img_dir, n))
+                                   for n in names[:B]])).to(dev)
+    mean = torch.tensor(IMAGENET_MEAN, device=dev)
+    std = torch.tensor(IMAGENET_STD, device=dev)
+    xn = ((x.float() / 255.0 - mean) / std).to(torch.bfloat16)
+    with torch.inference_mode():
+        ms = time_ms(lambda: kernels.fused_upsample_argmax(
+            model.fast_logits(xn), *size), warmup=1, iters=3)
+    kernel_head, aspp_k2 = model.kernel_head, \
+        model.aspp is not None and model.aspp.kernel_path and \
+        model.aspp.c0.weight.shape[1] >= KERNEL_MIN_C
+    lg = plain_labels(model).logits(xn)
+    head_err = None
+    if kernel_head:       # K1's own rounding, as serve_checkpoint gates it
+        with torch.inference_mode():
+            kw = head_kw(model)
+            head_err = logit_rounding(
+                model.conv_features(xn), model.prototypes(),
+                kw.pop("last_layer"), spec, **kw,
+                units=PROTO_DISTANCE_ERR)[0].amax(-1)
+    want = upsample_argmax_plain(lg, *size).cpu().numpy()
+    sure = decided_labels(lg, *size, head_err).cpu().numpy()
+    got = np.stack([np.load(os.path.join(out_dir, n)) for n in names[:B]])
+    same = got == want
+    decided = float(same[sure].mean()) if sure.any() else 1.0
+    classes = len(np.unique(got))
+    del model
+    torch.cuda.empty_cache()
+    return dict(record=rec, counts=counts, ms=ms, agreement=float(
+        same.mean()), decided_agreement=decided, decided_share=float(
+        sure.mean()), classes=classes, kernel_head=kernel_head,
+        aspp_k2=aspp_k2, prototypes=spec.num_prototypes)
+
+
+def family_steps(run: str, dev, smi: str) -> dict:
+    """``FAMILY_STEPS`` joint micro-steps (the group phase's full joint:
+    backbone, ASPP, add-on, prototypes and heads) of the model of ``run``
+    in the bf16 recipe, batch 2 at 513 x 513: each loss finite, the
+    parameters moved (each trainable label's first tensor)."""
+    from scaleprotoseg_torch.train.optim import (PhaseOptimizer,
+                                                 label_of_path, phase_groups,
+                                                 poly_schedule)
+    from scaleprotoseg_torch.train.state import TrainState
+    from scaleprotoseg_torch.train.steps import LossWeights, make_train_step
+    model, _ = load_model(run, os.path.join(run, "checkpoints",
+                                            "push_final.pth"), device=dev)
+    model.set_compute_dtype(torch.bfloat16)
+    model.train()
+    hp = dict(warm_lr_add_on=2.5e-4, warm_lr_protos=2.5e-4, warm_wd=5e-4,
+              joint_lr_features=2.5e-5, joint_lr_add_on=2.5e-4,
+              joint_lr_protos=2.5e-4, joint_wd=5e-4, last_layer_lr=1e-5,
+              warm_lr_group=2.5e-4, joint_lr_group=2.5e-4)
+    groups = phase_groups("group", 1, hp, joint_last=False)
+    opt = PhaseOptimizer(model.named_parameters(), groups,
+                         schedule=poly_schedule(0.9, 10), iter_size=1,
+                         guard_nonfinite=50)
+    first = {}
+    for n, p in model.named_parameters():
+        first.setdefault(label_of_path(n), (n, p.detach().clone()))
+    step = make_train_step(LossWeights(crs_ent=1.0, l1=1e-4, group_ent=0.25),
+                           project_group_simplex=True)
+    rng = np.random.default_rng(31)
+    grid = np.repeat(np.repeat(rng.permutation(20).reshape(4, 5), 129, 0),
+                     103, 1)[:513, :513]
+    x = torch.from_numpy(rng.standard_normal((B, 513, 513, 3)).astype(
+        np.float32)).to(dev)
+    t = torch.from_numpy(np.stack([grid, np.roll(grid, 7, 1)]).astype(
+        np.int32)).to(dev)
+    state = TrainState(model, opt)
+    kernels.reset_launch_counts()
+    losses = []
+    for _ in range(FAMILY_STEPS):
+        losses.append(float(step(state, x, t)["loss"]))
+    counts = kernels.launch_counts()
+    params = dict(model.named_parameters())
+    moved = {label: not torch.equal(params[n].detach(), before)
+             for label, (n, before) in first.items() if label in groups}
+    log(f"family vgg16_multiscale: {FAMILY_STEPS} joint micro-steps (bf16 "
+        f"recipe, batch {B} at 513x513): losses {losses}; moved "
+        f"{json.dumps(moved)}; launches {counts} on {smi}")
+    if not all(np.isfinite(losses)) or not all(moved.values()):
+        raise AssertionError(f"family steps: losses {losses}, moved {moved}")
+    del model, opt, state
+    torch.cuda.empty_cache()
+    return dict(losses=losses, moved=moved, counts=counts)
+
+
+def conversion_phase(tmp: str, dev, smi: str) -> dict:
+    """Checkpoint conversion and the DeepLab-family models on the card:
+
+    1. the flagship's seeded weights (``write_run``) pickled as the
+       reference's whole module (``reference_pickle``) and converted by
+       ``convert_checkpoint.main(["reference", ..., "--config",
+       "group_scaleproto_cityscapes"])`` in this interpreter, served in
+       bf16 with K1-K3 at 1024 x 2048: labels equal to the port-written
+       run's where decided (``decided_labels``);
+    2. the committed JAX ``.ckpt`` fixture (``tools/make_jax_ckpt_fixture
+       .py``, EM's UNet-ASPP) read by ``checkpoints.jax_ckpt`` with no
+       msgpack, flax or JAX imported, served at 512 x 512: its logits
+       equal to its ``export-torch`` twin's, bit for bit;
+    3. each DeepLab-family model of ``FAMILY`` served at full width, its
+       labels against the plain path, its ms a batch and its K1 / K3
+       launches (K1 none with the scale head: its head is the plain one),
+       and two joint micro-steps of the VGG16 model."""
+    from scaleprotoseg_torch import convert_checkpoint
+    t0 = time.perf_counter()
+    img_dir = os.path.join(tmp, "conversion_images")
+    os.makedirs(img_dir)
+    rng = np.random.default_rng(41)
+    for i in range(B):
+        np.save(os.path.join(img_dir, f"frame_{i}.npy"), rng.integers(
+            0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8))
+    out = {}
+
+    # 1. a reference pickle of the flagship, converted and served
+    run = write_run(tmp, seed=17, dev=dev)
+    sd, meta = load_checkpoint(os.path.join(run, "checkpoints",
+                                            "push_final"))
+    spec = ProtoSpec.from_meta(meta["spec"])
+    model, _ = construct_ppnet(
+        "group", "deeplabv2_resnet101_multiscale", (228, 64, 1, 1), 19,
+        bindings=parse_config(CONFIG), spec=spec)
+    model.load_state_dict(sd)
+    pkl = os.path.join(tmp, "final-group.pth")
+    reference_pickle(model, spec, pkl)
+    del model, sd
+    mb = os.path.getsize(pkl) / 2 ** 20
+    t1 = time.perf_counter()
+    convert_checkpoint.main([
+        "reference", pkl, os.path.join(tmp, "reference_run", "checkpoints",
+                                       "final-group.pth"),
+        "--config", "group_scaleproto_cityscapes"])
+    convert_s = time.perf_counter() - t1
+    served = serve_family(tmp, "reference_run", img_dir, dev, smi,
+                          phase="final-group")
+    serve_family(tmp, "city_flagship", img_dir, dev, smi, check=False)
+    names = sorted(os.listdir(img_dir))
+    a, b = [np.stack([np.load(os.path.join(tmp, f"labels_{r}", n))
+                      for n in names])
+            for r in ("reference_run", "city_flagship")]
+    log(f"conversion: the flagship pickled as the reference's module "
+        f"({mb:.1f} MB), converted by convert_checkpoint reference in "
+        f"{convert_s:.2f} s, served: launches {served['counts']}; labels "
+        f"equal to the port-written run's on {100 * float((a == b).mean())}"
+        f"% of pixels; against the plain path on "
+        f"{100 * served['decided_agreement']:.4f}% of the "
+        f"{100 * served['decided_share']:.3f}% decided; {served['ms']:.2f} "
+        f"ms a batch (CUDA events, median of 3); on {smi}")
+    for name in SERVING_KERNELS:
+        if served["counts"][name] < 2:
+            raise AssertionError(f"conversion: {name} launched "
+                                 f"{served['counts'][name]} times")
+    if not (a == b).all() or served["decided_agreement"] < 0.999:
+        raise AssertionError(f"conversion: labels {float((a == b).mean())}"
+                             f", {served['decided_agreement']}")
+    out["reference"] = dict(served, convert_s=convert_s, pickle_mb=mb)
+
+    # 2. the JAX package's .ckpt, read without msgpack, served
+    import importlib.util
+    import shutil
+    frames = os.path.join(tmp, "em_frames")
+    os.makedirs(frames)
+    for i in range(B):
+        np.save(os.path.join(frames, f"frame_{i}.npy"), rng.integers(
+            0, 256, (EM_SIDE, EM_SIDE, 3), dtype=np.uint8))
+    for run_name, files in (("jax_em", ("final-group.ckpt",
+                                        "final-group.ckpt.json")),
+                            ("jax_em_twin", ("final-group_twin.pth",
+                                             "final-group.ckpt.json"))):
+        os.makedirs(os.path.join(tmp, run_name, "checkpoints"))
+        shutil.copyfile(os.path.join(JAX_FIXTURE, "config.gin"),
+                        os.path.join(tmp, run_name, "config.gin"))
+        for f in files:
+            shutil.copyfile(os.path.join(JAX_FIXTURE, f), os.path.join(
+                tmp, run_name, "checkpoints", f.replace("_twin", "")))
+    jax_served = serve_family(tmp, "jax_em", frames, dev, smi,
+                              size=(EM_SIDE, EM_SIDE), phase="final-group")
+    x = torch.from_numpy(np.stack([np.load(os.path.join(frames, n)) for n
+                                   in sorted(os.listdir(frames))])).to(dev)
+    mean = torch.tensor(IMAGENET_MEAN, device=dev)
+    std = torch.tensor(IMAGENET_STD, device=dev)
+    xn = ((x.float() / 255.0 - mean) / std).to(torch.bfloat16)
+    logits = {}
+    for run_name in ("jax_em", "jax_em_twin"):
+        m, _ = load_model(os.path.join(tmp, run_name), os.path.join(
+            tmp, run_name, "checkpoints", "final-group.ckpt"),
+            dtype=torch.bfloat16, fast=True, device=dev)
+        with torch.inference_mode():
+            logits[run_name] = m.fast_logits(xn)
+    foreign = sorted(n for n in sys.modules if n.split(".")[0] in (
+        "msgpack", "flax", "jax", "jaxlib"))
+    have_msgpack = importlib.util.find_spec("msgpack") is not None
+    equal = torch.equal(logits["jax_em"], logits["jax_em_twin"])
+    log(f"conversion: the JAX .ckpt fixture (EM's UNet-ASPP at base 4, 24 x 64 bank) "
+        f"served from its run directory at {EM_SIDE}x{EM_SIDE}: launches "
+        f"{jax_served['counts']}, labels against the plain path on "
+        f"{100 * jax_served['decided_agreement']:.4f}% of the decided; its "
+        f"logits equal to its export-torch twin's: {equal}; msgpack "
+        f"installed here: {have_msgpack}; msgpack / flax / JAX modules "
+        f"imported: {foreign}; on {smi}")
+    if not equal or foreign or jax_served["counts"]["proto"] < 2 or \
+            jax_served["counts"]["upsample"] < 2 or \
+            jax_served["decided_agreement"] < 0.999:
+        raise AssertionError(f"conversion: the JAX fixture: {equal} "
+                             f"{foreign} {jax_served}")
+    out["jax_ckpt"] = jax_served
+
+    # 3. the DeepLab-family models at full width
+    family = {}
+    for i, (tag, lines) in enumerate(FAMILY.items()):
+        name = f"family_{tag}"
+        write_run(tmp, seed=50 + i, dev=dev,
+                  config=CONFIG + "\n".join(lines) + "\n", name=name)
+        r = serve_family(tmp, name, img_dir, dev, smi)
+        why = "" if r["kernel_head"] else " (K1 none: the scale head's " \
+            "head is the plain one, as the JAX package's fast_logits)"
+        log(f"family {tag}: served at {HEIGHT}x{WIDTH}, batch {B}, bf16: "
+            f"{r['ms']:.2f} ms a batch (CUDA events, forward + K3, median "
+            f"of 3); "
+            f"launches K1 {r['counts']['proto']}, K3 "
+            f"{r['counts']['upsample']}, K2 {r['counts']['aspp']}{why}; "
+            f"labels against the plain path on "
+            f"{100 * r['decided_agreement']:.4f}% of the "
+            f"{100 * r['decided_share']:.3f}% decided ({r['classes']} "
+            f"classes predicted); on {smi}")
+        want_k1 = 2 if r["kernel_head"] else 0
+        if (r["counts"]["proto"] < want_k1 or
+                (not r["kernel_head"] and r["counts"]["proto"]) or
+                r["counts"]["upsample"] < 2 or
+                (r["counts"]["aspp"] > 0) != r["aspp_k2"] or
+                r["decided_agreement"] < 0.999):
+            raise AssertionError(f"family {tag}: {r}")
+        family[tag] = r
+        if tag == "vgg16_multiscale":
+            family["vgg16_steps"] = family_steps(os.path.join(tmp, name),
+                                                 dev, smi)
+        shutil.rmtree(os.path.join(tmp, name))
+    out["family"] = family
+    out["phase_seconds"] = time.perf_counter() - t0
+    log(f"conversion: the phase took {out['phase_seconds']:.1f} s on {smi}")
+    return out
+
+
 def main() -> None:
     if sys.argv[1:] == ["coco-push-artifacts"]:
         return coco_push_artifacts()
@@ -6724,6 +7214,8 @@ def run_all(t_start: float, smi: str, server: ArtifactServer) -> None:
         ade = timed("ade", ade_phase, tmp, dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
         em = timed("em", em_phase, tmp, dev, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        conv = timed("conversion", conversion_phase, tmp, dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
         prep = timed("preprocess", preprocess_phase, tmp, dev, smi)
     quant, evals = served["quant"], served["evals"]
@@ -6788,7 +7280,16 @@ def run_all(t_start: float, smi: str, server: ArtifactServer) -> None:
                       "em_serving": em["serve"]["counts"][name],
                       "preprocess_training": prep["counts"][name],
                       "preprocess_eval": prep["eval_counts"][name],
-                      "preprocess_serving": prep["serve_counts"][name]}
+                      "preprocess_serving": prep["serve_counts"][name],
+                      "conversion_reference_serving":
+                          conv["reference"]["counts"][name],
+                      "conversion_jax_ckpt_serving":
+                          conv["jax_ckpt"]["counts"][name],
+                      **{f"family_{tag}_serving": r["counts"][name]
+                         for tag, r in conv["family"].items()
+                         if tag != "vgg16_steps"},
+                      "family_vgg16_training":
+                          conv["family"]["vgg16_steps"]["counts"][name]}
                for name in results}
     # the Pascal slice's own paths: K2's forward and backward in its
     # training, K1 and K3 in its test export and serving
@@ -6829,7 +7330,22 @@ def run_all(t_start: float, smi: str, server: ArtifactServer) -> None:
                         ("aspp", "preprocess_eval"),
                         ("upsample", "preprocess_eval"),
                         *((k, "preprocess_serving")
-                          for k in SERVING_KERNELS)):
+                          for k in SERVING_KERNELS),
+                        # this slice's: a converted reference pickle, the
+                        # JAX .ckpt fixture and the DeepLab-family models
+                        # (K1 none with the scale head, K2 only on
+                        # DeepLabV2's 'sum' / 'concat' ASPP)
+                        *((k, "conversion_reference_serving")
+                          for k in SERVING_KERNELS),
+                        *((k, "conversion_jax_ckpt_serving")
+                          for k in EM_PATH_KERNELS),
+                        *((k, f"family_{tag}_serving") for tag in FAMILY
+                          for k in ("upsample",) + (
+                              () if tag == "scale_head_concat"
+                              else ("proto",)) + (
+                              ("aspp",) if tag in ("bottleneck",
+                                                   "scale_head_concat")
+                              else ()))):
         if by_path[name][where] < 1:
             raise AssertionError(f"{name} never launched on {where}")
     # each kernel's launches in the main path of its slice: the training

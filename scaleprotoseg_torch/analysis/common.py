@@ -3,7 +3,12 @@
 The port of the JAX package's ``analysis/common.py``.  The model is loaded
 by ``model_loading.load_model`` in float32 without the kernel path, as the
 JAX package's analysis loads it, and runs on the device the CLI names
-(``cuda`` unless ``--device`` says otherwise).  Images are normalized on
+(``cuda`` unless ``--device`` says otherwise).  Every forward of the
+analysis (``make_distance_fn``, ``make_forward_fn``) runs under
+``float32_precision``: TF32 off for cuDNN's convolutions and for
+matmuls, the caller's setting back after it, as push's
+``float32_forward`` does; cuDNN would otherwise take TF32 for a float32
+conv.  Images are normalized on
 that device with the JAX package's float64 arithmetic, so the forward sees
 the same input bits.  The per-map work (activations, quantile masks) takes
 tensors on any device; ``quantile_map`` is the numpy form the plain part
@@ -12,6 +17,7 @@ pass and the tests use.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 from typing import Dict, List, Optional, Tuple
@@ -148,23 +154,42 @@ def load_image(img_dir: str, img_id: str, device) -> Tuple[np.ndarray,
     return img, normalize_image(img, device)
 
 
+@contextlib.contextmanager
+def float32_precision():
+    """TF32 off for matmuls and cuDNN convolutions inside the block; the
+    caller's two settings back on exit."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
 def make_distance_fn(model):
     """(H, W, 3) normalized image -> (H', W', P) distances of the fused
-    map (``PPNet.push_forward``), P = ``num_active_prototypes``."""
+    map (``PPNet.push_forward``), P = ``num_active_prototypes``; in
+    float32 without TF32."""
 
     @torch.no_grad()
     def distances(x: torch.Tensor) -> torch.Tensor:
-        return model.push_forward(x[None])[1][0]
+        with float32_precision():
+            return model.push_forward(x[None])[1][0]
 
     return distances
 
 
 def make_forward_fn(model):
-    """(H, W, 3) normalized image -> the model's eval output of batch 1."""
+    """(H, W, 3) normalized image -> the model's eval output of batch 1;
+    in float32 without TF32."""
 
     @torch.no_grad()
     def forward(x: torch.Tensor):
-        return model(x[None], train=False)
+        with float32_precision():
+            return model(x[None], train=False)
 
     return forward
 

@@ -15,7 +15,9 @@ package's ``quant_scales`` collection and the port's per-site buffers.
 
 A checkpoint on disk is ``<stem>.pth`` (the state dict) beside
 ``<stem>.ckpt.json`` (the spec sidecar the JAX package writes next to
-``<stem>.ckpt``).
+``<stem>.ckpt``).  ``load_checkpoint`` also reads a stem that exists only
+as the JAX package's msgpack ``<stem>.ckpt`` (``checkpoints.jax_ckpt``),
+carried here in memory; where both are present the ``.pth`` wins.
 """
 
 from __future__ import annotations
@@ -94,18 +96,24 @@ def ppnet_params_to_statedict(params: Dict, batch_stats: Optional[Dict],
                               ) -> Dict[str, np.ndarray]:
     """JAX param tree -> reference-named state dict (numpy values).
 
-    Carries what the port's ``PPNet`` holds: the backbone, the prototypes
-    and the plain or group head.  Other param subtrees (the scale head,
-    conv add-ons: modules not ported yet) are reported through ``log``
-    and not exported."""
+    Carries every subtree the port's ``PPNet`` holds: the backbone (its
+    ConvBN nodes, bare convs, the ASPP branches and the 'concat_plus'
+    ASPP's ``c{i}_pool`` Dense kernels (in, out) as Linears (out, in)),
+    the add-on's ``conv{i}`` as ``add_on_layers.{2i}`` (the reference's
+    Sequential puts an activation after each conv), the 'concat' scale
+    head's ``linear`` as ``scale_head.output_layer.linear_block.0``, the
+    prototypes and the plain or group head.  Any other subtree is named
+    through ``log`` and not exported."""
     sd: Dict[str, np.ndarray] = {}
     bb = params.get("backbone", {})
     bstats = (batch_stats or {}).get("backbone", {})
     _convbn_to_statedict({k: v for k, v in bb.items() if k != "aspp"},
                          bstats, sd, "features.base.")
     for branch, entry in bb.get("aspp", {}).items():
+        kernel = np.asarray(entry["kernel"])
         sd[f"features.base.aspp.{branch}.weight"] = \
-            np.asarray(entry["kernel"]).transpose(3, 2, 0, 1)
+            np.ascontiguousarray(kernel.T) if kernel.ndim == 2 else \
+            kernel.transpose(3, 2, 0, 1)
         if "bias" in entry:
             sd[f"features.base.aspp.{branch}.bias"] = \
                 np.asarray(entry["bias"])
@@ -116,7 +124,8 @@ def ppnet_params_to_statedict(params: Dict, batch_stats: Optional[Dict],
     if "last_layer" in params:
         sd["last_layer.weight"] = \
             np.ascontiguousarray(np.asarray(params["last_layer"]).T)
-    nonzero = spec.nonempty_classes
+    nonzero = spec.nonempty_classes if (
+        "last_layer_group" in params or "group_projection" in params) else ()
     if "last_layer_group" in params:
         g = spec.num_groups
         full = np.asarray(params["last_layer_group"])   # (C*G, C)
@@ -130,8 +139,20 @@ def ppnet_params_to_statedict(params: Dict, batch_stats: Optional[Dict],
             pc = spec.class_counts[c]
             sd[f"group_projection.{k}.weight"] = \
                 np.ascontiguousarray(gw[c, :, :pc], np.float32)
+    if "scale_head" in params:
+        lin = params["scale_head"]["linear"]
+        prefix = "scale_head.output_layer.linear_block.0."
+        sd[prefix + "weight"] = np.ascontiguousarray(
+            np.asarray(lin["kernel"]).T)
+        if "bias" in lin:
+            sd[prefix + "bias"] = np.asarray(lin["bias"])
+    addon = params.get("add_on_layers", {})
+    for name in sorted(addon, key=lambda n: int(n[len("conv"):])):
+        _conv_to_statedict(addon[name], sd,
+                           f"add_on_layers.{2 * int(name[len('conv'):])}.")
     handled = {"backbone", "prototype_vectors", "last_layer",
-               "last_layer_group", "group_projection"}
+               "last_layer_group", "group_projection", "scale_head",
+               "add_on_layers"}
     dropped = sorted(k for k in params if k not in handled)
     if dropped:
         log(f"export-torch: NOT exporting unrecognized param subtree(s) "
@@ -254,8 +275,24 @@ def save_checkpoint(stem: str, state_dict: Dict[str, np.ndarray],
         json.dump(meta, f, indent=2)
 
 
+def load_jax_checkpoint(path: str, log=print):
+    """(state dict of tensors, sidecar metadata) of the JAX package's
+    msgpack ``.ckpt`` at ``path``, carried by
+    ``ppnet_params_to_statedict`` (a checkpoint without a spec, the
+    backbone alone, carries no head)."""
+    from scaleprotoseg_torch.checkpoints import jax_ckpt
+    params, batch_stats, meta = jax_ckpt.load_checkpoint(path)
+    spec = spec_from_meta(meta["spec"]) if "spec" in meta else None
+    return to_tensors(ppnet_params_to_statedict(params, batch_stats, spec,
+                                                log=log)), meta
+
+
 def load_checkpoint(stem: str):
-    """(state dict of tensors, sidecar metadata) for ``<stem>``."""
+    """(state dict of tensors, sidecar metadata) for ``<stem>``: its
+    ``.pth`` and ``.ckpt.json``, or where no ``.pth`` exists, the JAX
+    package's ``<stem>.ckpt`` (``load_jax_checkpoint``)."""
+    if not os.path.exists(stem + ".pth") and os.path.exists(stem + ".ckpt"):
+        return load_jax_checkpoint(stem + ".ckpt")
     sd = torch.load(stem + ".pth", map_location="cpu", weights_only=True)
     with open(stem + ".ckpt.json") as f:
         meta = json.load(f)

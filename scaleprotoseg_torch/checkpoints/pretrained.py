@@ -16,9 +16,11 @@ and before ``train.start_checkpoint``:
 
   PRETRAINED_BACKBONE       a torchvision-layout ``.pth`` / ``.pt`` state
                             dict (read with ``weights_only=True``)
-  PRETRAINED_BACKBONE_CKPT  the port's own checkpoint stem (``.pth`` +
-                            ``.ckpt.json``): its ``features.base.*``
-                            tensors; a JAX msgpack ``.ckpt`` is refused
+  PRETRAINED_BACKBONE_CKPT  a checkpoint stem, the port's (``.pth`` +
+                            ``.ckpt.json``) or the JAX package's msgpack
+                            ``.ckpt`` (``checkpoints.jax_ckpt``, carried
+                            by ``convert.ppnet_params_to_statedict``): its
+                            ``features.base.*`` tensors
 
 A tensor whose shape differs from the model's is skipped with a log
 line, as the JAX package's merge skips it; a renamed key the model lacks
@@ -92,7 +94,7 @@ def _merge_into(model: torch.nn.Module, tensors: Mapping[str, torch.Tensor],
     return n
 
 
-def _read_state_dict(source: Union[str, torch.nn.Module]
+def read_state_dict(source: Union[str, torch.nn.Module]
                      ) -> Mapping[str, torch.Tensor]:
     if isinstance(source, torch.nn.Module):
         return source.state_dict()
@@ -111,7 +113,7 @@ def load_torch_backbone_into(model: torch.nn.Module,
                              log=print) -> torch.nn.Module:
     """Load a torchvision ResNet (a ``.pth`` path or a module) into the
     model's backbone in place; returns ``model``."""
-    converted = torchvision_resnet_to_backbone(_read_state_dict(source))
+    converted = torchvision_resnet_to_backbone(read_state_dict(source))
     n = _merge_into(model, converted, log)
     log(f"Loaded pretrained backbone weights from {source} ({n} of "
         f"{len(converted)} tensors)")
@@ -120,22 +122,22 @@ def load_torch_backbone_into(model: torch.nn.Module,
 
 def load_backbone_checkpoint_into(model: torch.nn.Module, path: str,
                                   log=print) -> torch.nn.Module:
-    """Copy the ``features.base.*`` tensors of the port's checkpoint at
-    ``path`` (a stem, or the stem's ``.pth`` / ``.ckpt``) into the model in
-    place; returns ``model``.  A JAX msgpack ``.ckpt`` is refused."""
-    from scaleprotoseg_torch.checkpoints.convert import load_checkpoint
+    """Copy the ``features.base.*`` tensors of the checkpoint at ``path``
+    (a stem, or the stem's ``.pth`` / ``.ckpt``): the port's ``.pth`` with
+    its ``.ckpt.json``, else the JAX package's msgpack ``.ckpt``, into the
+    model in place; returns ``model``."""
+    from scaleprotoseg_torch.checkpoints.convert import (load_checkpoint,
+                                                         load_jax_checkpoint)
     stem = os.path.splitext(path)[0] if path.endswith((".pth", ".ckpt")) \
         else path
-    if not (os.path.exists(stem + ".pth") and
-            os.path.exists(stem + ".ckpt.json")):
-        if os.path.exists(stem + ".ckpt") or os.path.exists(path):
-            raise NotImplementedError(
-                f"PRETRAINED_BACKBONE_CKPT {path}: the JAX package's "
-                "msgpack .ckpt is not read by the port yet; export it to "
-                "the port's .pth + .ckpt.json form")
-        raise FileNotFoundError(f"PRETRAINED_BACKBONE_CKPT {path}: no "
-                                f"{stem}.pth with its .ckpt.json sidecar")
-    sd, _ = load_checkpoint(stem)
+    if os.path.exists(stem + ".pth") and os.path.exists(stem + ".ckpt.json"):
+        sd, _ = load_checkpoint(stem)
+    elif os.path.exists(stem + ".ckpt"):
+        sd, _ = load_jax_checkpoint(stem + ".ckpt", log)
+    else:
+        raise FileNotFoundError(
+            f"PRETRAINED_BACKBONE_CKPT {path}: no {stem}.pth with its "
+            f".ckpt.json sidecar and no JAX {stem}.ckpt")
     n = _merge_into(model, {k: v for k, v in sd.items()
                             if k.startswith(PREFIX)}, log)
     log(f"Loaded pretrained backbone from {path} ({n} tensors)")

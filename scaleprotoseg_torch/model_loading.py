@@ -2,9 +2,11 @@
 
 A run directory holds ``config.gin`` (the experiment config) and
 ``checkpoints/<stage>.ckpt.json`` (the spec sidecar) beside
-``checkpoints/<stage>.pth`` (the reference-named state dict, as the JAX
-package's ``convert_checkpoint export-torch`` writes it).  The msgpack
-``.ckpt`` itself is not read.
+``checkpoints/<stage>.pth`` (the reference-named state dict, as the port
+and ``convert_checkpoint export-torch`` write it) or, for a run the JAX
+package trained, its msgpack ``checkpoints/<stage>.ckpt``, read by
+``checkpoints.jax_ckpt`` and carried in memory (the ``.pth`` wins where
+both exist).
 
 ``quant8='static'`` models calibrate their activation scales with
 ``calibrate_quant_scales`` before they serve.
@@ -111,9 +113,12 @@ def load_model(model_path: str, checkpoint_path: str,
     ``quant8=True`` runs the layer4/5 convs as dynamic w8a8 int8 and drops
     ``fast``, as the JAX package does; ``quant8='static'`` uses calibrated
     per-site scales (``calibrate_quant_scales``) and keeps ``fast``.
-    Serving only; the state dict is the same either way.  A U-Net
-    backbone (EM) refuses ``quant8`` by name; its trainable BN serves
-    with the running statistics."""
+    Serving only; the state dict is the same either way.  A backbone
+    without DeepLabV2's ResNet layers (the U-Nets, VGG16, DeepLabV3)
+    refuses ``quant8`` by name; the U-Nets' trainable BN serves with the
+    running statistics.  ``fast`` reaches K2 on DeepLabV2's 'sum' and
+    'concat' ASPP only (``takes_fast_aspp``), as the JAX package's
+    ``fast_aspp``."""
     if quant8 not in (False, True, "static"):
         raise ValueError(f"quant8 must be False, True or 'static', got "
                          f"{quant8!r}")
@@ -141,12 +146,8 @@ def load_model(model_path: str, checkpoint_path: str,
                 return value
         return default
 
-    arch = q("base_architecture")
-    if quant8 and not str(arch).startswith("deeplabv2_"):
-        raise ValueError(f"quant8 serving needs a DeepLabV2 backbone; got "
-                         f"{arch!r}")
     model, _ = construct_ppnet(
-        variant=variant, base_architecture=arch,
+        variant=variant, base_architecture=q("base_architecture"),
         prototype_shape=(spec.num_prototypes, spec.proto_depth, 1, 1),
         num_classes=spec.num_classes,
         prototype_activation_function=q("prototype_activation_function",
@@ -155,7 +156,7 @@ def load_model(model_path: str, checkpoint_path: str,
         scale_head_type=q("scale_head_type"), bindings=bindings, spec=spec,
         dtype=dtype, quant8=quant8)
     model.load_state_dict(sd, strict=True)
-    if model.aspp is not None:
+    if getattr(model.features.base, "takes_fast_aspp", False):
         model.aspp.fast = fast
     cast_convs(model, dtype)
     model.to(dev)

@@ -10,7 +10,11 @@ channels_last memory, where the NCHW <-> NHWC permutes the ASPP and the
 prototype head need are free views.
 
 ASPP (``aspp_mode='concat'``: rate r's F channels at ``[r*F, (r+1)*F)``;
-``'sum'``: branches summed):
+``'sum'``: branches summed; ``'concat_plus'``: 'concat' with each branch
+plus an image-level term, ``c{i}_pool``, a ``Linear(C, F)`` of the input's
+global average pool, the JAX package's reconstruction of the reference's
+missing ``DeepLabV2ScalePlus``; it always takes the plain form below, as
+the JAX package's fast path takes 'sum' and 'concat' only):
 
 - ``fast`` and bf16: ``kernels.aspp.aspp_trainable``, the JAX package's
   ``fused_aspp_trainable``: the K2 kernel forward at C >= 512 (the
@@ -31,11 +35,13 @@ from typing import Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from scaleprotoseg_torch.kernels.aspp import (KERNEL_MIN_C, aspp_trainable,
                                               pack_weights, shifted_sum)
 from scaleprotoseg_torch.models.layers import (ConvBN, QuantConvBN,
                                                WeightCache, max_pool_ceil)
+from scaleprotoseg_torch.ops import as_dtype
 
 Quant8 = Union[bool, str]       # False | True (dynamic) | "static"
 
@@ -99,27 +105,39 @@ class ASPPBranch(nn.Module):
 
 
 class ASPP(nn.Module):
-    """Parallel 3x3 atrous branches ``c0..c{R-1}`` in 'sum' or 'concat'
-    mode; see the module docstring for the three forms."""
+    """Parallel 3x3 atrous branches ``c0..c{R-1}`` in 'sum', 'concat' or
+    'concat_plus' mode (with the image-level ``c{i}_pool`` Linears); see
+    the module docstring for the forms."""
 
     def __init__(self, cin: int, n_out: int, rates: Sequence[int],
                  mode: str, fast: bool = False):
         super().__init__()
-        if mode not in ("sum", "concat"):
+        if mode not in ("sum", "concat", "concat_plus"):
             raise ValueError(f"Unknown ASPP mode: {mode}")
         self.rates = tuple(rates)
         self.mode = mode
         self.fast = fast
         for i, r in enumerate(self.rates):
             self.add_module(f"c{i}", ASPPBranch(cin, n_out, r))
+        if mode == "concat_plus":
+            for i in range(len(self.rates)):
+                pool = nn.Linear(cin, n_out)
+                nn.init.normal_(pool.weight, std=0.01)
+                nn.init.zeros_(pool.bias)
+                self.add_module(f"c{i}_pool", pool)
         self._packed = WeightCache()      # K2's weight stack, built once
+
+    @property
+    def kernel_path(self) -> bool:
+        """Whether ``fast`` can take K2: 'sum' and 'concat' only."""
+        return self.fast and self.mode != "concat_plus"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xh = x.permute(0, 2, 3, 1).contiguous()        # NHWC
         branches = self._branches()
         weights = [b.hwio() for b in branches]
         biases = [b.bias for b in branches]
-        if self.fast and x.dtype == torch.bfloat16:
+        if self.kernel_path and x.dtype == torch.bfloat16:
             packed = None
             if "k2_wstack" in self._buffers:       # held for export
                 packed = (self.k2_wstack, self.k2_bias)
@@ -132,7 +150,20 @@ class ASPP(nn.Module):
             y = shifted_sum(xh, weights, biases, self.rates)
         if self.mode == "sum":
             y = y.reshape(*y.shape[:-1], len(self.rates), -1).sum(-2)
+        elif self.mode == "concat_plus":
+            y = self._plus(xh, y)
         return y.permute(0, 3, 1, 2)
+
+    def _plus(self, xh: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Each branch of ``y`` (B, H, W, R*F) plus its ``c{i}_pool`` of the
+        global average pool of ``xh``, computed in the input's dtype."""
+        gap = xh.mean((1, 2))
+        pools = [getattr(self, f"c{i}_pool") for i in range(len(self.rates))]
+        ctx = torch.stack([F.linear(gap, as_dtype(p.weight, gap.dtype),
+                                    as_dtype(p.bias, gap.dtype))
+                           for p in pools], 1)          # (B, R, F)
+        y = y.reshape(*y.shape[:-1], len(self.rates), -1) + ctx[:, None, None]
+        return y.flatten(-2)
 
     def _branches(self) -> list:
         return [getattr(self, f"c{i}") for i in range(len(self.rates))]
@@ -145,7 +176,7 @@ class ASPP(nn.Module):
     def packed_buffers(self) -> dict:
         """K2's weight stack and bias, for ``packed_as_buffers`` (none
         unless ``fast`` and the input depth reaches ``KERNEL_MIN_C``)."""
-        if not self.fast or self.c0.weight.shape[1] < KERNEL_MIN_C:
+        if not self.kernel_path or self.c0.weight.shape[1] < KERNEL_MIN_C:
             return {}
         wstack, bias = self._pack()
         return {"k2_wstack": wstack, "k2_bias": bias}
@@ -159,6 +190,7 @@ class DeepLabV2(nn.Module):
     'concat'.  ``fast_gradconv``: see ``set_fast_gradconv``."""
 
     trainable_bn = False          # every BN frozen (``FrozenBatchNorm2d``)
+    takes_fast_aspp = True        # ``fast`` routes the ASPP through K2
 
     def __init__(self, n_out: int, n_blocks: Tuple[int, ...] = (3, 4, 23, 3),
                  atrous_rates: Tuple[int, ...] = (6, 12, 18, 24),

@@ -19,6 +19,7 @@ one of two ways:
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import (Any, Callable, Dict, Iterable, Iterator, Optional,
                     Sequence)
 
@@ -125,6 +126,14 @@ class ConvBN(nn.Module):
         return F.relu(x, inplace=True) if self.relu else x
 
 
+def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
+    """flax's default kernel init: a normal of variance 1 / fan_in
+    truncated at two standard deviations."""
+    fan_in = math.prod(weight.shape[1:])
+    std = math.sqrt(1.0 / fan_in) / .87962566103423978
+    return nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std)
+
+
 class HeadConv(nn.Conv2d):
     """``nn.Conv2d`` that computes in ``compute_dtype`` (None: its
     weight's), parameters untouched, as ``ConvBN`` does: the U-Net's 1x1
@@ -229,9 +238,11 @@ class QuantConvBN(ConvBN):
         return {"int8_wt": wt, "int8_sw": sw}
 
 
-def max_pool_ceil() -> nn.MaxPool2d:
-    """3x3 stride-2 pad-1 ceil-mode max pool (the stem's)."""
-    return nn.MaxPool2d(3, 2, 1, ceil_mode=True)
+def max_pool_ceil(window: int = 3, stride: int = 2,
+                  padding: int = 1) -> nn.MaxPool2d:
+    """Ceil-mode max pool, 3x3 stride-2 pad-1 by default (the stem's);
+    the JAX package's ``max_pool_ceil(x, window, strides, padding)``."""
+    return nn.MaxPool2d(window, stride, padding, ceil_mode=True)
 
 
 def cast_convs(module: nn.Module, dtype: torch.dtype) -> nn.Module:

@@ -1,9 +1,11 @@
 """PPNet: the prototype segmentation head over a feature backbone.
 
 Pipeline (the public tensors are NHWC, as in the JAX package):
-  backbone (+ the optional MSC input pyramid) -> add-on (sigmoid) ->
-  per-scale L2 prototype distances -> log activation -> last linear
-  layer, or per-class group projection + exp + group last layer.
+  backbone (+ the optional MSC input pyramid) -> add-on (a sigmoid, or
+  the reference's 1x1-conv stacks) -> per-scale L2 prototype distances
+  (with the optional scale head, coarse to fine) -> log activation ->
+  last linear layer, or per-class group projection + exp + group last
+  layer.
 
 The MSC input pyramid (``msc_scales``, Pascal's ``(0.5, 0.75)``) runs the
 backbone on the image and on each ``resize_bilinear_factor(x, p)``, and
@@ -18,7 +20,9 @@ Parameters carry the reference's names and layouts, so a state dict from
 ``features.base.*``, ``prototype_vectors`` (P, D, 1, 1),
 ``last_layer.weight`` (C, P), or per non-empty class
 ``group_projection.{k}.weight`` (G, Pc) and ``last_layer_group.weight``
-(C, G * #non-empty).  ``group_weights`` scatters the packed group weights
+(C, G * #non-empty), the add-on's convs ``add_on_layers.{2i}.*`` and the
+'concat' scale head's ``scale_head.output_layer.linear_block.0.*``.
+``group_weights`` scatters the packed group weights
 into the dense (C, G, Pc_max) / (C*G, C) layouts the head computes with.
 """
 
@@ -30,11 +34,13 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from scaleprotoseg_torch.kernels.proto import (KERNEL_TABLES, ProtoHead,
                                                fused_proto_logits,
                                                group_activations, pack_head)
-from scaleprotoseg_torch.models.layers import WeightCache, set_compute_dtype
+from scaleprotoseg_torch.models.layers import (WeightCache, lecun_normal_,
+                                               set_compute_dtype)
 from scaleprotoseg_torch.ops import as_dtype
 from scaleprotoseg_torch.ops.prototype import (distance_to_similarity,
                                                scale_l2_distances)
@@ -82,26 +88,122 @@ class Features(nn.Module):
 
 
 class AddOnLayers(nn.Module):
-    """Backbone-to-prototype adapter.  Every shipped config uses
-    'deeplab_simple', a plain sigmoid, entered in the compute dtype (the
-    ASPP hands float32 on); the reference's 1x1-conv stacks
-    ('bottleneck', 'regular') are not ported yet."""
+    """Backbone-to-prototype adapter (the reference's
+    ``model_multiscale.py:174-218``), entered in the compute dtype (the
+    ASPP hands float32 on), as the JAX package's ``AddOnLayers``:
 
-    def __init__(self, add_on_type: str, dtype: torch.dtype = torch.float32):
+    - 'deeplab_simple' (every shipped config): a plain sigmoid;
+    - 'bottleneck': pairs of 1x1 convs halving the channels down to the
+      prototype depth, ReLU after each conv but the last, which takes a
+      sigmoid; 'bottleneck_pool' first a 3x3 conv of stride
+      ``bottleneck_stride`` and a ReLU;
+    - 'regular': 1x1 conv, ReLU, 1x1 conv, sigmoid.
+
+    The convs are the reference's ``add_on_layers.{2i}`` (its Sequential
+    puts an activation after each), kaiming-normal fan-out with zero
+    bias, each computing in the compute dtype ``dtype``, its parameters
+    untouched (serving casts them, ``layers.cast_convs``)."""
+
+    def __init__(self, add_on_type: str, in_channels: int = 0,
+                 proto_depth: int = 0,
+                 bottleneck_stride: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        if add_on_type != "deeplab_simple":
-            raise NotImplementedError(
-                f"add-on {add_on_type!r} is not ported yet")
         self.dtype = dtype
+        convs = []                      # (cin, cout, kernel, stride)
+        self.acts = []                  # after each conv: 'relu' | 'sigmoid'
+        if add_on_type.startswith("bottleneck"):
+            if add_on_type == "bottleneck_pool":
+                if not bottleneck_stride:
+                    raise ValueError("add-on 'bottleneck_pool' needs "
+                                     "PPNet(MultiScale).bottleneck_stride")
+                convs.append((in_channels, in_channels, 3,
+                              bottleneck_stride))
+                self.acts.append("relu")
+            elif add_on_type != "bottleneck":
+                raise ValueError(f"Unknown add-on type {add_on_type!r}")
+            cur, cin, first = in_channels, in_channels, True
+            while cur > proto_depth or first:
+                first = False
+                out = max(proto_depth, cur // 2)
+                convs += [(cin, out, 1, 1), (out, out, 1, 1)]
+                self.acts += ["relu",
+                              "relu" if out > proto_depth else "sigmoid"]
+                cin, cur = out, cur // 2
+        elif add_on_type == "regular":
+            convs = [(in_channels, proto_depth, 1, 1),
+                     (proto_depth, proto_depth, 1, 1)]
+            self.acts = ["relu", "sigmoid"]
+        elif add_on_type != "deeplab_simple":
+            raise ValueError(f"Unknown add-on type {add_on_type!r}")
+        for i, (cin, cout, k, stride) in enumerate(convs):
+            conv = nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2)
+            nn.init.kaiming_normal_(conv.weight, mode="fan_out",
+                                    nonlinearity="relu")
+            nn.init.zeros_(conv.bias)
+            self.add_module(str(2 * i), conv)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.sigmoid(as_dtype(x, self.dtype))
+        dt = self.dtype
+        x = as_dtype(x, dt)
+        if not self.acts:
+            return torch.sigmoid(x)
+        for i, act in enumerate(self.acts):
+            conv = getattr(self, str(2 * i))
+            x = F.conv2d(x, as_dtype(conv.weight, dt), as_dtype(conv.bias, dt),
+                         conv.stride, conv.padding)
+            x = torch.relu(x) if act == "relu" else torch.sigmoid(x)
+        return x
+
+
+class ScaleHead(nn.Module):
+    """The reference's ``WeightedAgg`` (``scale_head.py``), the JAX
+    package's ``ScaleHead``: a scale's features take in the previous
+    (coarser) scale's activations through their prototypes, ``a @ p``:
+    'sum' ``(x + a @ p) / 2``, 'mult' ``sqrt(x * (a @ p))``, 'concat'
+    ``sigmoid(Linear(2D, D)([x, a @ p]))`` (the reference's
+    ``output_layer.linear_block.0``, computed in the compute dtype)."""
+
+    def __init__(self, output_type: str, channel_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if output_type not in ("sum", "mult", "concat"):
+            raise ValueError(f"Unknown scale head type {output_type!r}")
+        self.output_type = output_type
+        self.dtype = dtype
+        if output_type == "concat":
+            linear = nn.Linear(2 * channel_dim, channel_dim)
+            lecun_normal_(linear.weight)
+            nn.init.zeros_(linear.bias)
+            self.output_layer = nn.Module()
+            self.output_layer.linear_block = nn.Sequential(linear,
+                                                           nn.Sigmoid())
+
+    def forward(self, x: torch.Tensor, activations: torch.Tensor,
+                prototypes: torch.Tensor) -> torch.Tensor:
+        weight_sum = activations @ prototypes
+        if self.output_type == "sum":
+            return (x + weight_sum) / 2.0
+        if self.output_type == "mult":
+            return torch.sqrt(x * weight_sum)
+        joint = torch.promote_types(x.dtype, weight_sum.dtype)
+        h = torch.cat([x.to(joint), weight_sum.to(joint)], dim=-1)
+        linear = self.output_layer.linear_block[0]
+        dt = self.dtype
+        return torch.sigmoid(F.linear(as_dtype(h, dt),
+                                      as_dtype(linear.weight, dt),
+                                      as_dtype(linear.bias, dt)))
 
 
 class PPNet(nn.Module):
     """Prototype segmentation model (single-scale, multi-scale and grouped
     variants of the reference in one module, with the optional MSC input
-    pyramid).  The scale head is not part of this port yet."""
+    pyramid and the optional scale head).
+
+    ``kernel_head`` (decided here, at construction): ``fast_logits`` runs
+    K1, which computes the log activation of scale-free distances; with a
+    scale head or another activation the head is the plain one, as the
+    JAX package's ``fast_logits`` leaves its Pallas head out there."""
 
     def __init__(self, backbone: nn.Module, spec: ProtoSpec,
                  add_on_type: str = "deeplab_simple",
@@ -109,7 +211,10 @@ class PPNet(nn.Module):
                  incorrect_strength: float = -0.5,
                  msc_scales: Sequence[float] = (),
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 backbone_channels: Optional[int] = None,
+                 scale_head_type: Optional[str] = None,
+                 bottleneck_stride: Optional[int] = None):
         super().__init__()
         self.spec = spec
         self.msc_scales = tuple(msc_scales)
@@ -118,7 +223,12 @@ class PPNet(nn.Module):
         self.incorrect_strength = incorrect_strength
         self.dtype = dtype
         self.features = Features(backbone)
-        self.add_on_layers = AddOnLayers(add_on_type, dtype)
+        self.add_on_layers = AddOnLayers(
+            add_on_type, backbone_channels or spec.feature_depth,
+            spec.proto_depth, bottleneck_stride, dtype)
+        self.scale_head = None if scale_head_type is None else \
+            ScaleHead(scale_head_type, spec.proto_depth, dtype)
+        self.kernel_head = activation_fn == "log" and scale_head_type is None
         self._head = WeightCache()        # fast_logits' head, built once
         self.prototype_vectors = nn.Parameter(torch.rand(
             spec.num_prototypes, spec.proto_depth, 1, 1, generator=generator))
@@ -208,6 +318,8 @@ class PPNet(nn.Module):
         distances, activations and logits are float32."""
         set_compute_dtype(self.features, dtype)
         self.add_on_layers.dtype = dtype
+        if self.scale_head is not None:
+            self.scale_head.dtype = dtype
         self.dtype = dtype
         return self
 
@@ -252,9 +364,31 @@ class PPNet(nn.Module):
         gw, _ = self.group_weights()
         return group_activations(activations, gw, self.spec)
 
+    def prototype_distances_from_features(self, f: torch.Tensor
+                                          ) -> torch.Tensor:
+        """(B, Hp, Wp, S*D) features -> (B, Hp, Wp, Pa) distances; with the
+        scale head, scale by scale from the coarsest, each scale's
+        features taking in the previous scale's activations (the JAX
+        package's loop, the reference's ``model_multiscale.py:299-317``)."""
+        spec, protos = self.spec, self.prototypes()
+        if self.scale_head is None:
+            return scale_l2_distances(f, protos, spec.scale_bounds)
+        depth = spec.proto_depth
+        outs, prev = {}, None
+        for s in range(spec.num_scales - 1, -1, -1):
+            lo, hi = spec.scale_bounds[s]
+            xs = f[..., s * depth:(s + 1) * depth]
+            if prev is not None:
+                prev_lo, prev_hi = spec.scale_bounds[s + 1]
+                xs = self.scale_head(
+                    xs, distance_to_similarity(prev, self.activation_fn),
+                    protos[prev_lo:prev_hi])
+            outs[s] = prev = scale_l2_distances(xs, protos[lo:hi],
+                                                ((0, hi - lo),))
+        return torch.cat([outs[s] for s in range(spec.num_scales)], -1)
+
     def forward_from_conv_features(self, f: torch.Tensor) -> PPNetOutput:
-        distances = scale_l2_distances(f, self.prototypes(),
-                                       self.spec.scale_bounds)
+        distances = self.prototype_distances_from_features(f)
         activations = distance_to_similarity(distances, self.activation_fn)
         if self.grouped:
             group_act = self.compute_group(activations)
@@ -286,8 +420,7 @@ class PPNet(nn.Module):
         """(conv features (B, Hp, Wp, S*D), distances (B, Hp, Wp, Pa)) of
         the fused map: what prototype push scans."""
         f = self.conv_features(x)
-        return f, scale_l2_distances(f, self.prototypes(),
-                                     self.spec.scale_bounds)
+        return f, self.prototype_distances_from_features(f)
 
     def _head_params(self) -> list:
         if self.grouped:
@@ -312,7 +445,7 @@ class PPNet(nn.Module):
     def packed_buffers(self) -> dict:
         """K1's tables, for ``layers.packed_as_buffers`` (none where the
         head is not the kernel's)."""
-        if self.activation_fn != "log":
+        if not self.kernel_head:
             return {}
         head = self._head_weights()["head"]
         if head.bank is None:
@@ -320,11 +453,11 @@ class PPNet(nn.Module):
         return {f"k1_{k}": getattr(head, k) for k in KERNEL_TABLES}
 
     def fast_logits(self, x: torch.Tensor) -> torch.Tensor:
-        """Backbone + add-on, then the fused prototype head (K1) when the
-        activation is 'log'; other activations take the plain head.  The
-        head's weights are packed once, not per batch."""
+        """Backbone + add-on, then the fused prototype head (K1) where
+        ``kernel_head``, else the plain head.  The head's weights are
+        packed once, not per batch."""
         feats = self.conv_features(x).contiguous()
-        if self.activation_fn != "log":
+        if not self.kernel_head:
             return self.forward_from_conv_features(feats).logits
         if "k1_bank" in self._buffers:            # held for export
             # the kernel reads only the tables of the packed head

@@ -99,6 +99,7 @@ class UNetASPP(nn.Module):
     JAX package's does)."""
 
     trainable_bn = True
+    takes_fast_aspp = True        # the knob exists (the trainer keeps it off)
 
     def __init__(self, n_out: int, rates: Sequence[int] = (6, 12, 18, 24),
                  multiscale: bool = True, base: int = 64):

@@ -26,12 +26,17 @@ parameter.  Frozen parameters get ``requires_grad_(False)``, so the
 backward never runs for them.
 
 Labels:
-  features_conv  backbone convs outside the ASPP (the U-Nets' ``outc``
-                 too)
-  aspp_w/aspp_b  ASPP branch weights/biases (10x lr in the joint phase)
+  features_conv  backbone convs outside the ASPP (the U-Nets' ``outc``,
+                 VGG16's convs and DeepLabV3's ``head_c*`` too: the JAX
+                 package's rule looks for ``aspp`` in the path, and V3's
+                 head has none)
+  aspp_w/aspp_b  ASPP branch weights/biases, 'concat_plus''s ``c{i}_pool``
+                 Linears too (10x lr in the joint phase)
   features_bn    BatchNorm affine (no phase trains it; the U-Nets'
                  trainable BN moves only its running statistics, buffers)
   add_on         add-on layers
+  scale_head     the scale head's Linear ('concat'): trained with the
+                 add-on in the prototype model's warm-up and joint phases
   prototypes     prototype bank
   last_layer     the plain head's last layer
   group_projection, last_layer_group   the group head
@@ -55,6 +60,8 @@ def label_of_path(name: str) -> str:
         return parts[0]
     if parts[0] == "add_on_layers":
         return "add_on"
+    if parts[0] == "scale_head":
+        return "scale_head"
     if "aspp" in parts:
         return "aspp_b" if parts[-1] == "bias" else "aspp_w"
     if "bn" in parts:
@@ -82,25 +89,31 @@ def poly_schedule(power: float, iter_max: int
 
 
 def phase_groups(variant: str, phase: int, hp: Dict[str, float],
-                 joint_last: bool = True, joint_no_proto: bool = False
-                 ) -> Dict[str, OptimGroup]:
+                 joint_last: bool = True, joint_no_proto: bool = False,
+                 has_scale_head: bool = False) -> Dict[str, OptimGroup]:
     """Trainable label -> OptimGroup for a (variant, phase); ``hp`` carries
     the config's learning rates and decays.
 
-    Prototype model: 0 warm-up (add-on, ASPP, prototypes), 1 joint under
-    poly decay (every conv, ASPP at 10x, add-on, prototypes), 2 the last
-    layer.  Group model: 0 the group projections, 1 joint under poly decay
+    Prototype model: 0 warm-up (add-on, ASPP, prototypes; the scale head
+    at the add-on's rate), 1 joint under poly decay (every conv, ASPP at
+    10x, add-on and scale head, prototypes), 2 the last layer.  Group
+    model: 0 the group projections, 1 joint under poly decay
     (``joint_last``: the group projections and the group last layer only;
     otherwise also every conv, the ASPP at 10x, the add-on and, unless
     ``joint_no_proto``, the prototypes), 2 the group last layer."""
     g: Dict[str, OptimGroup] = {}
     if variant in ("single", "multiscale"):
         if phase == 0:
-            for label in ("add_on", "aspp_w", "aspp_b"):
+            for label in ("add_on", "aspp_w", "aspp_b") + \
+                    (("scale_head",) if has_scale_head else ()):
                 g[label] = OptimGroup(hp["warm_lr_add_on"], hp["warm_wd"])
             g["prototypes"] = OptimGroup(hp["warm_lr_protos"])
         elif phase == 1:
             _joint_backbone(g, hp)
+            if has_scale_head:
+                g["scale_head"] = OptimGroup(hp["joint_lr_add_on"],
+                                             hp["joint_wd"],
+                                             use_schedule=True)
             g["prototypes"] = OptimGroup(hp["joint_lr_protos"],
                                          use_schedule=True)
         else:

@@ -186,6 +186,9 @@ class PhaseTrainer:
             elif model.aspp is None:
                 log(f"train.fast_aspp: no effect on {type(base).__name__} "
                     "(no ASPP)")
+            elif not getattr(base, "takes_fast_aspp", False):
+                log(f"train.fast_aspp: no effect on {type(base).__name__} "
+                    "(the knob is DeepLabV2's, as in the JAX package)")
             elif model.dtype == torch.bfloat16:
                 model.aspp.fast = True
             else:
@@ -241,7 +244,9 @@ class PhaseTrainer:
         iter_size = int(hp["iter_size"])
         groups = phase_groups(self.variant, phase, hp["hp"],
                               joint_last=hp["joint_last"],
-                              joint_no_proto=hp["joint_no_proto"])
+                              joint_no_proto=hp["joint_no_proto"],
+                              has_scale_head=self.model.scale_head
+                              is not None)
         schedule = poly_schedule(hp["poly_lr_power"],
                                  max(max_steps // iter_size, 1)) \
             if phase == 1 else None

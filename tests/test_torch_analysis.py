@@ -228,6 +228,80 @@ def test_consistency_and_stability_match_jax(port_env, kind):
     assert {r[-1] for r in rows} == {f"val_{i}" for i in range(N_VAL - 1)}
 
 
+def _write_pascal_data(root: str) -> str:
+    """A Pascal-layout val split of 4 images of 41 x 81: raw VOC ids 0-18
+    and 255 (the 19-class models' range), the filtered ids (raw 4 and 9,
+    ``PASCAL_FILTER_CLASS`` 5 and 10 after the conversion) in every image,
+    part ids 1-25 (25 past ``MAX_PARTS_PASCAL``), the last image without a
+    part file."""
+    rng = np.random.default_rng(11)
+    ids = [f"2008_{i:06d}" for i in range(4)]
+    for sub in ("img_with_margin_0", "annotations", "annotations_PIDS"):
+        os.makedirs(os.path.join(root, sub, "val"))
+    palette = rng.integers(30, 226, (256, 3))
+    for i, img_id in enumerate(ids):
+        grid = np.concatenate([[4, 9, 255], rng.choice(
+            [c for c in range(19) if c not in (4, 9)], 5, replace=False)])
+        label = np.repeat(np.repeat(rng.permutation(grid).reshape(2, 4),
+                                    21, 0), 21, 1)[:H, :W].astype(np.uint8)
+        np.save(os.path.join(root, "annotations", "val", img_id + ".npy"),
+                label)
+        img = palette[label] + rng.integers(-30, 31, (H, W, 3))
+        np.save(os.path.join(root, "img_with_margin_0", "val",
+                             img_id + ".npy"), img.astype(np.uint8))
+        if i == len(ids) - 1:
+            continue                     # an image without part annotations
+        parts = np.full((H, W), -1, np.int32)
+        for k in range(16):
+            y, x = rng.integers(0, H - 4), rng.integers(0, W - 6)
+            parts[y:y + rng.integers(2, 8), x:x + rng.integers(2, 12)] = \
+                1 + (7 * k) % 25
+        np.save(os.path.join(root, "annotations_PIDS", "val",
+                             img_id + ".npy"), parts)
+    with open(os.path.join(root, "all_images.json"), "w") as f:
+        json.dump({"train": [], "val": ids}, f)
+    return root
+
+
+@pytest.mark.parametrize("kind", ["group", "plain"])
+def test_consistency_and_stability_on_pascal_match_jax(setup, kind,
+                                                       tmp_path,
+                                                       monkeypatch):
+    """Pascal's branch: ``PASCAL_FILTER_CLASS`` left out, 25 part columns,
+    class names through ``PASCAL_ID_MAPPING``, the image without a part
+    file skipped; scores and CSVs equal to the JAX package's."""
+    from scaleprotoseg_tpu.analysis.metrics.consistency import \
+        run_consistency
+    from scaleprotoseg_tpu.analysis.metrics.stability import run_stability
+    from scaleprotoseg_torch.analysis.common import dataset_meta
+    from scaleprotoseg_torch.constants import PASCAL_FILTER_CLASS
+    jroot, troot, _, _ = setup
+    data = _write_pascal_data(str(tmp_path / "pascal"))
+    monkeypatch.setenv("RESULTS_DIR", troot)
+    monkeypatch.setenv("DATA_PATH_PASCAL", data)
+    group = ["--group-name", "grun"] if kind == "group" else []
+    argv = [RUN[kind], STAGE[kind], "pascal", "--device", "cpu", *group]
+    jkw = dict(group_name="grun" if group else None, results_root=jroot,
+               data_root=data)
+    assert consistency.main(argv) == run_consistency(
+        RUN[kind], STAGE[kind], "pascal", **jkw)
+    assert stability.main(argv) == run_stability(
+        RUN[kind], STAGE[kind], "pascal", **jkw)
+    for name in ("part_presence_th_0.8_qt_0.8.csv",
+                 "part_presence_mean_th_0.8_qt_0.8.csv",
+                 "tot_presence_stab_qt_0.8.csv"):
+        _csv_equal(os.path.join(_metric_dir(troot, kind), name),
+                   os.path.join(_metric_dir(jroot, kind), name))
+    header, rows = _read_csv(os.path.join(_metric_dir(troot, kind),
+                                          "part_presence_th_0.8_qt_0.8.csv"))
+    cls2name, max_parts, _ = dataset_meta("pascal")
+    assert max_parts == 24 and len(header) == max_parts + 1 + 3
+    assert {r[-1] for r in rows} == {f"2008_{i:06d}" for i in range(3)}
+    filtered = {cls2name[c - 1] for c in PASCAL_FILTER_CLASS}
+    assert rows and not {r[-2] for r in rows} & filtered
+    assert {r[-2] for r in rows} <= set(cls2name.values())
+
+
 def _jax_distances(setup, kind, img_id):
     from scaleprotoseg_tpu.analysis.common import make_distance_fn
     from scaleprotoseg_tpu.analysis.common import normalize_image

@@ -688,6 +688,96 @@ def test_push_on_the_card_matches_the_cpu(dev, gen):
         cpu.prototypes().detach().numpy()[decided], rtol=0, atol=1e-5)
 
 
+def _analysis_run(root, gen, monkeypatch):
+    """A tiny multiscale Cityscapes run (one ResNet block a stage, the
+    config's bank) at ``push_final`` under ``root/results``, and a val
+    split of 3 images of 41 x 81 with part ids, under ``root/city``."""
+    import json
+    import os
+    import shutil
+
+    from scaleprotoseg_torch import configlib
+    from scaleprotoseg_torch.checkpoints.convert import (
+        save_checkpoint, synthetic_state_dict)
+    from scaleprotoseg_torch.cli_common import CONFIGS_DIR
+    from scaleprotoseg_torch.constants import CITYSCAPES_19_EVAL_CATEGORIES
+    from scaleprotoseg_torch.models import factory
+    for name, (cfg, _, mode) in list(factory._BACKBONES.items()):
+        monkeypatch.setitem(factory._BACKBONES, name,
+                            (cfg, (1, 1, 1, 1), mode))
+    config = os.path.join(CONFIGS_DIR, "scaleproto_cityscapes.gin")
+    bindings = configlib.parse_config_file(config)
+    q = bindings["construct_PPNet"]
+    model, spec = factory.construct_ppnet(
+        "multiscale", q["base_architecture"], tuple(q["prototype_shape"]),
+        q["num_classes"], bindings=bindings)
+    run = os.path.join(root, "results", "run")
+    os.makedirs(os.path.join(run, "checkpoints"))
+    shutil.copyfile(config, os.path.join(run, "config.gin"))
+    save_checkpoint(os.path.join(run, "checkpoints", "push_final"),
+                    synthetic_state_dict(model, seed=5), spec,
+                    extra={"variant": "multiscale"})
+    data = os.path.join(root, "city")
+    for sub in ("img_with_margin_0", "annotations", "annotations_PIDS"):
+        os.makedirs(os.path.join(data, sub, "val"))
+    cats = [k for k, v in CITYSCAPES_19_EVAL_CATEGORIES.items() if v > 0]
+    ids = [f"val_{i}" for i in range(3)]
+    for img_id in ids:
+        label = np.repeat(np.repeat(gen.choice(cats, (2, 4)).astype(
+            np.uint8), 21, 0), 21, 1)[:41, :81]
+        parts = np.repeat(np.repeat(gen.integers(-1, 5, (6, 9)), 7, 0),
+                          9, 1)[:41, :81].astype(np.int32)
+        for sub, a in (("annotations", label), ("annotations_PIDS", parts),
+                       ("img_with_margin_0", gen.integers(
+                           0, 256, (41, 81, 3), dtype=np.uint8))):
+            np.save(os.path.join(data, sub, "val", img_id + ".npy"), a)
+    with open(os.path.join(data, "all_images.json"), "w") as f:
+        json.dump({"train": [], "val": ids}, f)
+    monkeypatch.setenv("RESULTS_DIR", os.path.join(root, "results"))
+    monkeypatch.setenv("DATA_PATH_CITY", data)
+    return run
+
+
+def test_analysis_cli_turns_tf32_off_itself(dev, gen, tmp_path,
+                                            monkeypatch):
+    """An analysis CLI (consistency) entered with TF32 on, the library's
+    default, runs every forward with TF32 off, writes the rows of one
+    entered with it off, and leaves both flags as it found them."""
+    import os
+
+    from scaleprotoseg_torch.analysis.metrics import consistency
+    from scaleprotoseg_torch.models.ppnet import PPNet
+    run = _analysis_run(str(tmp_path), gen, monkeypatch)
+    seen = []
+    real = PPNet.push_forward
+
+    def push_forward(self, x):
+        seen.append((torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32))
+        return real(self, x)
+
+    monkeypatch.setattr(PPNet, "push_forward", push_forward)
+    csv = os.path.join(run, "metrics", "push_final",
+                       "part_presence_th_0.8_qt_0.8.csv")
+    rows, scores = {}, {}
+    for on in (True, False):
+        torch.backends.cuda.matmul.allow_tf32 = on
+        torch.backends.cudnn.allow_tf32 = on
+        try:
+            scores[on] = consistency.main(["run", "push_final", "cityscapes",
+                                           "--device", "cuda"])
+            assert (torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32) == (on, on)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        with open(csv) as f:
+            rows[on] = f.read()
+    assert seen and set(seen) == {(False, False)}
+    assert rows[True] == rows[False] and rows[True].count("\n") > 3
+    assert scores[True] == scores[False]
+
+
 def test_group_step_projects_and_k1_follows(dev, gen):
     """A group joint micro-step on the card: the rows stay on the simplex
     after the projection, and K1's packed head (cached on the parameter

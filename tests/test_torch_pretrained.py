@@ -8,8 +8,9 @@
   exactly; ``fc`` is dropped, and a tensor of another shape is skipped in
   both with a "shape mismatch" log line.
 - ``PRETRAINED_BACKBONE_CKPT`` from the port's own checkpoint stem copies
-  its ``features.base.*`` tensors and nothing else; a JAX msgpack
-  ``.ckpt`` and a pickled module are refused by name.
+  its ``features.base.*`` tensors and nothing else; from the JAX
+  package's msgpack ``.ckpt`` it copies the carried ``features.base.*``
+  tensors and nothing else; a pickled module is refused by name.
 - The trainer CLI reads ``PRETRAINED_BACKBONE`` after building the model
   and before ``train.start_checkpoint``, and ``construct_PPNet.pretrained
   = True`` loads nothing and says so once.
@@ -38,6 +39,14 @@ from torch_parity import jax_flagship, port_model, port_spec, to_numpy_tree
 from torch_parity import own_sigterm_guard  # noqa: F401 (autouse)
 
 MISMATCHED = "layer2.0.conv2.weight"
+
+
+def _scaled(tree):
+    """Every array of ``tree`` times 1.5 plus 0.25 (other weights than the
+    model holds)."""
+    return {k: _scaled(v) if isinstance(v, dict) else
+            (np.asarray(v) * 1.5 + 0.25).astype(np.asarray(v).dtype)
+            for k, v in tree.items()}
 
 
 def _torchvision_name(key: str) -> str:
@@ -152,14 +161,29 @@ def test_backbone_from_a_port_checkpoint(flagship, tmp_path):
 
 
 def test_refusals_by_name(flagship, tmp_path):
+    """A pickled module and a module without ResNet keys are refused; the
+    JAX package's msgpack ``.ckpt`` (refused before the port read it) is
+    accepted: its carried backbone lands, nothing else moves."""
     from scaleprotoseg_tpu.checkpoints.io import save_checkpoint as jsave
     model, spec, variables = flagship
     tm = port_model(model, spec, variables)
+    before = {k: v.clone() for k, v in tm.state_dict().items()}
+    jparams, jstats = [to_numpy_tree(t) for t in (variables["params"],
+                                                  variables["batch_stats"])]
+    jparams["backbone"] = _scaled(jparams["backbone"])
     jpath = str(tmp_path / "jax" / "push_final.ckpt")
     os.makedirs(os.path.dirname(jpath))
-    jsave(jpath, variables["params"], variables["batch_stats"], spec=spec)
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        load_backbone_checkpoint_into(tm, jpath, log=lambda _: None)
+    jsave(jpath, jparams, jstats, spec=spec)
+    want = ppnet_params_to_statedict(jparams, jstats, port_spec(spec))
+    logs = []
+    load_backbone_checkpoint_into(tm, jpath, log=logs.append)
+    for k, v in tm.state_dict().items():
+        w = want[k] if k.startswith(PREFIX) else before[k].numpy()
+        np.testing.assert_array_equal(v.numpy(), w, err_msg=k)
+    assert not torch.equal(tm.state_dict()["features.base.layer1.conv1."
+                                           "conv.weight"],
+                           before["features.base.layer1.conv1.conv.weight"])
+    assert "Loaded pretrained backbone" in logs[-1]
     pickled = str(tmp_path / "module.pth")
     torch.save(torch.nn.Linear(2, 2), pickled)
     with pytest.raises(ValueError, match="unpickling"):

@@ -5,9 +5,11 @@ Checked in a fresh interpreter: every module of ``scaleprotoseg_torch``
 and the ``chip_smoke.py`` script are imported, then ``sys.modules`` must
 hold no ``jax``/``flax`` module, nothing of ``scaleprotoseg_tpu``, and
 none of ``cv2``, ``grain``, ``PIL``, ``tifffile``, ``pandas`` or
-``matplotlib``, which the GPU machine does not have.  And no line of the
-port's sources or of ``chip_smoke.py`` imports any of them but
-matplotlib, not even inside a function; no line under
+``matplotlib``, nor ``msgpack``, which the GPU machine does not have
+(the port reads the JAX package's msgpack ``.ckpt`` with its own
+decoder, ``checkpoints/jax_ckpt.py``).  And no line of the port's
+sources or of ``chip_smoke.py`` imports any of them but matplotlib, not
+even inside a function; no line under
 ``scaleprotoseg_torch/analysis/`` imports matplotlib either (the
 evaluation CLI's optional plots, outside that folder, import it where it
 is installed).
@@ -32,7 +34,7 @@ bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "scaleprotoseg_tpu", "cv2", "grain",
                                     "PIL", "tifffile", "pandas",
-                                    "matplotlib"))
+                                    "matplotlib", "msgpack"))
 missing = sorted({"scaleprotoseg_torch." + m for m in (
     "ops.simplex", "push.push", "models.group_init",
     "finetune_wandb_group", "push.artifacts", "find_nearest", "prune",
@@ -48,7 +50,9 @@ missing = sorted({"scaleprotoseg_torch." + m for m in (
     "analysis.nearest_img", "analysis.nearest_proto",
     "analysis.sample_activations_prototype",
     "analysis.sample_activations_group",
-    "analysis.failure_cases")} - set(names))
+    "analysis.failure_cases", "checkpoints.jax_ckpt",
+    "checkpoints.reference", "convert_checkpoint",
+    "models.classic_backbones")} - set(names))
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 20 else 0)
 """
@@ -62,14 +66,14 @@ def test_port_imports_no_jax():
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(PIL|cv2|tifffile|jax|jaxlib|"
-                     r"flax|scaleprotoseg_tpu|pandas)\b", re.M)
+                     r"flax|scaleprotoseg_tpu|pandas|msgpack)\b", re.M)
 _MATPLOTLIB = re.compile(r"^\s*(?:import|from)\s+matplotlib\b", re.M)
 
 
 def test_no_source_line_imports_pil_cv2_tifffile_or_jax():
     """Lazy imports inside functions count too: ``serve`` once decoded
     ``.png`` / ``.jpg`` inputs and wrote its PNGs through PIL there.
-    pandas counts too, and matplotlib under ``analysis/``."""
+    pandas and msgpack count too, and matplotlib under ``analysis/``."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "scaleprotoseg_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]

@@ -35,8 +35,10 @@ def main() -> None:
     smi = cs.device_phase()
     cs.log(smi)
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # the library defaults (TF32 on), as a user's process has them: the
+    # phase enters each CLI so, and each turns TF32 off for its forwards
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
     with tempfile.TemporaryDirectory() as tmp:
         run = cs.write_run(tmp, seed=9, dev=dev)
         ck = os.path.join(run, "checkpoints")
@@ -48,6 +50,8 @@ def main() -> None:
             from scaleprotoseg_torch.analysis import nearest_img
             os.environ.update(RESULTS_DIR=tmp, DATA_PATH_CITY=os.path.join(
                 tmp, "analysis_city"))
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
             prof = cProfile.Profile()
             prof.enable()
             nearest_img.main(["city_flagship", "push_final", "cityscapes"])
